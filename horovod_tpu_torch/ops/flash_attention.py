@@ -1,0 +1,230 @@
+"""Flash attention: the hand-written CUDA kernels, their plain versions
+and the autograd function around them.
+
+Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` ``flash_attention``
+(``_flash_fwd``, ``_flash_bwd``).  Around the kernels, in torch, as the
+JAX package does it: GQA repeats KV heads; q is scaled by 1/sqrt(d) in
+its own dtype; ``delta = rowsum(g * o)`` is computed in f32; dq is
+multiplied by 1/sqrt(d) in f32 before its cast; the layout goes
+``(B, S, H, D) <-> (B*H, S, D)``.
+
+Each kernel has a wrapper (``*_kernel``) that launches it and counts its
+launches in ``.launches``, and a plain PyTorch version (``*_reference``)
+of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
+version only for tensors on the CPU; on CUDA they launch the kernels,
+which raise on anything they do not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_MAX_BH = 65535  # grid.y limit of the launches
+_HEAD_DIMS = (32, 64, 128)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P]},
+    "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+                  "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
+}
+
+
+def _lib(name: str):
+    return _build.load(name, _SIGNATURES[name])
+
+
+# ---------------------------------------------------------------------------
+# plain versions (f32 arithmetic, the kernels' casts)
+# ---------------------------------------------------------------------------
+
+def _causal_keep(s: int, device) -> torch.Tensor:
+    idx = torch.arange(s, device=device)
+    return idx[None, :] <= idx[:, None]
+
+
+def flash_fwd_reference(q, k, v, causal: bool):
+    """(BH, S, D) q (pre-scaled), k, v -> (o in q's dtype, lse (BH, S) f32)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[1], q.device), NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
+    """-> (dq f32 in q's pre-scaled units, dk in k's dtype, dv in v's)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_keep(q.shape[1], q.device), 0.0)
+    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), g.float())
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_kernel_args(name: str, flat, rows=()):
+    """Raise on inputs the kernels do not take: they run on CUDA, on
+    contiguous bf16 (BH, S, D) tensors with D in 32/64/128, and f32
+    (BH, S) row statistics."""
+    bh, s, d = flat[0].shape
+    for t in list(flat) + list(rows):
+        if not t.is_cuda:
+            raise ValueError("%s launches a CUDA kernel; got a tensor on %s"
+                             % (name, t.device))
+        if not t.is_contiguous():
+            raise ValueError("%s takes contiguous tensors" % name)
+        if t.device != flat[0].device:
+            raise ValueError("%s takes tensors on one device" % name)
+    for t in flat:
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (bh, s, d):
+            raise ValueError("%s takes bf16 (BH, S, D) tensors of one shape, "
+                             "got %s %s" % (name, t.dtype, tuple(t.shape)))
+    for t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
+            raise ValueError("%s takes f32 (BH, S) row statistics" % name)
+    if d not in _HEAD_DIMS:
+        raise ValueError("%s takes head_dim in %s, got %d"
+                         % (name, _HEAD_DIMS, d))
+    if bh > _MAX_BH:
+        raise ValueError("%s takes at most %d (batch x head) rows, got %d"
+                         % (name, _MAX_BH, bh))
+    return bh, s, d
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd_kernel(q, k, v, causal: bool):
+    """CUDA forward (``csrc/flash_fwd.cu``) -> (o bf16, lse f32)."""
+    bh, s, d = _check_kernel_args("flash_fwd_kernel", (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    _build.check(_lib("flash_fwd").hvd_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, s, d, int(causal), _stream(q)),
+        "flash_fwd_kernel")
+    flash_fwd_kernel.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA dq (``csrc/flash_bwd.cu``) -> dq f32, pre-scaled units."""
+    bh, s, d = _check_kernel_args("flash_bwd_dq_kernel", (q, k, v, g),
+                                  (lse, delta))
+    dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
+    _build.check(_lib("flash_bwd").hvd_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+        int(causal), _stream(q)), "flash_bwd_dq_kernel")
+    flash_bwd_dq_kernel.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA dk/dv (``csrc/flash_bwd.cu``) -> (dk bf16, dv bf16)."""
+    bh, s, d = _check_kernel_args("flash_bwd_dkv_kernel", (q, k, v, g),
+                                  (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(_lib("flash_bwd").hvd_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, s, d, int(causal), _stream(q)), "flash_bwd_dkv_kernel")
+    flash_bwd_dkv_kernel.launches += 1
+    return dk, dv
+
+
+KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launch_counts():
+    for kern in KERNELS:
+        kern.launches = 0
+
+
+def launch_counts() -> dict:
+    return {kern.__name__: kern.launches for kern in KERNELS}
+
+
+def flash_fwd(q, k, v, causal: bool):
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal)
+    return flash_fwd_kernel(q, k, v, causal)
+
+
+def flash_bwd(q, k, v, g, lse, delta, causal: bool):
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, g, lse, delta, causal)
+    dq = flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal)
+    dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def _to_flat(x):
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def _from_flat(x, b: int, h: int):
+    _, s, d = x.shape
+    return x.view(b, h, s, d).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        b, _, h, d = q.shape
+        scale = 1.0 / math.sqrt(d)
+        # Scaled in q's own dtype: the factor is rounded to it first, as
+        # q * pre_scale does on a bf16 array in the JAX package.
+        qs = _to_flat(q * torch.tensor(scale, dtype=q.dtype, device=q.device))
+        kf, vf = _to_flat(k), _to_flat(v)
+        o, lse = flash_fwd(qs, kf, vf, causal)
+        ctx.save_for_backward(qs, kf, vf, o, lse)
+        ctx.causal, ctx.scale, ctx.shape = causal, scale, (b, h)
+        ctx.q_dtype = q.dtype
+        return _from_flat(o, b, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, kf, vf, o, lse = ctx.saved_tensors
+        b, h = ctx.shape
+        gf = _to_flat(g.to(o.dtype))
+        delta = (gf.float() * o.float()).sum(-1)
+        dq, dk, dv = flash_bwd(qs, kf, vf, gf, lse, delta, ctx.causal)
+        dq = (dq.float() * ctx.scale).to(ctx.q_dtype)
+        return (_from_flat(dq, b, h), _from_flat(dk, b, h),
+                _from_flat(dv, b, h), None)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Fused attention on ``(batch, seq, heads, head_dim)`` tensors; GQA
+    (fewer KV heads) repeats each KV head over its group of q heads."""
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    return _FlashAttention.apply(q, k, v, causal)

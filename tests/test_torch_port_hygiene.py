@@ -1,0 +1,134 @@
+"""What the port may import, and where it may run.
+
+``horovod_tpu_torch`` and ``chip_smoke.py`` import torch and never JAX,
+flax, optax or ``horovod_tpu``; entry points run on CUDA unless asked for
+the CPU; the kernel wrappers launch CUDA kernels and take no CPU tensor.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "horovod_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: tier-1 runs several pytest workers at once,
+    and torch would otherwise start one thread per core in each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "chip_fault_check.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, "%s imports %s" % (path.name, bad)
+
+
+def test_package_imports_with_jax_blocked():
+    """Every module of the package, and chip_smoke, imports in a process
+    where importing JAX or horovod_tpu fails."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for m in %r: sys.modules[m] = None\n"
+        "import horovod_tpu_torch as hvd\n"
+        "mods = [m.name for m in pkgutil.walk_packages(hvd.__path__, "
+        "'horovod_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert not any(sys.modules.get(m) for m in %r)\n"
+        "print(len(mods))\n" % (FORBIDDEN, FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.strip()) >= 12
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import init_params, params_from_jax
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.train import make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=16, d_model=64, n_layers=1,
+                            n_heads=2, n_kv_heads=2, d_ff=32, max_seq=8)
+    adam = lambda ps: torch.optim.Adam(ps)
+    for call in (hvd.init, lambda: Transformer(cfg),
+                 lambda: params_from_jax(init_params(cfg), cfg),
+                 lambda: make_train_step(cfg, adam)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not hvd.is_initialized()
+    model = params_from_jax(init_params(cfg), cfg, device="cpu")
+    assert model.embed.device.type == "cpu"
+    make_train_step(cfg, adam, device="cpu")
+
+
+def test_kernel_wrappers_take_no_cpu_tensor():
+    from horovod_tpu_torch.ops import flash_attention as fa
+    fa.reset_launch_counts()
+    x = torch.zeros(2, 64, 32, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 64)
+    calls = (lambda: fa.flash_fwd_kernel(x, x, x, True),
+             lambda: fa.flash_bwd_dq_kernel(x, x, x, x, rows, rows, True),
+             lambda: fa.flash_bwd_dkv_kernel(x, x, x, x, rows, rows, True))
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            call()
+    assert fa.launch_counts() == {k.__name__: 0 for k in fa.KERNELS}
+    # The dispatchers take the plain versions for CPU tensors only.
+    o, lse = fa.flash_fwd(x, x, x, True)
+    ref_o, ref_lse = fa.flash_fwd_reference(x, x, x, True)
+    np.testing.assert_array_equal(o.float().numpy(), ref_o.float().numpy())
+    assert fa.launch_counts() == {k.__name__: 0 for k in fa.KERNELS}
+
+
+def test_kernels_build_into_an_ignored_directory():
+    """The kernels build under the package at first use, into a
+    ``build/`` directory that ``.gitignore`` lists, from the sources in
+    ``csrc/``."""
+    from horovod_tpu_torch.ops import _build
+    rel = _build.build_dir().relative_to(REPO)
+    assert rel.parts[:2] == ("horovod_tpu_torch", "build")
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
+                                                  "flash_bwd.cu"}
+    assert os.path.exists(_build.CSRC / "flash_common.cuh")
+
+
+def test_capability_probes_tell_the_truth():
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    assert hvd.cuda_built() == (torch.version.cuda is not None)
+    assert hvd.nccl_built() == dist.is_nccl_available()
+    assert hvd.gloo_built() == dist.is_gloo_available()
+    assert hvd.mpi_built() == dist.is_mpi_available()

@@ -4,24 +4,32 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions and the TF32 flags, and builds the kernels from
-   ``horovod_tpu_torch/csrc`` (timed, as set-up).
+   CUDA versions and the TF32 flags (both off), and builds the kernels
+   from ``horovod_tpu_torch/csrc`` (timed, as set-up).
 2. Holds every kernel against its plain PyTorch version, run on the card
-   in f32 on the same inputs, at the flagship attention shape (BH 32,
+   in f32 on the same inputs, and times kernel, plain version and the
+   library yardstick on the device (``time_ms``) beside each kernel's
+   bound: the flash kernels at the flagship attention shape (BH 32,
    S 2048, D 128, bf16, causal) and at a ragged non-causal one (BH 4,
-   S 200, D 64); times kernel, plain version and the library yardstick
-   (``scaled_dot_product_attention``, forward and backward) with CUDA
-   events, and computes each kernel's bound.
-3. Holds the decoder's loss and gradient on the card (bf16, kernels)
-   against the same weights in f32 on the CPU (plain versions), at a
-   small width.
-4. The main path: ``hvd.init()`` as a one-rank NCCL world, the d1024 L12
-   decoder of ``bench.py`` at full width from a numpy seed, broadcast of
-   its parameters, and training steps of batch 4 at seq 2048 through
-   ``DistributedOptimizer(Adam)`` and its fused allreduce.  Each kernel
-   must launch 12 times a step.
-5. Prints one JSON line of kernel records, then as the last line
-   ``{"ok": true, "device": {...}}``.
+   S 200, D 64), against ``scaled_dot_product_attention``; the four
+   BatchNorm kernels at four NormAct shapes of ResNet-50 (the stem,
+   stage 4's last, a projection, and a ragged M 997, C 101), against
+   ``F.batch_norm(training=True)``.
+3. Holds two small models on the card against the same weights in f32 on
+   the CPU (plain versions): the decoder (bf16) and ResNet-50 (image 64,
+   batch 4; f32 for the gradients, bf16 for the loss).
+4. The main paths, each run with every launch count set to 0 just
+   before it and read just after, through ``hvd.init()`` (a one-rank
+   NCCL world), ``broadcast_parameters`` and ``DistributedOptimizer``
+   with its fused allreduce, from numpy seeds at full width and depth:
+   the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048, Adam; each
+   flash kernel 12 launches a step, no BN kernel), then ResNet-50 of
+   ``bench.py:274-321`` (batch 128, 224^2, SGD 0.1 with momentum 0.9;
+   each BN kernel 53 launches a step, no flash kernel).  Each profiles
+   one more step by kernel family; each BN kernel's device time in that
+   step is printed beside the step's byte bound for it.
+5. Prints one JSON line of kernel records (seven kernels), then as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
@@ -37,6 +45,7 @@ import time
 import traceback
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Each kernel output against its plain version, element by element:
 #   |got - plain| <= rtol * |plain| + atol * scale(plain's row)
@@ -57,6 +66,44 @@ KERNEL_TOL = {"o": (2 ** -7, 2 ** -5), "lse": (2 ** -16, 2 ** -16),
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 STEPS = 5
 
+# The BatchNorm kernels against their plain versions (f32 arithmetic, the
+# kernels' casts) on the same bf16 inputs, element by element:
+#   |got - plain| <= rtol * |plain| + atol * scale
+# Elementwise outputs (y, dx, dres): scale is the RMS of the plain
+# output's channel (floored at 1/16 of the tensor's RMS).  The kernels
+# repeat the plain versions' rounded f32 operations in their order, so
+# these should agree bit for bit; rtol allows one bf16 ulp.  Sums (mean,
+# var, dgamma, dbeta) are added in another order than the plain
+# versions'.  The rounding error of an f32 sum of terms of random sign
+# grows like the root of the sum of the terms' squares, so there scale is
+# sqrt(sum of squares) (over M for mean and var) and atol 2^-12 sits about
+# two orders above that rounding; rtol holds sums whose terms share a
+# sign (mean, var).  A row chunk dropped from a sum of K chunks moves it
+# by about scale / sqrt(K): at the stem's 1024 chunks, 2^-5 of the scale,
+# 128 times the limit.
+BN_TOL = {"y": (2 ** -7, 2 ** -8), "dx": (2 ** -7, 2 ** -8),
+          "dres": (2 ** -7, 2 ** -8), "mean": (2 ** -16, 2 ** -12),
+          "var": (2 ** -16, 2 ** -12), "dgamma": (2 ** -16, 2 ** -12),
+          "dbeta": (2 ** -16, 2 ** -12)}
+# (name, M, C, relu, residual) of NormActs of ResNet-50 at batch 128,
+# 224^2, and a ragged shape the TPU plan rejects, whose odd C runs the
+# kernels' one-element (VEC 1) loads.
+BN_SHAPES = (("stem", 1605632, 64, True, False),
+             ("stage-4 last", 6272, 2048, True, True),
+             ("projection", 100352, 512, False, False),
+             ("ragged", 997, 101, True, True))
+BN_EPS = 1e-5
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_red", "bn_bwd_dx")
+# The small ResNet-50 on the card (kernels) against f32 on the CPU (plain
+# versions), image 64 and batch 4 (16 values a channel at the last
+# stage): in f32 (TF32 off), the loss's relative error and each
+# parameter's relative gradient norm error; in bf16, the loss's relative
+# error.  (bf16 against f32 gradients differ by a median 66% per leaf on
+# the CPU alone, plain versions on both sides, so they hold nothing.)
+# Readings 3.1e-7, 5.1e-3 and 0.032; limits about 30x, 4x and 3x those.
+RN_IMAGE, RN_BATCH = 64, 4
+RN_LOSS_TOL, RN_LEAF_TOL, RN_BF16_LOSS_TOL = 1e-5, 2e-2, 0.1
+
 
 def say(*args):
     print(*args, flush=True)
@@ -70,24 +117,37 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps=10, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn()``."""
+    """Device time of one call of ``fn()``: ``reps`` calls back to back
+    between one CUDA event pair, over ``reps``.  A sleep kernel ahead of
+    the pair holds the device while the host queues the calls, so the
+    pair reads the device's work, not the host's time to launch it (which
+    exceeds a small kernel's); the sleep doubles until the host's queueing
+    ends inside it."""
     import torch
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 21
+    while cycles < 1 << 34:
+        torch.cuda.synchronize()
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t = time.perf_counter()
+        s.record()
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        host_ms = (time.perf_counter() - t) * 1e3
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if host_ms < s.elapsed_time(a):
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    raise RuntimeError("time_ms: the host did not queue %d calls within a "
+                       "sleep of 2^34 cycles" % reps)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -254,10 +314,256 @@ def check_model():
                              % (loss_err, bad))
 
 
+def bn_inputs(m, c, residual):
+    """x (mean 0.3, sd 1.5), dy and the residual in bf16, gamma about 1
+    and beta about 0 in f32, from a seeded generator on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(m * 7919 + c)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    x = rnd(m, c, scale=1.5, shift=0.3).to(torch.bfloat16)
+    dy = rnd(m, c).to(torch.bfloat16)
+    res = rnd(m, c).to(torch.bfloat16) if residual else None
+    return x, dy, res, rnd(c, scale=0.5, shift=1.0), rnd(c, scale=0.5)
+
+
+def bn_compare(got, want, rtol, atol, scale):
+    """Element-wise error of ``got`` against ``want``; ``worst`` is the
+    largest |err| / (rtol |want| + atol scale), at most 1 to pass."""
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    # A channel whose ReLU masks every row sums to exactly 0 on both
+    # sides, with a scale of 0: an exact match reads 0, not 0/0.
+    ratio = err / (rtol * want.abs() + atol * scale)
+    worst = torch.where(err == 0, torch.zeros_like(ratio), ratio).max()
+    return {"max_abs_err": err.max().item(), "worst": worst.item(),
+            "max_abs_plain": want.abs().max().item()}
+
+
+def bn_plain(bn, x, dy, res, gamma, beta, relu):
+    """The plain versions in a row, as batch_norm_act chains them:
+    (mean, var, y, dbeta, dgamma, dx, dres)."""
+    import torch
+    m = x.shape[0]
+    s, q = bn.bn_stats_reference(x)
+    mean, var = s / m, torch.clamp_min(q / m - torch.square(s / m), 0.0)
+    y = bn.bn_apply_reference(x, mean, var, gamma, beta, res, BN_EPS, relu)
+    db, dg = bn.bn_bwd_reductions_reference(x, dy, mean, var, gamma, beta,
+                                            res, BN_EPS, relu)
+    dx, dres = bn.bn_bwd_dx_reference(x, dy, mean, var, gamma, beta, db, dg,
+                                      res, BN_EPS, relu)
+    return mean, var, y, db, dg, dx, dres
+
+
+def bn_errors(bn, x, dy, res, gamma, beta, relu):
+    """Every BN kernel's outputs against its plain version on the same
+    inputs; each kernel gets the plain versions' statistics and sums
+    where it takes them.  -> ({kernel: {output: bn_compare(...)}}, the
+    plain (mean, var, dbeta, dgamma))."""
+    import torch
+    m = x.shape[0]
+    mean, var, y_ref, db_ref, dg_ref, dx_ref, dres_ref = bn_plain(
+        bn, x, dy, res, gamma, beta, relu)
+    s, q = bn.bn_stats_kernel(x)
+    k_mean, k_var = s / m, torch.clamp_min(q / m - torch.square(s / m), 0.0)
+    y = bn.bn_apply_kernel(x, mean, var, gamma, beta, res, BN_EPS, relu)
+    db, dg = bn.bn_bwd_reductions_kernel(x, dy, mean, var, gamma, beta, res,
+                                         BN_EPS, relu)
+    dx, dres = bn.bn_bwd_dx_kernel(x, dy, mean, var, gamma, beta, db_ref,
+                                   dg_ref, res, BN_EPS, relu)
+    torch.cuda.synchronize()
+    xf = x.float()
+    xh, dye = bn._xhat_dy(x, dy, mean, var, gamma, beta, res, BN_EPS, relu)
+    root = lambda t: t.square().sum(0).sqrt()
+    sums = {"mean": root(xf) / m, "var": root(xf * xf) / m,
+            "dbeta": root(dye), "dgamma": root(dye * xh)}
+
+    def column(t):
+        sq = t.float().square()
+        return torch.maximum(sq.mean(0).sqrt(), sq.mean().sqrt() / 16)
+
+    outputs = {"bn_stats": {"mean": (k_mean, mean), "var": (k_var, var)},
+               "bn_apply": {"y": (y, y_ref)},
+               "bn_bwd_red": {"dbeta": (db, db_ref), "dgamma": (dg, dg_ref)},
+               "bn_bwd_dx": {"dx": (dx, dx_ref)}}
+    if res is not None:
+        outputs["bn_bwd_dx"]["dres"] = (dres, dres_ref)
+    errs = {name: {out: bn_compare(got, want, *BN_TOL[out],
+                                   sums[out] if out in sums else column(want))
+                   for out, (got, want) in outs.items()}
+            for name, outs in outputs.items()}
+    return errs, (mean, var, db_ref, dg_ref)
+
+
+def bn_work(m, c, residual):
+    """(FLOP, bytes) of each BN kernel at one bf16 shape: each input read
+    once, each output written once; a few f32 operations per element."""
+    act, r, vec = m * c * 2, int(residual), c * 4
+    return {"bn_stats": (3 * m * c, act + 2 * vec),
+            "bn_apply": (7 * m * c, (2 + r) * act + 4 * vec),
+            "bn_bwd_red": (10 * m * c, (2 + r) * act + 6 * vec),
+            "bn_bwd_dx": (12 * m * c, (3 + 2 * r) * act + 8 * vec)}
+
+
+def bn_times(bn, x, dy, res, gamma, beta, relu, stats):
+    """{kernel: {ms, plain_ms, bound_ms, bound_by, library_ms}} at one
+    shape.  The library yardstick, never called by the port, is
+    ``F.batch_norm(training=True)`` on the same channels_last bf16
+    tensor: its forward stands beside bn_stats and bn_apply, its
+    backward beside bn_bwd_red and bn_bwd_dx; it fuses neither the
+    residual add nor the ReLU."""
+    import torch
+    import torch.nn.functional as F
+    m, c = x.shape
+    mean, var, db, dg = stats
+    runs = {
+        "bn_stats": (lambda: bn.bn_stats_kernel(x),
+                     lambda: bn.bn_stats_reference(x)),
+        "bn_apply": (
+            lambda: bn.bn_apply_kernel(x, mean, var, gamma, beta, res,
+                                       BN_EPS, relu),
+            lambda: bn.bn_apply_reference(x, mean, var, gamma, beta, res,
+                                          BN_EPS, relu)),
+        "bn_bwd_red": (
+            lambda: bn.bn_bwd_reductions_kernel(x, dy, mean, var, gamma,
+                                                beta, res, BN_EPS, relu),
+            lambda: bn.bn_bwd_reductions_reference(x, dy, mean, var, gamma,
+                                                   beta, res, BN_EPS, relu)),
+        "bn_bwd_dx": (
+            lambda: bn.bn_bwd_dx_kernel(x, dy, mean, var, gamma, beta, db, dg,
+                                        res, BN_EPS, relu),
+            lambda: bn.bn_bwd_dx_reference(x, dy, mean, var, gamma, beta, db,
+                                           dg, res, BN_EPS, relu)),
+    }
+    x4 = x.view(1, m, 1, c).permute(0, 3, 1, 2).detach().requires_grad_()
+    w, b = (t.clone().requires_grad_() for t in (gamma, beta))
+    lib = lambda: F.batch_norm(x4, None, None, w, b, training=True,
+                               eps=BN_EPS)
+    out4, dy4 = lib(), dy.view(1, m, 1, c).permute(0, 3, 1, 2)
+    lib_ms = {"fwd": time_ms(lambda: lib().detach()),
+              "bwd": time_ms(lambda: torch.autograd.grad(
+                  out4, (x4, w, b), dy4, retain_graph=True))}
+    work = bn_work(m, c, res is not None)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        rec = {"ms": time_ms(kern, reps=20), "plain_ms": time_ms(plain),
+               "library_ms": lib_ms["fwd" if name in ("bn_stats", "bn_apply")
+                                    else "bwd"]}
+        rec["bound_ms"], rec["bound_by"] = bound(*work[name],
+                                                 peak=PEAK_F32_FLOPS)
+        out[name] = rec
+    return out
+
+
+def check_bn_kernels(bn):
+    """The four BN kernels against their plain versions at BN_SHAPES,
+    timed there; returns the largest error of each kernel's outputs and
+    the timings ``{shape label: bn_times(...)}``."""
+    max_err = dict.fromkeys(BN_KERNELS, 0.0)
+    bad, all_times = [], {}
+    for label, m, c, relu, residual in BN_SHAPES:
+        x, dy, res, gamma, beta = bn_inputs(m, c, residual)
+        errs, stats = bn_errors(bn, x, dy, res, gamma, beta, relu)
+        times = all_times[label] = bn_times(bn, x, dy, res, gamma, beta,
+                                            relu, stats)
+        what = "%s M%d C%d%s%s" % (label, m, c, " relu" if relu else "",
+                                   " residual" if residual else "")
+        for name, outs in errs.items():
+            for out, e in outs.items():
+                max_err[name] = max(max_err[name], e["max_abs_err"])
+                if not e["worst"] <= 1.0:
+                    bad.append("%s %s at %s" % (name, out, what))
+            say("bn kernel %s %s: %s; %s" % (
+                name, what, json.dumps({
+                    out: {k: float("%.4g" % v) for k, v in e.items()}
+                    for out, e in outs.items()}),
+                json.dumps({k: (float("%.6g" % v) if isinstance(v, float)
+                                else v) for k, v in times[name].items()})))
+    say("bn tolerances (rtol, atol x scale): %s; library_ms is "
+        "F.batch_norm(training=True) on the same channels_last bf16 tensor, "
+        "forward beside bn_stats and bn_apply, backward beside bn_bwd_red "
+        "and bn_bwd_dx, without the residual add or the ReLU"
+        % json.dumps(BN_TOL))
+    if bad:
+        raise AssertionError("BN kernel output off its plain version: %s"
+                             % ", ".join(bad))
+    return max_err, all_times
+
+
+def resnet_model_errors(image=RN_IMAGE, batch=RN_BATCH):
+    """Loss and gradients of a small ResNet-50 (10 classes) on the card,
+    with the kernels, against the same weights in f32 on the CPU, with
+    the plain versions: f32 on the card (TF32 off) gives the loss's
+    relative error and each parameter's relative gradient norm error;
+    bf16 on the card gives the loss's relative error.  The blocks'
+    last-norm scales are random in [0.2, 0.5], so that the residual
+    branches pass gradient.  -> (loss_f32, leaves_f32, loss_bf16)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.convert_resnet import (init_params,
+                                                         params_from_flax)
+    from horovod_tpu_torch.models.resnet import ResNetConfig, resnet_loss_fn
+    from horovod_tpu_torch.train import synthetic_images
+
+    variables = init_params(50, 10, seed=1)
+    rng = np.random.RandomState(1)
+    for block in variables["params"].values():
+        for mod in block.values():
+            if isinstance(mod, dict) and "scale" in mod \
+                    and not mod["scale"].any():
+                mod["scale"][...] = rng.uniform(0.2, 0.5, mod["scale"].shape)
+    data = synthetic_images(batch, image, 10, seed=1)
+    out = {}
+    for dtype, dev in (("float32", "cuda"), ("bfloat16", "cuda"),
+                       ("float32", "cpu")):
+        cfg = ResNetConfig(50, 10, dtype)
+        model = params_from_flax(variables, cfg, dev)
+        b = {"x": torch.as_tensor(data["x"], device=dev).to(cfg.act_dtype)
+             .permute(0, 3, 1, 2),
+             "y": torch.as_tensor(data["y"], device=dev)}
+        loss = resnet_loss_fn(model, b)
+        loss.backward()
+        out[dtype, dev] = (loss.item(), {n: p.grad.float().cpu()
+                                         for n, p in model.named_parameters()})
+    l_cpu, g_cpu = out["float32", "cpu"]
+    l_gpu, g_gpu = out["float32", "cuda"]
+    leaves = {n: ((g_gpu[n] - g).norm() / g.norm()).item()
+              for n, g in g_cpu.items()}
+    l_bf16 = out["bfloat16", "cuda"][0]
+    return (abs(l_gpu - l_cpu) / abs(l_cpu), leaves,
+            abs(l_bf16 - l_cpu) / abs(l_cpu))
+
+
+def check_resnet_model():
+    loss_err, leaves, bf16_err = resnet_model_errors()
+    worst = max(leaves, key=leaves.get)
+    ranked = sorted(leaves.items(), key=lambda kv: -kv[1])
+    say("resnet model check (ResNet-50, image %d, batch %d, 10 classes; "
+        "card against f32 CPU): f32 loss relative error %.3g (tol %.3g), "
+        "gradient relative norm error per parameter: worst %s %.3g (tol "
+        "%.3g), median %.3g, top 5 %s; bf16 loss relative error %.3g (tol "
+        "%.3g)" % (RN_IMAGE, RN_BATCH, loss_err, RN_LOSS_TOL, worst,
+                   leaves[worst], RN_LEAF_TOL,
+                   statistics.median(leaves.values()),
+                   json.dumps({n: float("%.3g" % e) for n, e in ranked[:5]}),
+                   bf16_err, RN_BF16_LOSS_TOL))
+    bad = [n for n, e in leaves.items() if not e <= RN_LEAF_TOL]
+    if (not loss_err <= RN_LOSS_TOL or bad
+            or not bf16_err <= RN_BF16_LOSS_TOL):
+        raise AssertionError("small ResNet-50 on the card disagrees with the "
+                             "f32 CPU reference: loss %.3g (bf16 %.3g), "
+                             "gradients of %s" % (loss_err, bf16_err, bad))
+
+
 def print_ptxas(text: str):
-    """One line per kernel instantiation from nvcc's -Xptxas=-v report:
-    registers, spills and shared memory."""
-    name = None
+    """nvcc's -Xptxas=-v report: one line per flash kernel
+    instantiation (registers, spills, shared memory); the BN kernels'
+    instantiations (type x vector width x ReLU x residual) summed up per
+    kernel as a register range and the largest spill."""
+    name, bn_regs = None, {}
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -268,26 +574,44 @@ def print_ptxas(text: str):
         elif name and "registers" in line:
             # _ZN8hvdflash16flash_fwd_kernelILi128ELb1EEEv... -> kernel<128, 1>
             k = re.search(r"hvdflash\d+(\w+?)ILi(\d+)ELb(\d)E", name)
-            label = "%s<%s, %s>" % k.groups() if k else name
-            say("  ptxas %-26s %s; %s" % (
-                label, line.split(":", 1)[-1].strip(), spills))
+            b = re.search(r"hvdbn\d+(bn_\w+?_kernel)", name)
+            if b:
+                regs = int(re.search(r"Used (\d+) registers", line).group(1))
+                spill = int(re.search(r"(\d+) bytes spill stores", spills)
+                            .group(1)) if spills else 0
+                bn_regs.setdefault(b.group(1), []).append((regs, spill))
+            else:
+                label = "%s<%s, %s>" % k.groups() if k else name
+                say("  ptxas %-26s %s; %s" % (
+                    label, line.split(":", 1)[-1].strip(), spills))
             name = None
+    for kern, vals in sorted(bn_regs.items()):
+        say("  ptxas %-26s %d instantiation(s), %d-%d registers, largest "
+            "spill %d bytes" % (kern, len(vals), min(v[0] for v in vals),
+                                max(v[0] for v in vals),
+                                max(v[1] for v in vals)))
 
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+            ("bn_stats", ("bn_stats_",)),
+            ("bn_apply", ("bn_apply_kernel",)),
+            ("bn_bwd_red", ("bn_bwd_red_",)),
+            ("bn_bwd_dx", ("bn_bwd_dx_kernel",)),
             ("allreduce (nccl)", ("nccl",)),
+            ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "winograd")),
             ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
             ("optimizer (foreach)", ("multi_tensor_apply",)))
 
 
 def profile_step(torch, step, data, step_ms):
     """Device time of one more flagship step by kernel family, from
-    torch.profiler's kernel events.  The device's busy time is the union
-    of the kernels' intervals; its idle share is taken against
-    ``step_ms``, the unprofiled median step, since the profiled step's
-    host time includes the profiler's own overhead."""
+    torch.profiler's kernel events -> {family: ms}.  The device's busy
+    time is the union of the kernels' intervals; its idle share is taken
+    against ``step_ms``, the unprofiled median step, since the profiled
+    step's host time includes the profiler's own overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -301,7 +625,7 @@ def profile_step(torch, step, data, step_ms):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         say("profile: the profiler recorded no device time (not measured)")
-        return
+        return {}
     busy, end = 0.0, -1.0
     for a, b in sorted((e.time_range.start, e.time_range.end)
                        for e in kernels):
@@ -316,7 +640,8 @@ def profile_step(torch, step, data, step_ms):
                     if any(k in low for k in keys)), "other (elementwise, "
                                                     "reductions, copies)")
         totals[fam] = totals.get(fam, 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        by_name.setdefault(fam, {})
+        by_name[fam][e.name] = by_name[fam].get(e.name, 0.0) + us
     say("profile: one step, device busy %.2f ms, idle share %.1f%% of the "
         "%.2f ms median step (profiled step's host time %.2f ms)"
         % (busy / 1e3, 100 * (1 - busy / 1e3 / step_ms), step_ms,
@@ -324,8 +649,9 @@ def profile_step(torch, step, data, step_ms):
     for fam, us in sorted(totals.items(), key=lambda kv: -kv[1]):
         say("  %-40s %9.3f ms  %5.1f%% of kernel time"
             % (fam, us / 1e3, 100 * us / sum(totals.values())))
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say("  top kernel %9.3f ms  %s" % (us / 1e3, name[:110]))
+        for name, t in sorted(by_name[fam].items(), key=lambda kv: -kv[1])[:3]:
+            say("      %9.3f ms  %s" % (t / 1e3, name[:100]))
+    return {fam: us / 1e3 for fam, us in totals.items()}
 
 
 def train_flagship(torch):
@@ -333,6 +659,7 @@ def train_flagship(torch):
     import torch.distributed as dist
     from horovod_tpu_torch.models.convert import init_params
     from horovod_tpu_torch.models.transformer import TransformerConfig
+    from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.train import make_train_step, synthetic_batch
 
@@ -358,6 +685,7 @@ def train_flagship(torch):
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    bn.reset_launch_counts()
     losses, times = [], []
     for i in range(STEPS):
         t = time.perf_counter()
@@ -367,6 +695,9 @@ def train_flagship(torch):
         losses.append(loss.item())
         say("step %d: loss %.6f, %.2f ms" % (i, losses[-1], times[-1] * 1e3))
     counts = fa.launch_counts()
+    if any(bn.launch_counts().values()):
+        raise AssertionError("the decoder launched BN kernels: %s"
+                             % bn.launch_counts())
     med = statistics.median(times)
     say("flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
         % (med * 1e3, batch * seq / med,
@@ -383,12 +714,98 @@ def train_flagship(torch):
     return counts
 
 
+def train_resnet_flagship(torch, batch=128, image=224):
+    """ResNet-50 of bench.py:274-321 through the port's entry points:
+    batch 128, 224^2, 1000 classes, bf16, SGD(0.1, momentum 0.9), from
+    numpy seed 0; each BN kernel must launch 53 times a step, flash none.
+    Returns the launch counts, one step's NormAct shapes and the profiled
+    step's device time by kernel family."""
+    import collections
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert_resnet import init_params
+    from horovod_tpu_torch.models.resnet import NormAct, ResNetConfig
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (make_resnet_train_step,
+                                         synthetic_images)
+
+    hvd.init()
+    cfg = ResNetConfig(depth=50, num_classes=1000, dtype="bfloat16")
+    t0 = time.perf_counter()
+    build, shard_batch = make_resnet_train_step(
+        cfg, lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9))
+    step, model, opt = build(init_params(50, 1000, seed=0))
+    data = shard_batch(synthetic_images(batch, image, 1000, seed=0))
+    torch.cuda.synchronize()
+    norms = [m for m in model.modules() if isinstance(m, NormAct)]
+    say("resnet flagship: ResNet-50 batch %d, %dx%d, %d parameters, %d "
+        "NormActs, %d fused allreduce group(s); set-up %.1f s"
+        % (batch, image, image, sum(p.numel() for p in model.parameters()),
+           len(norms), len(opt._groups), time.perf_counter() - t0))
+
+    # The NormAct input shapes of one step, read by forward pre-hooks
+    # during the first timed step (they launch nothing): they give the
+    # step's BN byte bound, beside which the profile's BN time is read.
+    shapes = collections.Counter()
+
+    def record(mod, args):
+        x = args[0]
+        shapes[(x.numel() // x.shape[1], x.shape[1], mod.relu,
+                len(args) > 1 and args[1] is not None)] += 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in norms]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bn.reset_launch_counts()
+    losses, times = [], []
+    for i in range(STEPS):
+        t = time.perf_counter()
+        loss = step(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        for h in hooks:
+            h.remove()
+        hooks = []
+        say("resnet step %d: loss %.6f, %.2f ms"
+            % (i, losses[-1], times[-1] * 1e3))
+    counts = bn.launch_counts()
+    flash = fa.launch_counts()
+    med = statistics.median(times)
+    say("resnet flagship: median step_ms %.2f, img/s %.1f, peak memory "
+        "%.2f GB" % (med * 1e3, batch / med,
+                     torch.cuda.max_memory_allocated() / 1e9))
+    say("launches on the resnet path (%d steps): %s, flash %s"
+        % (STEPS, counts, flash))
+    n_norm = sum(shapes.values())
+    elems = sum(n * m * c for (m, c, _, _), n in shapes.items())
+    res_elems = sum(n * m * c for (m, c, _, r), n in shapes.items() if r)
+    say("resnet NormAct shapes of one step: %d layers, sum M*C %d, of them "
+        "with a residual %d; %s" % (n_norm, elems, res_elems, json.dumps(
+            ["M%d C%d%s%s x%d" % (m, c, " relu" if rl else "",
+                                  " res" if r else "", n)
+             for (m, c, rl, r), n in sorted(shapes.items())])))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss: %s" % losses)
+    if n_norm != len(norms) or any(flash.values()):
+        raise AssertionError("%d NormActs seen in a step of %d; flash %s"
+                             % (n_norm, len(norms), flash))
+    for name, n in counts.items():
+        if n != len(norms) * STEPS:
+            raise AssertionError("%s launched %d times, expected %d"
+                                 % (name, n, len(norms) * STEPS))
+    prof = profile_step(torch, step, data, med * 1e3)
+    hvd.shutdown()
+    return counts, shapes, prof
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
 
     # -- 1: card, versions, flags, build
@@ -419,11 +836,25 @@ def main() -> int:
                 json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                             for k, v in rec.items()})))
 
-    # -- 3: a small decoder against the f32 CPU reference
-    check_model()
+    bn_err, bn_shape_times = check_bn_kernels(bn)
 
-    # -- 4: the main path
+    # -- 3: small models against the f32 CPU reference
+    check_model()
+    check_resnet_model()
+
+    # -- 4: the main paths, each with every count set to 0 just before
     counts = train_flagship(torch)
+    torch.cuda.empty_cache()
+    bn_counts, shapes, prof = train_resnet_flagship(torch)
+    for name in BN_KERNELS:
+        step_bound = sum(n * bound(*bn_work(m, c, r)[name],
+                                   peak=PEAK_F32_FLOPS)[0]
+                         for (m, c, _, r), n in shapes.items())
+        say("bn kernel %s, one ResNet-50 step's %d NormActs (b128, 224^2): "
+            "device %s ms (profile), bound %.6g ms" % (
+                name, sum(shapes.values()),
+                "%.6g" % prof[name] if name in prof else "not measured",
+                step_bound))
 
     # -- 5: results
     sources = {"flash_fwd": ("horovod_tpu_torch/csrc/flash_fwd.cu",
@@ -435,16 +866,38 @@ def main() -> int:
                "flash_bwd_dkv": ("horovod_tpu_torch/csrc/flash_bwd.cu",
                                  "horovod_tpu/ops/pallas_kernels.py:376",
                                  "flash_bwd_dkv_kernel")}
+    bn_sources = {"bn_stats": ("horovod_tpu/ops/pallas_bn.py:96",
+                               "bn_stats_kernel"),
+                  "bn_apply": ("horovod_tpu/ops/pallas_bn.py:119",
+                               "bn_apply_kernel"),
+                  "bn_bwd_red": ("horovod_tpu/ops/pallas_bn.py:147",
+                                 "bn_bwd_reductions_kernel"),
+                  "bn_bwd_dx": ("horovod_tpu/ops/pallas_bn.py:177",
+                                "bn_bwd_dx_kernel")}
     say("kernels: " + "; ".join(
         "%s held at BH4 S200 D64 full and BH32 S2048 D128 causal (phase 2), "
-        "launched %d times in training (phase 4)" % (name, counts[w])
-        for name, (_, _, w) in sources.items()))
+        "launched %d times in decoder training (phase 4)" % (name, counts[w])
+        for name, (_, _, w) in sources.items()) + "; " + "; ".join(
+        "%s held at %s (phase 2), launched %d times in ResNet-50 training "
+        "(phase 4); its ms, plain_ms, bound_ms and library_ms are one call's "
+        "device time at the stem's shape" % (name, ", ".join(
+            "M%d C%d" % (m, c) for _, m, c, _, _ in BN_SHAPES),
+            bn_counts[w]) for name, (_, w) in bn_sources.items()))
     out = []
     for name, (src, replaces, wrapper) in sources.items():
         rec = records[name]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[wrapper],
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"]})
+    for name, (replaces, wrapper) in bn_sources.items():
+        rec = bn_shape_times["stem"][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "horovod_tpu_torch/csrc/batch_norm.cu",
+                    "replaces": replaces, "launches": bn_counts[wrapper],
+                    "max_abs_err": bn_err[name], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})

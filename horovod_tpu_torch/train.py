@@ -1,7 +1,7 @@
-"""The data-parallel training step of the flagship decoder.
+"""The data-parallel training steps of the two flagship models.
 
-Counterpart of ``horovod_tpu.models.transformer.make_train_step`` and of
-the batch ``bench.py`` times.  Where the JAX step averages the loss over
+Counterparts of ``horovod_tpu.models.transformer.make_train_step`` and of
+the ResNet step ``bench.py`` times (``train_step``, bench.py:323-333).  Where the JAX step averages the loss over
 the mesh (``pmean``) and differentiates that, each rank here takes its
 slice of the global batch, differentiates its own mean loss and lets
 ``DistributedOptimizer`` average the gradients; with equal slices the
@@ -18,6 +18,8 @@ import torch
 from .common import basics
 from .functions import broadcast_parameters
 from .models.convert import params_from_jax
+from .models.convert_resnet import params_from_flax
+from .models.resnet import ResNetConfig, resnet_loss_fn
 from .models.transformer import TransformerConfig, loss_fn
 from .optimizer import DistributedOptimizer
 
@@ -72,5 +74,67 @@ def make_train_step(cfg: TransformerConfig,
         return {k: torch.as_tensor(np.asarray(v)[rank * per:(rank + 1) * per],
                                    dtype=torch.long, device=dev)
                 for k, v in batch.items()}
+
+    return build, shard_batch
+
+
+def synthetic_images(batch: int, image: int, num_classes: int = 1000,
+                     seed: int = 0) -> dict:
+    """NHWC normal images and uniform labels from numpy, as
+    ``bench.py:310-312`` makes them: ``randn(batch, image, image, 3)``
+    (rounded to the activation dtype on the device), then
+    ``randint(0, num_classes, batch)``."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, image, image, 3).astype(np.float32)
+    y = rng.randint(0, num_classes, size=(batch,)).astype(np.int64)
+    return {"x": x, "y": y}
+
+
+def make_resnet_train_step(cfg: ResNetConfig,
+                           optimizer: Callable[[Iterable[torch.nn.Parameter]],
+                                               torch.optim.Optimizer],
+                           device=None):
+    """Returns ``(build, shard_batch)``, as ``make_train_step`` does.
+
+    ``build(variables)`` puts the flax ``{"params", "batch_stats"}`` tree
+    on ``device`` (CUDA unless "cpu") in train mode, wraps
+    ``optimizer(model.parameters())`` (``torch.optim.SGD(lr=0.1,
+    momentum=0.9)`` is ``optax.sgd(0.1, momentum=0.9)``) in
+    ``DistributedOptimizer``, broadcasts rank 0's parameters and running
+    statistics, and returns ``(step, model, opt)``; ``step(batch)`` takes
+    one step, moves the running statistics and returns this rank's mean
+    loss, detached.  ``shard_batch`` gives this rank's rows on
+    ``device``: images as NCHW channels_last (the NHWC array permuted,
+    no copy) in the activation dtype.  Needs ``hvd.init()`` first."""
+    dev = basics.resolve_device(device)
+
+    def build(variables):
+        basics.topology()  # raises unless hvd.init() ran
+        model = params_from_flax(variables, cfg, dev)
+        model.train()
+        opt = DistributedOptimizer(optimizer(model.parameters()),
+                                   named_parameters=model.named_parameters())
+        broadcast_parameters(model.state_dict(), root_rank=0)
+
+        def step(batch):
+            opt.zero_grad()
+            loss = resnet_loss_fn(model, batch)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step, model, opt
+
+    def shard_batch(batch):
+        rank, size = basics.rank(), basics.size()
+        rows = batch["x"].shape[0]
+        if rows % size:
+            raise ValueError("global batch %d does not split over %d ranks"
+                             % (rows, size))
+        per = slice(rank * rows // size, (rank + 1) * rows // size)
+        x = torch.as_tensor(np.asarray(batch["x"])[per], device=dev)
+        return {"x": x.to(cfg.act_dtype).permute(0, 3, 1, 2),
+                "y": torch.as_tensor(np.asarray(batch["y"])[per],
+                                     dtype=torch.long, device=dev)}
 
     return build, shard_batch

@@ -75,21 +75,32 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
-    from horovod_tpu_torch.train import make_train_step
+    from horovod_tpu_torch.models import convert_resnet
+    from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from horovod_tpu_torch.train import make_resnet_train_step, make_train_step
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TransformerConfig(vocab_size=16, d_model=64, n_layers=1,
                             n_heads=2, n_kv_heads=2, d_ff=32, max_seq=8)
+    rcfg = ResNetConfig(depth=18, num_classes=4, dtype="float32")
     adam = lambda ps: torch.optim.Adam(ps)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9)
+    variables = convert_resnet.init_params(18, 4)
     for call in (hvd.init, lambda: Transformer(cfg),
                  lambda: params_from_jax(init_params(cfg), cfg),
-                 lambda: make_train_step(cfg, adam)):
+                 lambda: make_train_step(cfg, adam),
+                 lambda: ResNet(rcfg),
+                 lambda: convert_resnet.params_from_flax(variables, rcfg),
+                 lambda: make_resnet_train_step(rcfg, sgd)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not hvd.is_initialized()
     model = params_from_jax(init_params(cfg), cfg, device="cpu")
     assert model.embed.device.type == "cpu"
     make_train_step(cfg, adam, device="cpu")
+    resnet = convert_resnet.params_from_flax(variables, rcfg, device="cpu")
+    assert resnet.stem.weight.device.type == "cpu"
+    make_resnet_train_step(rcfg, sgd, device="cpu")
 
 
 def test_kernel_wrappers_take_no_cpu_tensor():
@@ -111,6 +122,32 @@ def test_kernel_wrappers_take_no_cpu_tensor():
     assert fa.launch_counts() == {k.__name__: 0 for k in fa.KERNELS}
 
 
+def test_bn_kernel_wrappers_take_no_cpu_tensor():
+    from horovod_tpu_torch.ops import batch_norm as bn
+    bn.reset_launch_counts()
+    x = torch.zeros(64, 8, dtype=torch.bfloat16)
+    v = torch.ones(8)
+    calls = (lambda: bn.bn_stats_kernel(x),
+             lambda: bn.bn_apply_kernel(x, v, v, v, v, x, 1e-5, True),
+             lambda: bn.bn_bwd_reductions_kernel(x, x, v, v, v, v, None,
+                                                 1e-5, True),
+             lambda: bn.bn_bwd_dx_kernel(x, x, v, v, v, v, v, v, x, 1e-5,
+                                         False))
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            call()
+    assert bn.launch_counts() == {k.__name__: 0 for k in bn.KERNELS}
+    # The dispatchers take the plain versions for CPU tensors only, and
+    # the autograd function runs them without counting a launch.
+    xs = torch.randn(2, 8, 4, 4).to(memory_format=torch.channels_last)
+    y, mean, var = bn.batch_norm_act(xs.requires_grad_(), v, 0 * v)
+    y.backward(torch.randn_like(y))
+    assert xs.grad.is_contiguous(memory_format=torch.channels_last)
+    s, q = bn.bn_stats(x)
+    np.testing.assert_array_equal(s.numpy(), bn.bn_stats_reference(x)[0])
+    assert bn.launch_counts() == {k.__name__: 0 for k in bn.KERNELS}
+
+
 def test_kernels_build_into_an_ignored_directory():
     """The kernels build under the package at first use, into a
     ``build/`` directory that ``.gitignore`` lists, from the sources in
@@ -121,7 +158,8 @@ def test_kernels_build_into_an_ignored_directory():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
     assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
-                                                  "flash_bwd.cu"}
+                                                  "flash_bwd.cu",
+                                                  "batch_norm.cu"}
     assert os.path.exists(_build.CSRC / "flash_common.cuh")
 
 

@@ -3,19 +3,23 @@
 
     python3 tools/chip_fault_check.py
 
-Each fault is a one-line edit to a kernel source that drops part of the
-attention sum.  For each, the script copies ``horovod_tpu_torch/`` and
-``chip_smoke.py`` into ``build/fault_check/<fault>/`` (ignored by git;
-the sources in the checkout are not touched), applies the edit there,
-and in a fresh process builds the kernels and runs chip_smoke's kernel
-check at the flagship attention shape (BH 32, S 2048, D 128, causal)
-and its small-decoder check.  The first case, ``none``, applies no edit.
+Each fault is a one-line edit to a kernel source: a dropped part of the
+attention sum, or a dropped row chunk, mask term or channel tile of the
+BatchNorm kernels.  For each, the script copies ``horovod_tpu_torch/``
+and ``chip_smoke.py`` into ``build/fault_check/<fault>/`` (ignored by
+git; the sources in the checkout are not touched), applies the edit
+there, and in a fresh process builds the kernels and runs chip_smoke's
+checks: the flash kernels at the flagship attention shape (BH 32,
+S 2048, D 128, causal), the BN kernels at its four BN shapes, the small
+decoder and the small ResNet-50.  The first case, ``none``, applies no
+edit.
 
 It prints each case's readings, and for comparison whether the kernel
 outputs would also pass a tolerance scaled by the tensor's largest
 value, |err| <= 1e-3 + 1e-2 max|plain|.  Exits non-zero unless the
-unedited kernels pass both checks and every fault fails the kernel
-check.  Needs a CUDA device.
+unedited kernels pass every check and every fault fails the check of
+its kernel family (flash or BN); a dropped BN row chunk must fail it at
+the stem's shape itself.  Needs a CUDA device.
 """
 
 import json
@@ -56,14 +60,50 @@ FAULTS = {
     "dkv_mask_off_by_one": (
         "flash_bwd.cu", _DKV_ROW + _MASK, _DKV_ROW + _MASK_OFF_BY_ONE,
         "dk/dv: causal mask drops the diagonal key in the second half"),
+    "bn_stats_last_chunk": (
+        "batch_norm.cu",
+        "      static_cast<float*>(sq), (int)grid.y, c);",
+        "      static_cast<float*>(sq), (int)grid.y - 1, c);",
+        "BN stats: the last row chunk left out of the sums"),
+    "bn_bwd_red_last_chunk": (
+        "batch_norm.cu",
+        "      static_cast<float*>(dgamma), (int)grid.y, c);",
+        "      static_cast<float*>(dgamma), (int)grid.y - 1, c);",
+        "BN bwd_red: the last row chunk left out of the sums"),
+    "bn_bwd_red_mask_residual": (
+        "batch_norm.cu",
+        "        const float de = xhat_dy<RELU, RES>(",
+        "        const float de = xhat_dy<RELU, false>(",
+        "BN bwd_red: the residual left out of the recomputed ReLU mask"),
+    "bn_bwd_dx_last_tile": (
+        "batch_norm.cu",
+        "  float k[VEC], dbm[VEC], dgm[VEC];\n",
+        "  if (blockIdx.x + 1 == gridDim.x) return;\n"
+        "  float k[VEC], dbm[VEC], dgm[VEC];\n",
+        "BN bwd_dx: the last channel tile skipped"),
 }
+# Faults that must fail the BN check at this shape itself: at the stem a
+# dropped chunk is 1 of 1024, the smallest share of any held shape.
+MUST_FAIL_AT = {"bn_stats_last_chunk": "stem", "bn_bwd_red_last_chunk": "stem"}
 
 CHILD = """
-import json, chip_smoke as cs
+import json, torch, chip_smoke as cs
+from horovod_tpu_torch.ops import batch_norm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 errs, _, _ = cs.kernel_errors(fa, *cs.kernel_inputs(32, 2048, 128), True)
+bn_errs = {}
+for label, m, c, relu, residual in cs.BN_SHAPES:
+    x, dy, res, g, b = cs.bn_inputs(m, c, residual)
+    for name, outs in cs.bn_errors(bn, x, dy, res, g, b, relu)[0].items():
+        for out, e in outs.items():
+            bn_errs.setdefault(name, {})["%s at %s" % (out, label)] = e
 loss, leaves = cs.model_errors()
-print(json.dumps({"kernels": errs, "loss": loss, "leaves": leaves}))
+rn_loss, rn_leaves, rn_bf16 = cs.resnet_model_errors()
+print(json.dumps({"kernels": errs, "bn": bn_errs, "loss": loss,
+                  "leaves": leaves, "rn_loss": rn_loss,
+                  "rn_leaves": rn_leaves, "rn_bf16": rn_bf16}))
 """
 
 
@@ -101,29 +141,47 @@ def main() -> int:
     for name, fault in FAULTS.items():
         res = run_case(name, fault)
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
-        kernel_fail = max_rule_fail = False
-        for kern, outs in res["kernels"].items():
-            for out, e in outs.items():
-                max_rule = 1e-3 + 1e-2 * e["max_abs_plain"]
-                kernel_fail |= not e["worst"] <= 1.0
-                max_rule_fail |= not e["max_abs_err"] <= max_rule
-                print("  %s %s: worst %.4g, max abs err %.4g, max-scaled "
-                      "limit %.4g" % (kern, out, e["worst"],
-                                      e["max_abs_err"], max_rule))
+        fails, failed_at = {}, set()
+        for family in ("kernels", "bn"):
+            kernel_fail = max_rule_fail = False
+            for kern, outs in res[family].items():
+                for out, e in outs.items():
+                    max_rule = 1e-3 + 1e-2 * e["max_abs_plain"]
+                    kernel_fail |= not e["worst"] <= 1.0
+                    max_rule_fail |= not e["max_abs_err"] <= max_rule
+                    if family == "bn" and not e["worst"] <= 1.0:
+                        failed_at.add(out.split(" at ", 1)[1])
+                    print("  %s %s: worst %.4g, max abs err %.4g, max-scaled "
+                          "limit %.4g" % (kern, out, e["worst"],
+                                          e["max_abs_err"], max_rule))
+            fails[family] = (kernel_fail, max_rule_fail)
         leaves = res["leaves"]
         worst_leaf = max(leaves, key=leaves.get)
         model_fail = (not res["loss"] <= cs.LOSS_TOL
                       or not leaves[worst_leaf] <= cs.LEAF_TOL)
-        print("  model: loss rel err %.4g, worst leaf %s %.4g"
+        rn_leaves = res["rn_leaves"]
+        rn_worst = max(rn_leaves, key=rn_leaves.get)
+        rn_fail = (not res["rn_loss"] <= cs.RN_LOSS_TOL
+                   or not rn_leaves[rn_worst] <= cs.RN_LEAF_TOL
+                   or not res["rn_bf16"] <= cs.RN_BF16_LOSS_TOL)
+        print("  decoder: loss rel err %.4g, worst leaf %s %.4g"
               % (res["loss"], worst_leaf, leaves[worst_leaf]))
-        print("  verdict: kernel check %s, max-scaled rule %s, model check %s"
+        print("  resnet: f32 loss rel err %.4g, worst leaf %s %.4g, bf16 loss "
+              "rel err %.4g" % (res["rn_loss"], rn_worst, rn_leaves[rn_worst],
+                                res["rn_bf16"]))
+        print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
+              "(max-scaled rule %s), decoder check %s, resnet check %s"
               % tuple("fails" if f else "passes"
-                      for f in (kernel_fail, max_rule_fail, model_fail)),
-              flush=True)
+                      for f in fails["kernels"] + fails["bn"]
+                      + (model_fail, rn_fail)), flush=True)
+        if failed_at:
+            print("  BN check fails at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
-            ok &= not kernel_fail and not model_fail
+            ok &= not (fails["kernels"][0] or fails["bn"][0] or model_fail
+                       or rn_fail)
         else:
-            ok &= kernel_fail
+            ok &= fails["bn" if fault[0] == "batch_norm.cu" else "kernels"][0]
+            ok &= MUST_FAIL_AT.get(name, "") in failed_at | {""}
     shutil.rmtree(WORK, ignore_errors=True)
     print("fault check: %s" % ("ok" if ok else "FAILED"))
     return 0 if ok else 1

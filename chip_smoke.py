@@ -9,34 +9,43 @@
 2. Holds every kernel against its plain PyTorch version, run on the card
    in f32 on the same inputs, and times kernel, plain version and the
    library yardstick on the device (``time_ms``) beside each kernel's
-   bound: the flash kernels at the flagship attention shape (BH 32,
-   S 2048, D 128, bf16, causal) and at a ragged non-causal one (BH 4,
-   S 200, D 64), against ``scaled_dot_product_attention``; the four
-   BatchNorm kernels at four NormAct shapes of ResNet-50 (the stem,
-   stage 4's last, a projection, and a ragged M 997, C 101), against
-   ``F.batch_norm(training=True)``.
-3. Holds two small models on the card against the same weights in f32 on
-   the CPU (plain versions): the decoder (bf16) and ResNet-50 (image 64,
-   batch 4; f32 for the gradients, bf16 for the loss).
+   bound: the four flash kernels (forward, dq, dk/dv, one-pass backward,
+   whose dq partials are held slot by slot in a NaN-poisoned block) at
+   a ragged full shape (BH 4, S 200, D 64), the decoder's attention
+   (BH 32, S 2048, D 128, causal) and BERT-Large's (BH 512, S 384, D 64,
+   full), against ``scaled_dot_product_attention``, with both whole
+   backward variants timed; the four BatchNorm kernels at four NormAct
+   shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
+   ragged M 997, C 101), against ``F.batch_norm(training=True)``.
+3. Holds three small models on the card against the same weights in f32
+   on the CPU (plain versions): the decoder (bf16), ResNet-50 (image 64,
+   batch 4; f32 for the gradients, bf16 for the loss) and BERT (bf16,
+   under both backward choices).
 4. The main paths, each run with every launch count set to 0 just
    before it and read just after, through ``hvd.init()`` (a one-rank
    NCCL world), ``broadcast_parameters`` and ``DistributedOptimizer``
    with its fused allreduce, from numpy seeds at full width and depth:
-   the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048, Adam; each
-   flash kernel 12 launches a step, no BN kernel), then ResNet-50 of
-   ``bench.py:274-321`` (batch 128, 224^2, SGD 0.1 with momentum 0.9;
-   each BN kernel 53 launches a step, no flash kernel).  Each profiles
-   one more step by kernel family; each BN kernel's device time in that
-   step is printed beside the step's byte bound for it.
-5. Prints one JSON line of kernel records (seven kernels), then as the
+   the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048, Adam,
+   ``HVD_TPU_FLASH_BWD=pallas``; flash forward, dq and dk/dv 12 launches
+   a step each), ResNet-50 of ``bench.py:274-321`` (batch 128, 224^2,
+   SGD 0.1 with momentum 0.9; each BN kernel 53 launches a step), then
+   BERT-Large fine-tuning (batch 32, seq 384, AdamW with 8 groups and
+   the fp16 wire, ``HVD_TPU_FLASH_BWD=pallas_onepass``; flash forward
+   and one-pass backward 24 launches a step each, every allreduce fp16).
+   No path launches another family's kernels.  Each profiles one more
+   step by kernel family; the BN and BERT flash kernels' device time in
+   that step is printed beside the step's bound for them.
+5. Prints one JSON line of kernel records (eight kernels), then as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
 """
 
+import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -57,9 +66,18 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # is one bf16 ulp.  lse is f32 throughout.  The limits sit above the
 # readings of the correct kernels and far below planted faults
 # (tools/chip_fault_check.py, PERF.md).
+# The one-pass kernel's dq partials ("dqp") are held slot by slot, a row
+# being one (bh, k tile, position) vector, under dq's limits.
 KERNEL_TOL = {"o": (2 ** -7, 2 ** -5), "lse": (2 ** -16, 2 ** -16),
-              "dq": (2 ** -7, 2 ** -5), "dk": (2 ** -7, 2 ** -5),
-              "dv": (2 ** -7, 2 ** -5)}
+              "dq": (2 ** -7, 2 ** -5), "dqp": (2 ** -7, 2 ** -5),
+              "dk": (2 ** -7, 2 ** -5), "dv": (2 ** -7, 2 ** -5)}
+# (BH, S, D, causal) of phase 2: a ragged full shape, the decoder's
+# attention (batch 4 x 8 heads, seq 2048) and BERT-Large's (batch 32 x 16
+# heads, seq 384).
+DECODER_SHAPE, BERT_SHAPE = (32, 2048, 128, True), (512, 384, 64, False)
+FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE)
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_onepass")
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
@@ -103,6 +121,13 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_red", "bn_bwd_dx")
 # Readings 3.1e-7, 5.1e-3 and 0.032; limits about 30x, 4x and 3x those.
 RN_IMAGE, RN_BATCH = 64, 4
 RN_LOSS_TOL, RN_LEAF_TOL, RN_BF16_LOSS_TOL = 1e-5, 2e-2, 0.1
+# The small BERT in bf16 on the card against f32 on the CPU, per backward
+# choice: the loss's relative error and each gradient leaf's relative
+# norm error (bk: its norm over bq's).  Set before the first card run
+# from the same comparison run on the CPU (plain versions in bf16 against
+# f32), whose readings were 2.7e-4 and 1.7e-2 (layers.1.wq; bk 1.5e-2)
+# under either choice: about 4x and 3x, as the decoder's limits sit.
+BERT_LOSS_TOL, BERT_LEAF_TOL = 1e-3, 5e-2
 
 
 def say(*args):
@@ -184,41 +209,73 @@ def compare(got, want, rtol, atol):
 
 def kernel_errors(fa, q, k, v, do, causal):
     """Every kernel's outputs against its plain version on the same
-    inputs: {kernel: {output: compare(...)}}, plus lse and delta for
-    the timings."""
+    inputs: ({kernel: {output: compare(...)}}, whether the one-pass
+    partials landed in a NaN-poisoned block), plus lse and delta for the
+    timings."""
     import torch
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
     dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref,
                                                     delta, causal)
+    dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(
+        q, k, v, do, lse_ref, delta, causal)
     o, lse = fa.flash_fwd_kernel(q, k, v, causal)
     dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse_ref, delta, causal)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_ref, delta, causal)
+    # Poison the allocator: the partials' block comes back full of NaN, so
+    # a slot the kernel leaves unwritten reads NaN, not a stale zero.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    poison = torch.full(dqp_ref.shape, float("nan"), device=q.device)
+    poisoned_ptr = poison.data_ptr()
+    del poison
+    dqp, dk1, dv1 = fa.flash_bwd_onepass_kernel(q, k, v, do, lse_ref, delta,
+                                                causal)
     torch.cuda.synchronize()
     outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)},
                "flash_bwd_dq": {"dq": (dq, dq_ref)},
-               "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}}
+               "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
+               "flash_bwd_onepass": {"dqp": (dqp, dqp_ref), "dk": (dk1, dk1_ref),
+                                     "dv": (dv1, dv1_ref)}}
     errs = {name: {out: compare(got, want, *KERNEL_TOL[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
-    return errs, lse_ref, delta
+    return errs, dqp.data_ptr() == poisoned_ptr, lse_ref, delta
+
+
+@contextlib.contextmanager
+def flash_bwd_env(value):
+    """``HVD_TPU_FLASH_BWD`` set to ``value`` inside the block, restored
+    after it."""
+    old = os.environ.get("HVD_TPU_FLASH_BWD")
+    os.environ["HVD_TPU_FLASH_BWD"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("HVD_TPU_FLASH_BWD", None)
+        else:
+            os.environ["HVD_TPU_FLASH_BWD"] = old
 
 
 def check_kernels(fa, bh, s, d, causal):
     """One shape: every kernel against its plain version, timed beside
-    the plain version and SDPA; returns one record per kernel, whose
-    ``launches`` counts this check's launches (not the main path's)."""
+    the plain version and SDPA, and both whole backward variants timed
+    (dq + dk/dv kernels; one-pass kernel + the partials' sum); returns
+    one record per kernel, whose ``launches`` counts this check's
+    launches (not the main path's), and the variants' times."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d)
     fa.reset_launch_counts()
-    errs, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
+    errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
     for name, outs in errs.items():
         for out, e in outs.items():
             say("  %s %s: %s (rtol %.3g, atol %.3g x row scale)" % (
                 name, out, json.dumps({k: float("%.4g" % x)
                                        for k, x in e.items()}),
                 *KERNEL_TOL[out]))
+    say("  flash_bwd_onepass partials in a NaN-poisoned block: %s" % poisoned)
     bad = ["%s %s" % (name, out) for name, outs in errs.items()
            for out, e in outs.items() if not e["worst"] <= 1.0]
     if bad:
@@ -226,10 +283,12 @@ def check_kernels(fa, bh, s, d, causal):
                              % ", ".join(bad))
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     io, rows = bh * s * d * 2, bh * s * 4
+    partials = bh * -(-s // fa.BLOCK_K) * s * d * 4
     work = {  # (FLOP, bytes): each input read once, each output written once
         "flash_fwd": (4 * d * pairs, 4 * io + rows),
         "flash_bwd_dq": (6 * d * pairs, 4 * io + 2 * rows + 2 * io),
         "flash_bwd_dkv": (8 * d * pairs, 6 * io + 2 * rows),
+        "flash_bwd_onepass": (10 * d * pairs, 6 * io + 2 * rows + partials),
     }
     records = {}
     for name, outs in errs.items():
@@ -238,19 +297,20 @@ def check_kernels(fa, bh, s, d, causal):
         rec["bound_ms"], rec["bound_by"] = bound(*work[name])
         records[name] = rec
 
+    bwd = (q, k, v, do, lse_ref, delta, causal)
     runs = {
         "flash_fwd": (lambda: fa.flash_fwd_kernel(q, k, v, causal),
                       lambda: fa.flash_fwd_reference(q, k, v, causal)),
-        "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse_ref, delta, causal),
-            lambda: fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal)),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse_ref, delta, causal),
-            lambda: fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq_kernel(*bwd),
+                         lambda: fa.flash_bwd_reference(*bwd)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_kernel(*bwd),
+                          lambda: fa.flash_bwd_reference(*bwd)),
+        "flash_bwd_onepass": (lambda: fa.flash_bwd_onepass_kernel(*bwd),
+                              lambda: fa.flash_bwd_onepass_reference(*bwd)),
     }
     # The yardstick, never called by the port: SDPA at the same shape
     # (q is pre-scaled, so scale=1).  Its backward computes dq, dk and
-    # dv together and stands beside both backward kernels.
+    # dv together and stands beside every backward kernel.
     q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
@@ -264,11 +324,33 @@ def check_kernels(fa, bh, s, d, causal):
         records[name]["ms"] = time_ms(kern, reps=20)
         records[name]["plain_ms"] = time_ms(plain)
         records[name]["library_ms"] = lib_fwd if name == "flash_fwd" else lib_bwd
-    for name, wrapper in (("flash_fwd", fa.flash_fwd_kernel),
-                          ("flash_bwd_dq", fa.flash_bwd_dq_kernel),
-                          ("flash_bwd_dkv", fa.flash_bwd_dkv_kernel)):
-        records[name]["launches"] = wrapper.launches
-    return records
+    variants = {}
+    for choice in ("pallas", "pallas_onepass"):
+        with flash_bwd_env(choice):
+            variants[choice] = time_ms(lambda: fa.flash_bwd(*bwd), reps=20)
+    variants["sdpa"] = lib_bwd
+    counts = fa.launch_counts()
+    for name in FLASH_KERNELS:
+        records[name]["launches"] = counts[name + "_kernel"]
+    return records, variants
+
+
+def check_flash_kernels(fa):
+    """The four flash kernels at FLASH_SHAPES -> {shape: records}."""
+    out = {}
+    for bh, s, d, causal in FLASH_SHAPES:
+        label = "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
+        records, variants = check_kernels(fa, bh, s, d, causal)
+        for name, rec in records.items():
+            say("kernel %s %s: %s" % (name, label, json.dumps(
+                {k: (round(v, 6) if isinstance(v, float) else v)
+                 for k, v in rec.items()})))
+        say("backward %s, device ms per call: dq + dk/dv kernels %.6g, "
+            "one-pass kernel + partials' sum %.6g, SDPA backward %.6g"
+            % (label, variants["pallas"], variants["pallas_onepass"],
+               variants["sdpa"]))
+        out[(bh, s, d, causal)] = records
+    return out
 
 
 def model_errors():
@@ -558,6 +640,68 @@ def check_resnet_model():
                              "gradients of %s" % (loss_err, bf16_err, bad))
 
 
+def bert_model_errors(choice, device="cuda"):
+    """Loss and gradients of a small BERT (vocab 512, d 256, 2 layers, 4
+    heads of 64, d_ff 1024, batch 2, seq 128, 2 classes; classification)
+    in bf16 on ``device``, with the kernels there and HVD_TPU_FLASH_BWD =
+    ``choice``, against the same weights in f32 on the CPU (plain
+    versions): the loss's relative error and each parameter's relative
+    gradient norm error.  bk's gradient is zero in exact arithmetic, so
+    its norm on the card over bq's stands in for its error; the MLM head,
+    which the objective does not reach, is left out."""
+    import torch
+    from horovod_tpu_torch.models.bert import BertConfig, classification_loss
+    from horovod_tpu_torch.models.convert_bert import (init_params,
+                                                       params_from_jax)
+    from horovod_tpu_torch.train import synthetic_bert_batch
+
+    cfg = BertConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                     d_ff=1024, max_seq=128)
+    params = init_params(cfg, seed=1)
+    batch = synthetic_bert_batch(cfg, 2, 128, seed=1)
+    out = []
+    with flash_bwd_env(choice):
+        for dtype, dev in (("bfloat16", device), ("float32", "cpu")):
+            c = BertConfig(**{**cfg.__dict__, "dtype": dtype})
+            model = params_from_jax(params, c, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss = classification_loss(model, b)
+            loss.backward()
+            out.append((loss.item(), {n: p.grad.float().cpu()
+                                      for n, p in model.named_parameters()
+                                      if p.grad is not None}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    leaves = {}
+    for n, g in g_cpu.items():
+        if n.endswith(".bk"):
+            ref = g_cpu[n[:-2] + "bq"].norm()
+            leaves[n] = (g_gpu[n].norm() / ref).item()
+        else:
+            leaves[n] = ((g_gpu[n] - g).norm() / g.norm()).item()
+    return abs(l_gpu - l_cpu) / abs(l_cpu), leaves
+
+
+def check_bert_model():
+    """The small BERT under both backward choices (phase 3)."""
+    for choice in ("pallas", "pallas_onepass"):
+        loss_err, leaves = bert_model_errors(choice)
+        ranked = sorted(leaves.items(), key=lambda kv: -kv[1])
+        say("bert model check (%s backward; bf16 card against f32 CPU): "
+            "loss relative error %.3g (tol %.3g); gradient relative norm "
+            "error per parameter: worst %s %.3g (tol %.3g), median %.3g, "
+            "top 5 %s" % (choice, loss_err, BERT_LOSS_TOL, ranked[0][0],
+                          ranked[0][1], BERT_LEAF_TOL,
+                          statistics.median(leaves.values()),
+                          json.dumps({n: float("%.3g" % e)
+                                      for n, e in ranked[:5]})))
+        bad = [n for n, e in leaves.items() if not e <= BERT_LEAF_TOL]
+        if not loss_err <= BERT_LOSS_TOL or bad:
+            raise AssertionError(
+                "small BERT (%s) on the card disagrees with the f32 CPU "
+                "reference: loss %.3g, gradients of %s"
+                % (choice, loss_err, bad))
+
+
 def print_ptxas(text: str):
     """nvcc's -Xptxas=-v report: one line per flash kernel
     instantiation (registers, spills, shared memory); the BN kernels'
@@ -595,6 +739,7 @@ def print_ptxas(text: str):
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+            ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",)),
             ("bn_stats", ("bn_stats_",)),
             ("bn_apply", ("bn_apply_kernel",)),
             ("bn_bwd_red", ("bn_bwd_red_",)),
@@ -608,7 +753,8 @@ FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
 
 def profile_step(torch, step, data, step_ms):
     """Device time of one more flagship step by kernel family, from
-    torch.profiler's kernel events -> {family: ms}.  The device's busy
+    torch.profiler's kernel events -> {family: ms}; prints each family's
+    largest kernels (8 of the "other" family, 3 of the rest).  The device's busy
     time is the union of the kernels' intervals; its idle share is taken
     against ``step_ms``, the unprofiled median step, since the profiled
     step's host time includes the profiler's own overhead."""
@@ -649,7 +795,9 @@ def profile_step(torch, step, data, step_ms):
     for fam, us in sorted(totals.items(), key=lambda kv: -kv[1]):
         say("  %-40s %9.3f ms  %5.1f%% of kernel time"
             % (fam, us / 1e3, 100 * us / sum(totals.values())))
-        for name, t in sorted(by_name[fam].items(), key=lambda kv: -kv[1])[:3]:
+        top = 8 if fam.startswith("other") else 3
+        for name, t in sorted(by_name[fam].items(),
+                              key=lambda kv: -kv[1])[:top]:
             say("      %9.3f ms  %s" % (t / 1e3, name[:100]))
     return {fam: us / 1e3 for fam, us in totals.items()}
 
@@ -705,13 +853,20 @@ def train_flagship(torch):
     say("launches on the main path (%d steps): %s" % (STEPS, counts))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss: %s" % losses)
-    for name, n in counts.items():
-        if n != L * STEPS:
-            raise AssertionError("%s launched %d times, expected %d"
-                                 % (name, n, L * STEPS))
+    check_counts(counts, {"flash_fwd_kernel": L * STEPS,
+                          "flash_bwd_dq_kernel": L * STEPS,
+                          "flash_bwd_dkv_kernel": L * STEPS,
+                          "flash_bwd_onepass_kernel": 0})
     profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
     return counts
+
+
+def check_counts(counts, expected):
+    for name, n in counts.items():
+        if n != expected[name]:
+            raise AssertionError("%s launched %d times, expected %d"
+                                 % (name, n, expected[name]))
 
 
 def train_resnet_flagship(torch, batch=128, image=224):
@@ -799,7 +954,99 @@ def train_resnet_flagship(torch, batch=128, image=224):
     return counts, shapes, prof
 
 
+def train_bert_flagship(torch, batch=32, seq=384):
+    """BERT-Large fine-tuning through the port's entry points, the recipe
+    of examples/pytorch_bert_finetune.py: hvd.init, broadcast of the
+    parameters and the optimizer state, DistributedOptimizer(AdamW(5e-5,
+    weight decay 0.01), num_groups=8, compression=Compression.fp16),
+    classification loss, bf16 activations, f32 parameters; weights and
+    data from numpy seed 0; HVD_TPU_FLASH_BWD=pallas_onepass as set by
+    the caller.  Each step must launch flash_fwd and flash_bwd_onepass
+    once per layer, no other flash kernel and no BN kernel, and every
+    allreduce of the step must carry an fp16 buffer.  Returns the launch
+    counts and the profiled step's device time by kernel family."""
+    import horovod_tpu_torch as hvd
+    import torch.distributed as dist
+    from horovod_tpu_torch.models.bert import BertConfig
+    from horovod_tpu_torch.models.convert_bert import init_params
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (make_bert_train_step,
+                                         synthetic_bert_batch)
+
+    hvd.init()
+    # google-research/bert BERT-Large, Uncased (bert_config.json); batch
+    # 32 (arXiv:1810.04805 section 4.2, SQuAD) at run_squad.py's
+    # max_seq_length 384.
+    cfg = BertConfig(vocab_size=30522, d_model=1024, n_layers=24, n_heads=16,
+                     d_ff=4096, max_seq=512, type_vocab=2, n_classes=2,
+                     norm_eps=1e-12)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    build, shard_batch = make_bert_train_step(
+        cfg, lambda ps: torch.optim.AdamW(ps, lr=5e-5, weight_decay=0.01),
+        objective="classification", compression=hvd.Compression.fp16,
+        num_groups=8)
+    step, model, opt = build(init_params(cfg, seed=0))
+    data = shard_batch(synthetic_bert_batch(cfg, batch, seq, seed=0))
+    torch.cuda.synchronize()
+    say("bert flagship: BERT-Large d%d L%d %d heads of %d, d_ff %d, batch "
+        "%d, seq %d, %d parameters, %d fused allreduce group(s), fp16 wire, "
+        "backward %s; set-up %.1f s"
+        % (cfg.d_model, L, cfg.n_heads, cfg.head_dim, cfg.d_ff, batch, seq,
+           sum(p.numel() for p in model.parameters()), len(opt._groups),
+           fa.bwd_choice(), time.perf_counter() - t0))
+
+    wires, all_reduce = [], dist.all_reduce
+
+    def record(tensor, *args, **kwargs):
+        wires.append((str(tensor.dtype), tensor.numel()))
+        return all_reduce(tensor, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bn.reset_launch_counts()
+    losses, times = [], []
+    for i in range(STEPS):
+        dist.all_reduce = record if i == 0 else all_reduce
+        try:
+            t = time.perf_counter()
+            loss = step(data)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        finally:
+            dist.all_reduce = all_reduce
+        losses.append(loss.item())
+        say("bert step %d: loss %.6f, %.2f ms" % (i, losses[-1],
+                                                 times[-1] * 1e3))
+    counts = fa.launch_counts()
+    med = statistics.median(times)
+    say("bert flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
+        % (med * 1e3, batch * seq / med,
+           torch.cuda.max_memory_allocated() / 1e9))
+    say("launches on the bert path (%d steps): %s, bn %s; allreduces of "
+        "step 0 (dtype, elements): %s" % (STEPS, counts, bn.launch_counts(),
+                                          wires))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss: %s" % losses)
+    if any(bn.launch_counts().values()):
+        raise AssertionError("BERT launched BN kernels: %s"
+                             % bn.launch_counts())
+    if len(wires) != len(opt._groups) or any(
+            dt != "torch.float16" for dt, _ in wires):
+        raise AssertionError("expected %d fused fp16 allreduces in a step, "
+                             "got %s" % (len(opt._groups), wires))
+    check_counts(counts, {"flash_fwd_kernel": L * STEPS,
+                          "flash_bwd_dq_kernel": 0,
+                          "flash_bwd_dkv_kernel": 0,
+                          "flash_bwd_onepass_kernel": L * STEPS})
+    prof = profile_step(torch, step, data, med * 1e3)
+    hvd.shutdown()
+    return counts, prof
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -828,22 +1075,17 @@ def main() -> int:
             print_ptxas(log.read_text())
 
     # -- 2: kernels against their plain versions
-    for bh, s, d, causal in ((4, 200, 64, False), (32, 2048, 128, True)):
-        records = check_kernels(fa, bh, s, d, causal)
-        for name, rec in records.items():
-            say("kernel %s BH%d S%d D%d %s: %s" % (
-                name, bh, s, d, "causal" if causal else "full",
-                json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
-                            for k, v in rec.items()})))
-
+    flash = check_flash_kernels(fa)
     bn_err, bn_shape_times = check_bn_kernels(bn)
 
     # -- 3: small models against the f32 CPU reference
     check_model()
     check_resnet_model()
+    check_bert_model()
 
     # -- 4: the main paths, each with every count set to 0 just before
-    counts = train_flagship(torch)
+    with flash_bwd_env("pallas"):
+        counts = train_flagship(torch)
     torch.cuda.empty_cache()
     bn_counts, shapes, prof = train_resnet_flagship(torch)
     for name in BN_KERNELS:
@@ -855,17 +1097,36 @@ def main() -> int:
                 name, sum(shapes.values()),
                 "%.6g" % prof[name] if name in prof else "not measured",
                 step_bound))
+    torch.cuda.empty_cache()
+    with flash_bwd_env("pallas_onepass"):
+        bert_counts, bert_prof = train_bert_flagship(torch)
+    for name in ("flash_fwd", "flash_bwd_onepass"):
+        say("%s, one BERT-Large step's 24 layers: device %s ms (profile), "
+            "bound %.6g ms" % (
+                name, "%.6g" % bert_prof[name] if name in bert_prof
+                else "not measured",
+                24 * flash[BERT_SHAPE][name]["bound_ms"]))
 
     # -- 5: results
+    # (source, TPU kernel, wrapper, the phase-2 shape of its record, the
+    # phase-4 paths that launch it)
     sources = {"flash_fwd": ("horovod_tpu_torch/csrc/flash_fwd.cu",
                              "horovod_tpu/ops/pallas_kernels.py:51",
-                             "flash_fwd_kernel"),
+                             "flash_fwd_kernel", DECODER_SHAPE,
+                             (counts, bert_counts)),
                "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd.cu",
                                 "horovod_tpu/ops/pallas_kernels.py:329",
-                                "flash_bwd_dq_kernel"),
+                                "flash_bwd_dq_kernel", DECODER_SHAPE,
+                                (counts, bert_counts)),
                "flash_bwd_dkv": ("horovod_tpu_torch/csrc/flash_bwd.cu",
                                  "horovod_tpu/ops/pallas_kernels.py:376",
-                                 "flash_bwd_dkv_kernel")}
+                                 "flash_bwd_dkv_kernel", DECODER_SHAPE,
+                                 (counts, bert_counts)),
+               "flash_bwd_onepass": (
+                   "horovod_tpu_torch/csrc/flash_bwd_onepass.cu",
+                   "horovod_tpu/ops/pallas_kernels.py:476",
+                   "flash_bwd_onepass_kernel", BERT_SHAPE,
+                   (counts, bert_counts))}
     bn_sources = {"bn_stats": ("horovod_tpu/ops/pallas_bn.py:96",
                                "bn_stats_kernel"),
                   "bn_apply": ("horovod_tpu/ops/pallas_bn.py:119",
@@ -875,19 +1136,26 @@ def main() -> int:
                   "bn_bwd_dx": ("horovod_tpu/ops/pallas_bn.py:177",
                                 "bn_bwd_dx_kernel")}
     say("kernels: " + "; ".join(
-        "%s held at BH4 S200 D64 full and BH32 S2048 D128 causal (phase 2), "
-        "launched %d times in decoder training (phase 4)" % (name, counts[w])
-        for name, (_, _, w) in sources.items()) + "; " + "; ".join(
+        "%s held at %s (phase 2; its record at BH%d S%d D%d %s), launched %d "
+        "times in decoder training and %d in BERT-Large training (phase 4)"
+        % (name, ", ".join("BH%d S%d D%d %s" % (bh, sq, d, "causal" if c
+                                                 else "full")
+                           for bh, sq, d, c in FLASH_SHAPES),
+           *shape[:3], "causal" if shape[3] else "full", paths[0][w],
+           paths[1][w])
+        for name, (_, _, w, shape, paths) in sources.items()) + "; " +
+        "; ".join(
         "%s held at %s (phase 2), launched %d times in ResNet-50 training "
         "(phase 4); its ms, plain_ms, bound_ms and library_ms are one call's "
         "device time at the stem's shape" % (name, ", ".join(
             "M%d C%d" % (m, c) for _, m, c, _, _ in BN_SHAPES),
             bn_counts[w]) for name, (_, w) in bn_sources.items()))
     out = []
-    for name, (src, replaces, wrapper) in sources.items():
-        rec = records[name]
+    for name, (src, replaces, wrapper, shape, paths) in sources.items():
+        rec = flash[shape][name]
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": counts[wrapper],
+                    "replaces": replaces,
+                    "launches": sum(c[wrapper] for c in paths),
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
@@ -901,6 +1169,8 @@ def main() -> int:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})
+    say("chip_smoke: %.1f s wall, the build included"
+        % (time.perf_counter() - t_start))
     say(json.dumps({"kernels": out}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ for _mod, _names in (
       "grouped_allreduce_async", "broadcast", "broadcast_async",
       "broadcast_", "broadcast_async_", "synchronize", "poll")),
     (".optimizer", ("DistributedOptimizer",)),
+    (".compression", ("Compression",)),
     (".functions",
      ("broadcast_parameters", "broadcast_optimizer_state",
       "broadcast_object")),

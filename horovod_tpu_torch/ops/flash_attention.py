@@ -8,6 +8,12 @@ its own dtype; ``delta = rowsum(g * o)`` is computed in f32; dq is
 multiplied by 1/sqrt(d) in f32 before its cast; the layout goes
 ``(B, S, H, D) <-> (B*H, S, D)``.
 
+The backward is chosen as the JAX package chooses it, by
+``HVD_TPU_FLASH_BWD`` read when the backward runs: ``pallas`` (the
+default) runs the dq and dk/dv kernels, ``pallas_onepass`` the one-pass
+kernel, whose f32 dq partials (one per 64-row k tile) are summed here
+(``partials.sum(1)``, the XLA reduce outside the TPU kernel).
+
 Each kernel has a wrapper (``*_kernel``) that launches it and counts its
 launches in ``.launches``, and a plain PyTorch version (``*_reference``)
 of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -27,12 +34,15 @@ from . import _build
 NEG_INF = -1e30
 _MAX_BH = 65535  # grid.y limit of the launches
 _HEAD_DIMS = (32, 64, 128)
+BLOCK_K = 64  # rows of k per tile, hence per dq partial
+BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P]},
     "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
+    "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 4 + [_P]},
 }
 
 
@@ -61,8 +71,9 @@ def flash_fwd_reference(q, k, v, causal: bool):
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
-    """-> (dq f32 in q's pre-scaled units, dk in k's dtype, dv in v's)."""
+def _bwd_common(q, k, v, g, lse, delta, causal: bool):
+    """ds = p * (g v^T - delta) (f32, p = 0 where masked), dk and dv f32:
+    what both backward forms compute alike."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     p = torch.exp(s - lse[..., None])
     if causal:
@@ -70,9 +81,32 @@ def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
     dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), g.float())
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
     ds = p * (dp - delta[..., None])
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return ds, dk, dv
+
+
+def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
+    """-> (dq f32 in q's pre-scaled units, dk in k's dtype, dv in v's)."""
+    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
+    """-> (dq partials f32 (BH, nk, S, D), dk, dv): partial t is
+    ``ds[:, :, k tile t] @ k[k tile t]`` over 64-row k tiles (nk =
+    ceil(S / 64)), so that their sum is ``flash_bwd_reference``'s dq.  A
+    tile the causal mask kills is exactly 0."""
+    bh, s, d = q.shape
+    nk = -(-s // BLOCK_K)
+    pad = nk * BLOCK_K - s
+    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal)
+    ds_tiles = torch.nn.functional.pad(ds.to(k.dtype).float(), (0, pad))
+    k_tiles = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    partials = torch.matmul(
+        ds_tiles.view(bh, s, nk, BLOCK_K).transpose(1, 2),
+        k_tiles.view(bh, nk, BLOCK_K, d))
+    return partials, dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +185,25 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
     return dk, dv
 
 
-KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA one-pass backward (``csrc/flash_bwd_onepass.cu``) ->
+    (dq partials f32 (BH, nk, S, D), dk bf16, dv bf16)."""
+    bh, s, d = _check_kernel_args("flash_bwd_onepass_kernel", (q, k, v, g),
+                                  (lse, delta))
+    partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
+                           device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(_lib("flash_bwd_onepass").hvd_flash_bwd_onepass(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, s, d, int(causal), _stream(q)),
+        "flash_bwd_onepass_kernel")
+    flash_bwd_onepass_kernel.launches += 1
+    return partials, dk, dv
+
+
+KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
+           flash_bwd_onepass_kernel)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -171,7 +223,27 @@ def flash_fwd(q, k, v, causal: bool):
     return flash_fwd_kernel(q, k, v, causal)
 
 
+def bwd_choice() -> str:
+    """``HVD_TPU_FLASH_BWD``: "pallas" (default) or "pallas_onepass".  An
+    unknown value raises, so that a typo cannot pass for an A/B run."""
+    choice = os.environ.get("HVD_TPU_FLASH_BWD", "pallas")
+    if choice not in BWD_CHOICES:
+        raise ValueError("HVD_TPU_FLASH_BWD must be 'pallas', "
+                         "'pallas_onepass' or 'chunked', got %r" % choice)
+    if choice == "chunked":
+        raise NotImplementedError(
+            "HVD_TPU_FLASH_BWD=chunked is the JAX package's XLA fallback, "
+            "not a kernel, and is not ported (ROADMAP section B, "
+            "'chunked'); use 'pallas' or 'pallas_onepass'")
+    return choice
+
+
 def flash_bwd(q, k, v, g, lse, delta, causal: bool):
+    if bwd_choice() == "pallas_onepass":
+        run = (flash_bwd_onepass_reference if q.device.type == "cpu"
+               else flash_bwd_onepass_kernel)
+        partials, dk, dv = run(q, k, v, g, lse, delta, causal)
+        return partials.sum(1), dk, dv
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, g, lse, delta, causal)
     dq = flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal)

@@ -15,6 +15,12 @@ numerics of ``horovod_tpu/jax/optimizer.py``:
   f/size, instead of Average;
 * ``backward_passes_per_step`` n: gradients accumulate locally over n
   backward passes, and the sum divided by n is reduced;
+* ``compression`` (``Compression.fp16``/``bf16``): each gradient is
+  compressed before it joins its group's buffer, so the group's
+  gradients fuse into one buffer of the wire dtype; the reduction (with
+  its pre- and post-scale) runs on the wire, and each result is
+  decompressed after ``wait()``, the order of the JAX and torch
+  surfaces of the JAX package;
 * ``step()`` waits for the reductions, writes the results into ``.grad``
   and runs the wrapped optimizer.
 """
@@ -27,6 +33,7 @@ from typing import Dict, List
 import torch
 
 from .common.process_sets import ProcessSet, global_process_set
+from .compression import Compression, check_reduce_safe
 from .ops.collectives import AVERAGE, SUM, fused_allreduce_async
 
 
@@ -38,13 +45,16 @@ class _DistributedOptimizer:
                  gradient_predivide_factor: float = 1.0,
                  num_groups: int = 0,
                  groups=None,
-                 process_set: ProcessSet = global_process_set):
+                 process_set: ProcessSet = global_process_set,
+                 compression=Compression.none):
+        check_reduce_safe(compression, "DistributedOptimizer")
         if gradient_predivide_factor != 1.0 and op != AVERAGE:
             raise ValueError("gradient_predivide_factor only applies to "
                              "the Average op")
         if int(backward_passes_per_step) < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._opt = optimizer
+        self._compression = compression
         self._process_set = process_set
         self.backward_passes_per_step = int(backward_passes_per_step)
         if gradient_predivide_factor != 1.0:
@@ -145,11 +155,12 @@ class _DistributedOptimizer:
         if not params:
             return
         n = self.backward_passes_per_step
-        grads = [p.grad if n == 1 else p.grad / n for p in params]
+        wires, ctxs = zip(*(self._compression.compress(
+            p.grad if n == 1 else p.grad / n) for p in params))
         for p in params:
             self._passes[id(p)] = 0
-        self._handles.append((params, fused_allreduce_async(
-            grads, self._op, self._prescale, self._postscale,
+        self._handles.append((params, ctxs, fused_allreduce_async(
+            wires, self._op, self._prescale, self._postscale,
             self._process_set)))
 
     def synchronize(self):
@@ -165,9 +176,9 @@ class _DistributedOptimizer:
                     self._ready.setdefault(gid, []).append(p)
         for gid in list(self._ready):
             self._fire(gid)
-        for params, handle in self._handles:
-            for p, out in zip(params, handle.wait()):
-                p.grad.copy_(out)
+        for params, ctxs, handle in self._handles:
+            for p, ctx, out in zip(params, ctxs, handle.wait()):
+                p.grad.copy_(self._compression.decompress(out, ctx))
         self._handles.clear()
 
     @contextlib.contextmanager
@@ -206,9 +217,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          gradient_predivide_factor: float = 1.0,
                          num_groups: int = 0,
                          groups=None,
-                         process_set: ProcessSet = global_process_set
+                         process_set: ProcessSet = global_process_set,
+                         compression=Compression.none
                          ) -> _DistributedOptimizer:
     """Wrap a torch optimizer for synchronous data-parallel training."""
     return _DistributedOptimizer(
         optimizer, named_parameters, backward_passes_per_step, op,
-        gradient_predivide_factor, num_groups, groups, process_set)
+        gradient_predivide_factor, num_groups, groups, process_set,
+        compression)

@@ -1,11 +1,13 @@
-"""The data-parallel training steps of the two flagship models.
+"""The data-parallel training steps of the flagship models.
 
-Counterparts of ``horovod_tpu.models.transformer.make_train_step`` and of
-the ResNet step ``bench.py`` times (``train_step``, bench.py:323-333).  Where the JAX step averages the loss over
-the mesh (``pmean``) and differentiates that, each rank here takes its
-slice of the global batch, differentiates its own mean loss and lets
-``DistributedOptimizer`` average the gradients; with equal slices the
-two are the same gradient.
+Counterparts of ``horovod_tpu.models.transformer.make_train_step``, of
+the ResNet step ``bench.py`` times (``train_step``, bench.py:323-333) and
+of ``horovod_tpu.models.bert.make_finetune_step``.  Where the JAX step
+averages the loss over the mesh (``pmean``) and differentiates that, each
+rank here takes its slice of the global batch, differentiates its own
+mean loss and lets ``DistributedOptimizer`` average the gradients; with
+equal slices the two are the same gradient (BERT's MLM loss is
+normalised over the world, ``models.bert.mlm_loss``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ import numpy as np
 import torch
 
 from .common import basics
-from .functions import broadcast_parameters
+from .compression import Compression
+from .functions import broadcast_optimizer_state, broadcast_parameters
+from .models import bert
 from .models.convert import params_from_jax
+from .models.convert_bert import params_from_jax as bert_from_jax
 from .models.convert_resnet import params_from_flax
 from .models.resnet import ResNetConfig, resnet_loss_fn
 from .models.transformer import TransformerConfig, loss_fn
@@ -136,5 +141,81 @@ def make_resnet_train_step(cfg: ResNetConfig,
         return {"x": x.to(cfg.act_dtype).permute(0, 3, 1, 2),
                 "y": torch.as_tensor(np.asarray(batch["y"])[per],
                                      dtype=torch.long, device=dev)}
+
+    return build, shard_batch
+
+
+def synthetic_bert_batch(cfg: bert.BertConfig, batch: int, seq: int,
+                         seed: int = 0,
+                         objective: str = "classification") -> dict:
+    """Random tokens and [CLS] labels from numpy; for ``objective="mlm"``
+    also ``targets`` (the tokens) and a ~15% ``mlm_mask`` with at least
+    one target per row, as the JAX package's BERT tests make them."""
+    if objective not in ("classification", "mlm"):
+        raise ValueError("objective must be 'classification' or 'mlm', got "
+                         "%r" % (objective,))
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    out = {"tokens": tokens,
+           "labels": rng.randint(0, cfg.n_classes, (batch,)).astype(np.int64)}
+    if objective == "mlm":
+        mlm_mask = (rng.rand(batch, seq) < 0.15).astype(np.int64)
+        mlm_mask[:, 0] = 1
+        out.update(targets=tokens.copy(), mlm_mask=mlm_mask)
+    return out
+
+
+def make_bert_train_step(cfg: bert.BertConfig,
+                         optimizer: Callable[[Iterable[torch.nn.Parameter]],
+                                             torch.optim.Optimizer],
+                         objective: str = "classification",
+                         compression=Compression.none, num_groups: int = 0,
+                         device=None):
+    """Returns ``(build, shard_batch)``, as ``make_train_step`` does, for
+    BERT fine-tuning with the ``classification_loss`` or ``mlm_loss``
+    objective.
+
+    ``build(np_params)`` puts the JAX-layout tree on ``device`` (CUDA
+    unless "cpu"), broadcasts rank 0's parameters and optimizer state,
+    wraps ``optimizer(model.parameters())`` in ``DistributedOptimizer``
+    with ``compression`` and ``num_groups`` (the recipe of
+    ``examples/pytorch_bert_finetune.py``: AdamW, 8 groups, fp16 wire)
+    and returns ``(step, model, opt)``; ``step(batch) -> loss`` (this
+    rank's loss, detached).  ``shard_batch(global_batch)`` gives this
+    rank's rows on ``device``.  Needs ``hvd.init()`` first."""
+    loss_fn = {"classification": bert.classification_loss,
+               "mlm": bert.mlm_loss}[objective]
+    dev = basics.resolve_device(device)
+
+    def build(np_params):
+        basics.topology()  # raises unless hvd.init() ran
+        model = bert_from_jax(np_params, cfg, dev)
+        opt = optimizer(model.parameters())
+        broadcast_parameters(model.state_dict(), root_rank=0)
+        broadcast_optimizer_state(opt, root_rank=0)
+        opt = DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters(),
+                                   num_groups=num_groups,
+                                   compression=compression)
+
+        def step(batch):
+            opt.zero_grad()
+            loss = loss_fn(model, batch)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step, model, opt
+
+    def shard_batch(batch):
+        rank, size = basics.rank(), basics.size()
+        rows = batch["tokens"].shape[0]
+        if rows % size:
+            raise ValueError("global batch %d does not split over %d ranks"
+                             % (rows, size))
+        per = slice(rank * rows // size, (rank + 1) * rows // size)
+        return {k: torch.as_tensor(np.asarray(v)[per], dtype=torch.long,
+                                   device=dev)
+                for k, v in batch.items()}
 
     return build, shard_batch

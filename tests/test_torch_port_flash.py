@@ -121,3 +121,89 @@ def test_bf16_inputs_keep_their_dtype():
                  (vb.grad, v32.grad)):
         err = (a.float() - b).abs().max().item()
         assert err <= 3e-2 * b.abs().max().item(), err
+
+
+# -- the backward choice: HVD_TPU_FLASH_BWD -----------------------------------
+
+@pytest.mark.parametrize("choice", ["pallas", "pallas_onepass"])
+@pytest.mark.parametrize("s,causal", [(128, True), (128, False),
+                                      (192, True), (192, False),
+                                      (200, True), (200, False)])
+def test_grads_match_jax_under_each_backward(monkeypatch, choice, s, causal):
+    """Both packages read HVD_TPU_FLASH_BWD when the backward runs: the
+    JAX side runs its two-pass or one-pass Pallas kernels (interpret
+    mode), the port the plain versions of its dq and dk/dv kernels or of
+    its one-pass kernel, whose partials it sums.  S 192 is three 64-row
+    tiles; at S 200 the port's last tile is ragged and the JAX package
+    falls back to plain attention (64 does not divide S).  f32, TOL."""
+    monkeypatch.setenv("HVD_TPU_FLASH_BWD", choice)
+    q, k, v, g = _inputs(s, 1, 1, 32, seed=s + causal)
+
+    @jax.jit
+    def jax_grads(q_, k_, v_):
+        _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=causal), q_, k_, v_)
+        return vjp(jnp.asarray(g))
+
+    grads_jax = jax_grads(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    fa.flash_attention(qt, kt, vt, causal=causal).backward(torch.from_numpy(g))
+    for got, want in zip((qt.grad, kt.grad, vt.grad), grads_jax):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=TOL, rtol=TOL)
+
+
+def _flat_bwd_inputs(bh, s, d, causal, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, s, d).astype(np.float32))
+                  .to(dtype) for _ in range(4))
+    q = (q.float() / d ** 0.5).to(dtype)
+    o, lse = fa.flash_fwd_reference(q, k, v, causal)
+    delta = (g.float() * o.float()).sum(-1)
+    return q, k, v, g, lse, delta
+
+
+@pytest.mark.parametrize("s,causal", [(192, True), (200, False), (200, True),
+                                      (67, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onepass_partials_sum_to_the_two_pass_dq(s, causal, dtype):
+    """The one-pass plain version has nk = ceil(S/64) partials whose sum
+    is the two-pass plain dq, and the same dk and dv bit for bit (same
+    casts, same products).  The sum adds the tiles in another order than
+    one product over all keys: 2e-5 of the largest |dq| in f32, bf16
+    inputs included (the casts are the same on both sides)."""
+    args = _flat_bwd_inputs(2, s, 32, causal, seed=s, dtype=dtype)
+    partials, dk1, dv1 = fa.flash_bwd_onepass_reference(*args, causal)
+    dq, dk, dv = fa.flash_bwd_reference(*args, causal)
+    assert partials.dtype == torch.float32
+    assert tuple(partials.shape) == (2, -(-s // 64), s, 32)
+    assert dk1.dtype == dk.dtype == dtype
+    scale = dq.abs().max().item()
+    np.testing.assert_allclose(partials.sum(1).numpy(), dq.numpy(),
+                               atol=2e-5 * scale, rtol=0)
+    np.testing.assert_array_equal(dk1.float().numpy(), dk.float().numpy())
+    np.testing.assert_array_equal(dv1.float().numpy(), dv.float().numpy())
+
+
+def test_onepass_dead_causal_tiles_are_exactly_zero():
+    """Under the causal mask, partial t (keys [64t, 64t + 64)) of the q
+    rows before 64t is 0 exactly, and a live partial is not."""
+    args = _flat_bwd_inputs(2, 200, 32, True, seed=5)
+    partials, _, _ = fa.flash_bwd_onepass_reference(*args, True)
+    for t in range(partials.shape[1]):
+        assert torch.count_nonzero(partials[:, t, :64 * t]) == 0
+        assert torch.count_nonzero(partials[:, t, 64 * t:]) > 0
+
+
+def test_backward_choice_is_checked_when_the_backward_runs(monkeypatch):
+    """As in the JAX package: an unknown value raises ValueError; the
+    XLA-only "chunked" mode is not ported and raises NotImplementedError
+    naming its ROADMAP entry; the forward reads nothing."""
+    q = torch.randn(1, 64, 1, 32, requires_grad=True)
+    for value, err, match in (("pallas_fused", ValueError, "HVD_TPU_FLASH_BWD"),
+                              ("chunked", NotImplementedError, "ROADMAP")):
+        monkeypatch.setenv("HVD_TPU_FLASH_BWD", value)
+        o = fa.flash_attention(q, q, q, causal=False)
+        with pytest.raises(err, match=match):
+            o.sum().backward()
+    monkeypatch.delenv("HVD_TPU_FLASH_BWD")
+    assert fa.bwd_choice() == "pallas"

@@ -77,7 +77,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                                                       TransformerConfig)
     from horovod_tpu_torch.models import convert_resnet
     from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
-    from horovod_tpu_torch.train import make_resnet_train_step, make_train_step
+    from horovod_tpu_torch.models import convert_bert
+    from horovod_tpu_torch.models.bert import Bert, BertConfig
+    from horovod_tpu_torch.train import (make_bert_train_step,
+                                         make_resnet_train_step,
+                                         make_train_step)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TransformerConfig(vocab_size=16, d_model=64, n_layers=1,
@@ -86,12 +90,19 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     adam = lambda ps: torch.optim.Adam(ps)
     sgd = lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9)
     variables = convert_resnet.init_params(18, 4)
+    bcfg = BertConfig(vocab_size=16, d_model=32, n_layers=1, n_heads=2,
+                      d_ff=32, max_seq=8)
+    adamw = lambda ps: torch.optim.AdamW(ps)
     for call in (hvd.init, lambda: Transformer(cfg),
                  lambda: params_from_jax(init_params(cfg), cfg),
                  lambda: make_train_step(cfg, adam),
                  lambda: ResNet(rcfg),
                  lambda: convert_resnet.params_from_flax(variables, rcfg),
-                 lambda: make_resnet_train_step(rcfg, sgd)):
+                 lambda: make_resnet_train_step(rcfg, sgd),
+                 lambda: Bert(bcfg),
+                 lambda: convert_bert.params_from_jax(
+                     convert_bert.init_params(bcfg), bcfg),
+                 lambda: make_bert_train_step(bcfg, adamw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not hvd.is_initialized()
@@ -101,6 +112,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     resnet = convert_resnet.params_from_flax(variables, rcfg, device="cpu")
     assert resnet.stem.weight.device.type == "cpu"
     make_resnet_train_step(rcfg, sgd, device="cpu")
+    bert = convert_bert.params_from_jax(convert_bert.init_params(bcfg), bcfg,
+                                        device="cpu")
+    assert bert.word_embed.device.type == "cpu"
+    make_bert_train_step(bcfg, adamw, device="cpu")
 
 
 def test_kernel_wrappers_take_no_cpu_tensor():
@@ -110,7 +125,8 @@ def test_kernel_wrappers_take_no_cpu_tensor():
     rows = torch.zeros(2, 64)
     calls = (lambda: fa.flash_fwd_kernel(x, x, x, True),
              lambda: fa.flash_bwd_dq_kernel(x, x, x, x, rows, rows, True),
-             lambda: fa.flash_bwd_dkv_kernel(x, x, x, x, rows, rows, True))
+             lambda: fa.flash_bwd_dkv_kernel(x, x, x, x, rows, rows, True),
+             lambda: fa.flash_bwd_onepass_kernel(x, x, x, x, rows, rows, True))
     for call in calls:
         with pytest.raises(ValueError, match="CUDA kernel"):
             call()
@@ -159,6 +175,7 @@ def test_kernels_build_into_an_ignored_directory():
     assert "build/" in ignored
     assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
                                                   "flash_bwd.cu",
+                                                  "flash_bwd_onepass.cu",
                                                   "batch_norm.cu"}
     assert os.path.exists(_build.CSRC / "flash_common.cuh")
 

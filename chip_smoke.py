@@ -16,26 +16,39 @@
    full), against ``scaled_dot_product_attention``, with both whole
    backward variants timed; the four BatchNorm kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
-   ragged M 997, C 101), against ``F.batch_norm(training=True)``.
+   ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
+   scale-sum kernel bit for bit at five lengths up to BERT-Large's
+   word-embedding gradient, three coefficient pairs and three dtypes,
+   aligned and offset by one element, with an inf and a NaN and with
+   coefficients read on the device, timed beside the two-call ATen form
+   (no one PyTorch call computes it).
 3. Holds three small models on the card against the same weights in f32
    on the CPU (plain versions): the decoder (bf16), ResNet-50 (image 64,
    batch 4; f32 for the gradients, bf16 for the loss) and BERT (bf16,
    under both backward choices).
 4. The main paths, each run with every launch count set to 0 just
-   before it and read just after, through ``hvd.init()`` (a one-rank
-   NCCL world), ``broadcast_parameters`` and ``DistributedOptimizer``
-   with its fused allreduce, from numpy seeds at full width and depth:
-   the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048, Adam,
-   ``HVD_TPU_FLASH_BWD=pallas``; flash forward, dq and dk/dv 12 launches
-   a step each), ResNet-50 of ``bench.py:274-321`` (batch 128, 224^2,
-   SGD 0.1 with momentum 0.9; each BN kernel 53 launches a step), then
-   BERT-Large fine-tuning (batch 32, seq 384, AdamW with 8 groups and
-   the fp16 wire, ``HVD_TPU_FLASH_BWD=pallas_onepass``; flash forward
-   and one-pass backward 24 launches a step each, every allreduce fp16).
-   No path launches another family's kernels.  Each profiles one more
-   step by kernel family; the BN and BERT flash kernels' device time in
-   that step is printed beside the step's bound for them.
-5. Prints one JSON line of kernel records (eight kernels), then as the
+   before it and read just after, from numpy seeds at full width and
+   depth.  Through ``hvd.init()`` (a one-rank NCCL world),
+   ``broadcast_parameters`` and ``DistributedOptimizer`` with its fused
+   allreduce: the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048,
+   Adam, ``HVD_TPU_FLASH_BWD=pallas``; flash forward, dq and dk/dv 12
+   launches a step each), ResNet-50 of ``bench.py:274-321`` (batch 128,
+   224^2, SGD 0.1 with momentum 0.9; each BN kernel 53 launches a step),
+   then BERT-Large fine-tuning (batch 32, seq 384, AdamW with 8 groups
+   and the fp16 wire, ``HVD_TPU_FLASH_BWD=pallas_onepass``; flash
+   forward and one-pass backward 24 launches a step each, every
+   allreduce fp16).  Then BERT-Large Adasum fine-tuning, the in-process
+   form of Adasum allreduce: the gradients of four 8-row shards of the
+   same batch 32, one after another, stacked and reduced by
+   ``adasum_reduce_stacked`` (the scale-sum kernel 3 times per gradient
+   tensor a step, no host synchronisation), then AdamW; step 0's reduced
+   gradients bit for bit against the plain reduction.  No path launches
+   another family's kernels.  Each profiles one more step by kernel
+   family; the BN and BERT flash kernels' device time in that step is
+   printed beside the step's bound for them, and the Adasum step's
+   reduction is split into the scale-sum kernel and the rest.  Last, each
+   collective of the surface once on the one-rank NCCL world.
+5. Prints one JSON line of kernel records (nine kernels), then as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -128,6 +141,21 @@ RN_LOSS_TOL, RN_LEAF_TOL, RN_BF16_LOSS_TOL = 1e-5, 2e-2, 0.1
 # f32), whose readings were 2.7e-4 and 1.7e-2 (layers.1.wq; bk 1.5e-2)
 # under either choice: about 4x and 3x, as the decoder's limits sit.
 BERT_LOSS_TOL, BERT_LEAF_TOL = 1e-3, 5e-2
+# The scale-sum kernel against its plain version: bit for bit (a NaN
+# matches a NaN), at these lengths (one element, a tail shorter than one
+# 16-byte vector, a tail past 4096 vectors, past 2^19 elements, and
+# BERT-Large's word-embedding gradient, 30522 x 1024), coefficient pairs
+# (Adasum-like: about 1 and 0.5) and dtypes; aligned and offset by one
+# element (the scalar path).
+SS_LENGTHS = (1, 7, 4097, 524289, 31254528)
+SS_COEFS = ((0.5, 2.0), (1 - 2 ** -20, 0.5 + 2 ** -20), (1.0, 0.0))
+SS_DTYPES = ("float32", "bfloat16", "float16")
+# BERT-Large (google-research/bert BERT-Large, Uncased), the Adasum path's
+# ranks (four shards of the global batch 32 on the one card).
+BERT_LARGE = dict(vocab_size=30522, d_model=1024, n_layers=24, n_heads=16,
+                  d_ff=4096, max_seq=512, type_vocab=2, n_classes=2,
+                  norm_eps=1e-12)
+ADASUM_RANKS = 4
 
 
 def say(*args):
@@ -744,6 +772,8 @@ FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("bn_apply", ("bn_apply_kernel",)),
             ("bn_bwd_red", ("bn_bwd_red_",)),
             ("bn_bwd_dx", ("bn_bwd_dx_kernel",)),
+            ("scale_sum", ("scale_sum_kernel",)),
+            ("adasum dots (cuBLAS dot)", ("dot_kernel", "reduce_1block")),
             ("allreduce (nccl)", ("nccl",)),
             ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                               "winograd")),
@@ -751,13 +781,16 @@ FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
             ("optimizer (foreach)", ("multi_tensor_apply",)))
 
 
-def profile_step(torch, step, data, step_ms):
+def profile_step(torch, step, data, step_ms, annotation=None):
     """Device time of one more flagship step by kernel family, from
     torch.profiler's kernel events -> {family: ms}; prints each family's
     largest kernels (8 of the "other" family, 3 of the rest).  The device's busy
     time is the union of the kernels' intervals; its idle share is taken
     against ``step_ms``, the unprofiled median step, since the profiled
-    step's host time includes the profiler's own overhead."""
+    step's host time includes the profiler's own overhead.  With
+    ``annotation`` (a ``record_function`` name inside the step), the kernels
+    inside that range's device span are also summed apart and printed:
+    the scale-sum kernel and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -767,8 +800,12 @@ def profile_step(torch, step, data, step_ms):
         step(data)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if annotation and e.name == annotation
+             and e.device_type == DeviceType.CUDA]
     if not kernels:
         say("profile: the profiler recorded no device time (not measured)")
         return {}
@@ -799,6 +836,18 @@ def profile_step(torch, step, data, step_ms):
         for name, t in sorted(by_name[fam].items(),
                               key=lambda kv: -kv[1])[:top]:
             say("      %9.3f ms  %s" % (t / 1e3, name[:100]))
+    if annotation:
+        inside = [e for e in kernels if any(
+            a <= e.time_range.start and e.time_range.end <= b
+            for a, b in spans)]
+        ss_us = sum(e.time_range.elapsed_us() for e in inside
+                    if "scale_sum_kernel" in e.name)
+        rest_us = sum(e.time_range.elapsed_us() for e in inside) - ss_us
+        say("  %s, device span %s: %d kernels, scale_sum %.3f ms, dots and "
+            "coefficient ops %.3f ms" % (
+                annotation, "%.3f ms" % (sum(b - a for a, b in spans) / 1e3)
+                if spans else "not measured (no device span recorded)",
+                len(inside), ss_us / 1e3, rest_us / 1e3))
     return {fam: us / 1e3 for fam, us in totals.items()}
 
 
@@ -809,6 +858,7 @@ def train_flagship(torch):
     from horovod_tpu_torch.models.transformer import TransformerConfig
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import make_train_step, synthetic_batch
 
     hvd.init()
@@ -834,6 +884,7 @@ def train_flagship(torch):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     bn.reset_launch_counts()
+    ss.reset_launch_counts()
     losses, times = [], []
     for i in range(STEPS):
         t = time.perf_counter()
@@ -842,7 +893,7 @@ def train_flagship(torch):
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
         say("step %d: loss %.6f, %.2f ms" % (i, losses[-1], times[-1] * 1e3))
-    counts = fa.launch_counts()
+    counts = {**fa.launch_counts(), **ss.launch_counts()}
     if any(bn.launch_counts().values()):
         raise AssertionError("the decoder launched BN kernels: %s"
                              % bn.launch_counts())
@@ -856,7 +907,8 @@ def train_flagship(torch):
     check_counts(counts, {"flash_fwd_kernel": L * STEPS,
                           "flash_bwd_dq_kernel": L * STEPS,
                           "flash_bwd_dkv_kernel": L * STEPS,
-                          "flash_bwd_onepass_kernel": 0})
+                          "flash_bwd_onepass_kernel": 0,
+                          "scale_sum_kernel": 0})
     profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
     return counts
@@ -881,6 +933,7 @@ def train_resnet_flagship(torch, batch=128, image=224):
     from horovod_tpu_torch.models.resnet import NormAct, ResNetConfig
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import (make_resnet_train_step,
                                          synthetic_images)
 
@@ -912,6 +965,7 @@ def train_resnet_flagship(torch, batch=128, image=224):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     bn.reset_launch_counts()
+    ss.reset_launch_counts()
     losses, times = [], []
     for i in range(STEPS):
         t = time.perf_counter()
@@ -925,7 +979,7 @@ def train_resnet_flagship(torch, batch=128, image=224):
         say("resnet step %d: loss %.6f, %.2f ms"
             % (i, losses[-1], times[-1] * 1e3))
     counts = bn.launch_counts()
-    flash = fa.launch_counts()
+    flash = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
     say("resnet flagship: median step_ms %.2f, img/s %.1f, peak memory "
         "%.2f GB" % (med * 1e3, batch / med,
@@ -971,6 +1025,7 @@ def train_bert_flagship(torch, batch=32, seq=384):
     from horovod_tpu_torch.models.convert_bert import init_params
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import (make_bert_train_step,
                                          synthetic_bert_batch)
 
@@ -1006,6 +1061,7 @@ def train_bert_flagship(torch, batch=32, seq=384):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     bn.reset_launch_counts()
+    ss.reset_launch_counts()
     losses, times = [], []
     for i in range(STEPS):
         dist.all_reduce = record if i == 0 else all_reduce
@@ -1019,7 +1075,7 @@ def train_bert_flagship(torch, batch=32, seq=384):
         losses.append(loss.item())
         say("bert step %d: loss %.6f, %.2f ms" % (i, losses[-1],
                                                  times[-1] * 1e3))
-    counts = fa.launch_counts()
+    counts = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
     say("bert flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
         % (med * 1e3, batch * seq / med,
@@ -1039,10 +1095,331 @@ def train_bert_flagship(torch, batch=32, seq=384):
     check_counts(counts, {"flash_fwd_kernel": L * STEPS,
                           "flash_bwd_dq_kernel": 0,
                           "flash_bwd_dkv_kernel": 0,
-                          "flash_bwd_onepass_kernel": L * STEPS})
+                          "flash_bwd_onepass_kernel": L * STEPS,
+                          "scale_sum_kernel": 0})
     prof = profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
     return counts, prof
+
+
+def bit_mismatches(got, want):
+    """Elements of ``got`` whose bits differ from ``want``'s (a NaN
+    matches a NaN), and the largest |got - want| among the rest."""
+    import torch
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    differ = (got.view(ints) != want.view(ints)) & ~both_nan
+    err = (got.float() - want.float()).abs()
+    err = torch.where(both_nan, torch.zeros_like(err), err)
+    return int(differ.sum().item()), float(err.max().item())
+
+
+def scale_sum_inputs(n, dtype, seed):
+    """a and b of n + 1 elements (so that a view offset by one exists),
+    normal and normal times 3, from a seeded generator on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+    b = (3 * torch.randn(n + 1, generator=g, device="cuda")).to(dtype)
+    return a, b
+
+
+def scale_sum_errors(ss):
+    """The scale-sum kernel against its plain version at every SS_LENGTHS
+    x SS_COEFS x SS_DTYPES, aligned and offset by one element, plus an inf
+    and a NaN in a and coefficients read on the device; each kernel output
+    lands in a NaN-poisoned block, so an unwritten element reads NaN.
+    -> {case: (mismatching elements, max abs err)}."""
+    import torch
+    out = {}
+    for dname in SS_DTYPES:
+        dtype = getattr(torch, dname)
+        for n in SS_LENGTHS:
+            a_full, b_full = scale_sum_inputs(n, dtype, n)
+            cases = [("%s n%d (%.9g, %.9g) %s" % (dname, n, al, be, view),
+                      a_full[:n] if view == "aligned" else a_full[1:],
+                      b_full[:n] if view == "aligned" else b_full[1:],
+                      al, be)
+                     for al, be in SS_COEFS
+                     for view in ("aligned", "offset")]
+            special = a_full[:n].clone()
+            special[0] = float("inf")
+            special[n // 2] = float("nan")
+            coef = torch.tensor([0.75, -1.5], device="cuda")
+            cases.append(("%s n%d inf+nan in a, device coefficients"
+                          % (dname, n), special, b_full[:n], coef[0],
+                          coef[1]))
+            for label, a, b, al, be in cases:
+                want = ss.scale_sum_plain(a, b, al, be)
+                poison = torch.full_like(a, float("nan"))
+                del poison
+                got = ss.scale_sum_kernel(a, b, al, be)
+                torch.cuda.synchronize()
+                out[label] = bit_mismatches(got, want)
+            del a_full, b_full, cases
+    return out
+
+
+def check_scale_sum_kernel(ss):
+    """Phase 2 for the scale-sum kernel: every case of scale_sum_errors
+    bit for bit, then device times at BERT-Large's word-embedding length
+    for each dtype: the kernel, the plain version and, as context, the
+    two-call ATen form ``torch.add(a.mul(alpha), b, alpha=beta)`` (no one
+    PyTorch call computes the function).  -> {dtype: record}."""
+    import torch
+    errs = scale_sum_errors(ss)
+    bad = {k: v for k, v in errs.items() if v[0]}
+    say("scale_sum kernel: %d cases (lengths %s, coefficients %s, dtypes "
+        "%s, aligned and offset by one, inf/NaN with device coefficients), "
+        "%d with any bit off the plain version; max abs err %.3g"
+        % (len(errs), SS_LENGTHS, SS_COEFS, SS_DTYPES, len(bad),
+           max(e for _, e in errs.values())))
+    if bad:
+        raise AssertionError("scale_sum kernel off its plain version: %s"
+                             % json.dumps(dict(list(bad.items())[:12])))
+    n = SS_LENGTHS[-1]
+    records = {}
+    for dname in SS_DTYPES:
+        dtype = getattr(torch, dname)
+        a, b = (t[:n] for t in scale_sum_inputs(n, dtype, 1))
+        al, be = SS_COEFS[0]
+        elem = a.element_size()
+        rec = {"max_abs_err": max(e for k, (_, e) in errs.items()
+                                  if k.startswith(dname)),
+               "ms": time_ms(lambda: ss.scale_sum_kernel(a, b, al, be),
+                             reps=20),
+               "plain_ms": time_ms(lambda: ss.scale_sum_plain(a, b, al, be)),
+               "aten_two_call_ms": time_ms(
+                   lambda: torch.add(a.mul(al), b, alpha=be)),
+               "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = bound(3 * n, 3 * n * elem,
+                                                 peak=PEAK_F32_FLOPS)
+        records[dname] = rec
+        say("kernel scale_sum %s n%d: %s" % (dname, n, json.dumps(
+            {k: (float("%.6g" % v) if isinstance(v, float) else v)
+             for k, v in rec.items()})))
+        del a, b
+    return records
+
+
+def adasum_mismatches(got, stacked, ss):
+    """Each reduced gradient in ``got`` against ``adasum_reduce_stacked``
+    of its stacked [ranks, ...] gradients with scale_sum_plain, on the
+    card -> (tensors with any bit off, elements off, max abs err,
+    elements)."""
+    from horovod_tpu_torch.utils.adasum import adasum_reduce_stacked
+    tensors = elements = 0
+    worst = 0.0
+    for g, s in zip(got, stacked):
+        want = adasum_reduce_stacked(s, scale_sum=ss.scale_sum_plain)
+        n, e = bit_mismatches(g, want)
+        tensors += n > 0
+        elements += n
+        worst = max(worst, e)
+    return tensors, elements, worst, sum(g.numel() for g in got)
+
+
+def bert_shard_grads(model, shards, loss_fn, stacked=None):
+    """Each shard's gradients, one after another, into rank-major stacked
+    f32 buffers (allocated on the first call, for the parameters the loss
+    reaches) -> (stacked {parameter: [ranks, ...]}, the shards' losses)."""
+    import torch
+    losses = []
+    for r, shard in enumerate(shards):
+        for p in model.parameters():
+            p.grad = None
+        loss = loss_fn(model, shard)
+        loss.backward()
+        losses.append(loss.detach())
+        if stacked is None:
+            stacked = {p: torch.empty((len(shards),) + tuple(p.shape),
+                                      dtype=p.grad.dtype, device=p.device)
+                       for p in model.parameters() if p.grad is not None}
+        for p, s in stacked.items():
+            s[r].copy_(p.grad)
+    return stacked, losses
+
+
+def small_bert_adasum_errors(ss):
+    """The small BERT (vocab 512, d 256, 2 layers, 4 heads of 64, d_ff
+    1024, seq 128, bf16) on the card: the gradients of four 2-row shards
+    of a batch of 8, reduced with the kernel and with the plain version
+    -> adasum_mismatches(...)."""
+    import torch
+    from horovod_tpu_torch.models.bert import BertConfig, classification_loss
+    from horovod_tpu_torch.models.convert_bert import (init_params,
+                                                       params_from_jax)
+    from horovod_tpu_torch.train import synthetic_bert_batch
+    from horovod_tpu_torch.utils.adasum import adasum_reduce_stacked
+
+    cfg = BertConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                     d_ff=1024, max_seq=128)
+    model = params_from_jax(init_params(cfg, seed=1), cfg, "cuda")
+    batch = synthetic_bert_batch(cfg, 2 * ADASUM_RANKS, 128, seed=1)
+    shards = [{k: torch.as_tensor(v[2 * r:2 * r + 2], device="cuda")
+               for k, v in batch.items()} for r in range(ADASUM_RANKS)]
+    with flash_bwd_env("pallas_onepass"):
+        stacked, _ = bert_shard_grads(model, shards, classification_loss)
+    got = [adasum_reduce_stacked(s) for s in stacked.values()]
+    return adasum_mismatches(got, stacked.values(), ss)
+
+
+def train_bert_adasum(torch, batch=32, seq=384):
+    """BERT-Large Adasum fine-tuning, the in-process form of the JAX
+    package's Adasum allreduce (``op_manager.py``): each step computes the
+    gradients of ADASUM_RANKS shards of the global batch (rows r*8 ...
+    r*8+7, what ``shard_batch`` gives rank r of a 4-rank world) one after
+    another on the one card, stacks each parameter's gradients, reduces
+    them with ``adasum_reduce_stacked`` (the scale-sum kernel; no host
+    synchronisation, held by ``torch.cuda.set_sync_debug_mode("error")``),
+    sets ``.grad`` and steps AdamW(5e-5, weight decay 0.01).  Classification
+    loss, bf16 activations, f32 parameters, HVD_TPU_FLASH_BWD=pallas_onepass
+    as set by the caller; weights and data from numpy seed 0.  Step 0's
+    reduced gradients must equal, bit for bit, the same reduction with
+    scale_sum_plain on the same stacked gradients.  Each step must launch
+    the scale-sum kernel 3 times per gradient tensor, flash_fwd and
+    flash_bwd_onepass once per layer per shard, and nothing else of the
+    port.  Returns the launch counts and the profiled step's device time
+    by kernel family."""
+    from horovod_tpu_torch.models.bert import BertConfig, classification_loss
+    from horovod_tpu_torch.models.convert_bert import (init_params,
+                                                       params_from_jax)
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import scale_sum as ss
+    from horovod_tpu_torch.train import synthetic_bert_batch
+    from horovod_tpu_torch.utils.adasum import adasum_reduce_stacked
+
+    cfg = BertConfig(**BERT_LARGE)
+    L, per = cfg.n_layers, batch // ADASUM_RANKS
+    t0 = time.perf_counter()
+    model = params_from_jax(init_params(cfg, seed=0), cfg, "cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-5, weight_decay=0.01)
+    data = synthetic_bert_batch(cfg, batch, seq, seed=0)
+    shards = [{k: torch.as_tensor(v[r * per:(r + 1) * per], device="cuda")
+               for k, v in data.items()} for r in range(ADASUM_RANKS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    box = {"stacked": None}
+    reduce_times = []
+
+    def step(_data=None):
+        stacked, losses = bert_shard_grads(model, shards, classification_loss,
+                                           box["stacked"])
+        box["stacked"] = stacked
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.profiler.record_function("adasum_reduce"):
+                for p, s in stacked.items():
+                    p.grad = adasum_reduce_stacked(s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        b.record()
+        host_ms = (time.perf_counter() - t) * 1e3
+        opt.step()
+        reduce_times.append((a, b, host_ms))
+        return torch.stack(losses).mean()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bn.reset_launch_counts()
+    ss.reset_launch_counts()
+    losses, times = [], []
+    for i in range(STEPS):
+        t = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        say("bert adasum step %d: mean shard loss %.6f, %.2f ms"
+            % (i, losses[-1], times[-1] * 1e3))
+        if i == 0:
+            launched = ss.launch_counts()["scale_sum_kernel"]
+            stacked = box["stacked"]
+            n_bad, n_el, worst, total = adasum_mismatches(
+                [p.grad for p in stacked], stacked.values(), ss)
+            say("bert adasum step 0: %d gradient tensors (%d elements) "
+                "reduced over %d shards; against the plain version on the "
+                "same stacked gradients: %d tensors and %d elements with any "
+                "bit off, max abs err %.3g" % (len(stacked), total,
+                                               ADASUM_RANKS, n_bad, n_el,
+                                               worst))
+            if n_bad or ss.launch_counts()["scale_sum_kernel"] != launched:
+                raise AssertionError("Adasum reduction off its plain "
+                                     "version in %d tensors" % n_bad)
+    counts = {**fa.launch_counts(), **ss.launch_counts()}
+    n_grads = len(box["stacked"])
+    med = statistics.median(times)
+    red = [(a.elapsed_time(b), h) for a, b, h in reduce_times]
+    say("bert adasum: BERT-Large d%d L%d, %d shards of %d rows, seq %d, %d "
+        "parameters, %d gradient tensors; set-up %.1f s; median step_ms "
+        "%.2f, tok/s %.1f, peak memory %.2f GB; reduction (CUDA events / "
+        "host launch time) median %.3f / %.3f ms"
+        % (cfg.d_model, L, ADASUM_RANKS, per, seq,
+           sum(p.numel() for p in model.parameters()), n_grads, setup_s,
+           med * 1e3,
+           batch * seq / med, torch.cuda.max_memory_allocated() / 1e9,
+           statistics.median(r[0] for r in red),
+           statistics.median(r[1] for r in red)))
+    say("launches on the bert adasum path (%d steps): %s, bn %s"
+        % (STEPS, counts, bn.launch_counts()))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss: %s" % losses)
+    if any(bn.launch_counts().values()):
+        raise AssertionError("the Adasum path launched BN kernels: %s"
+                             % bn.launch_counts())
+    shard_layers = L * ADASUM_RANKS * STEPS
+    check_counts(counts, {"flash_fwd_kernel": shard_layers,
+                          "flash_bwd_dq_kernel": 0,
+                          "flash_bwd_dkv_kernel": 0,
+                          "flash_bwd_onepass_kernel": shard_layers,
+                          "scale_sum_kernel": 3 * n_grads * STEPS})
+    prof = profile_step(torch, step, None, med * 1e3,
+                        annotation="adasum_reduce")
+    return counts, prof
+
+
+def check_collectives_on_card(torch):
+    """Each collective of the surface once on the one-rank NCCL world with
+    CUDA tensors, checked against its input: Adasum allreduce (the
+    identity at size 1, pre- and post-scaled), a grouped Adasum allreduce,
+    allgather, reducescatter, alltoall with splits, barrier and
+    allgather_object.  Proves they launch on the card; says nothing of
+    transport between cards."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import scale_sum as ss
+
+    hvd.init()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(6, 5, generator=g, device="cuda")
+    h = x.half()
+    ss.reset_launch_counts()
+    checks = {
+        "adasum allreduce": torch.equal(
+            hvd.allreduce(x, op=hvd.Adasum, prescale_factor=0.5,
+                          postscale_factor=2.0), x * 0.5 * 2.0),
+        "grouped adasum allreduce": all(
+            torch.equal(a, b) for a, b in zip(
+                hvd.grouped_allreduce([x, h], op=hvd.Adasum), [x, h])),
+        "allgather": torch.equal(hvd.allgather(x), x),
+        "reducescatter": torch.equal(hvd.reducescatter(x, op=hvd.Sum), x),
+        "alltoall": (lambda out: torch.equal(out[0], x)
+                     and out[1].tolist() == [6])(
+            hvd.alltoall(x, splits=[6])),
+        "barrier": hvd.barrier() is None,
+        "allgather_object": hvd.allgather_object({"rank": hvd.rank()})
+        == [{"rank": 0}],
+    }
+    torch.cuda.synchronize()
+    hvd.shutdown()
+    say("collectives on the card (one-rank NCCL world): %s; scale_sum "
+        "launches %d (none at size 1)"
+        % (json.dumps(checks), ss.launch_counts()["scale_sum_kernel"]))
+    if not all(checks.values()):
+        raise AssertionError("collectives on the card: %s" % checks)
 
 
 def main() -> int:
@@ -1054,6 +1431,7 @@ def main() -> int:
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import scale_sum as ss
 
     # -- 1: card, versions, flags, build
     say(card_line())
@@ -1077,6 +1455,7 @@ def main() -> int:
     # -- 2: kernels against their plain versions
     flash = check_flash_kernels(fa)
     bn_err, bn_shape_times = check_bn_kernels(bn)
+    ss_records = check_scale_sum_kernel(ss)
 
     # -- 3: small models against the f32 CPU reference
     check_model()
@@ -1106,6 +1485,15 @@ def main() -> int:
                 name, "%.6g" % bert_prof[name] if name in bert_prof
                 else "not measured",
                 24 * flash[BERT_SHAPE][name]["bound_ms"]))
+    torch.cuda.empty_cache()
+    with flash_bwd_env("pallas_onepass"):
+        adasum_counts, adasum_prof = train_bert_adasum(torch)
+    say("scale_sum, one BERT-Large Adasum step's %d launches: device %s ms "
+        "(profile)" % (adasum_counts["scale_sum_kernel"] // STEPS,
+                       "%.6g" % adasum_prof["scale_sum"]
+                       if "scale_sum" in adasum_prof else "not measured"))
+    torch.cuda.empty_cache()
+    check_collectives_on_card(torch)
 
     # -- 5: results
     # (source, TPU kernel, wrapper, the phase-2 shape of its record, the
@@ -1149,7 +1537,15 @@ def main() -> int:
         "(phase 4); its ms, plain_ms, bound_ms and library_ms are one call's "
         "device time at the stem's shape" % (name, ", ".join(
             "M%d C%d" % (m, c) for _, m, c, _, _ in BN_SHAPES),
-            bn_counts[w]) for name, (_, w) in bn_sources.items()))
+            bn_counts[w]) for name, (_, w) in bn_sources.items()) + "; "
+        "scale_sum held at %d cases (phase 2), launched %d times in "
+        "BERT-Large Adasum training (phase 4); its ms, plain_ms and bound_ms "
+        "are one call's device time on %d f32 elements; no single PyTorch "
+        "call computes it (library_ms null; the two-call "
+        "torch.add(a.mul(alpha), b, alpha=beta) took %.6g ms)" % (
+            len(SS_LENGTHS) * len(SS_DTYPES) * (2 * len(SS_COEFS) + 1),
+            adasum_counts["scale_sum_kernel"], SS_LENGTHS[-1],
+            ss_records["float32"]["aten_two_call_ms"]))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -1169,6 +1565,16 @@ def main() -> int:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})
+    rec = ss_records["float32"]
+    out.append({"name": "scale_sum", "route": "cuda",
+                "source": "horovod_tpu_torch/csrc/scale_sum.cu",
+                "replaces": "horovod_tpu/ops/pallas_kernels.py:838",
+                "launches": adasum_counts["scale_sum_kernel"],
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in ss_records.values()),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": None})
     say("chip_smoke: %.1f s wall, the build included"
         % (time.perf_counter() - t_start))
     say(json.dumps({"kernels": out}))

@@ -1,8 +1,10 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
 The synchronous data-parallel training step over ``torch.distributed``
-(NCCL on CUDA, gloo on the CPU), with the attention kernels written by
-hand in CUDA C++ for Hopper (``csrc/``).  Usage mirrors Horovod's::
+(NCCL on CUDA, gloo on the CPU) and Horovod's collective surface
+(allreduce with Adasum, allgather, reducescatter, alltoall, broadcast,
+barrier, process sets), with the attention, BatchNorm and Adasum-combine
+kernels written by hand in CUDA C++ for Hopper (``csrc/``).  Usage mirrors Horovod's::
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -25,17 +27,23 @@ for _mod, _names in (
       "local_size", "cross_rank", "cross_size", "is_homogeneous",
       "topology", "device", "nccl_built", "gloo_built", "mpi_built",
       "cuda_built")),
-    (".common.process_sets", ("ProcessSet", "global_process_set")),
+    (".common.process_sets",
+     ("ProcessSet", "global_process_set", "add_process_set",
+      "remove_process_set")),
     (".ops.api",
      ("SUM", "AVERAGE", "MIN", "MAX", "PRODUCT", "ADASUM", "Handle",
       "allreduce", "allreduce_async", "grouped_allreduce",
-      "grouped_allreduce_async", "broadcast", "broadcast_async",
-      "broadcast_", "broadcast_async_", "synchronize", "poll")),
+      "grouped_allreduce_async", "allgather", "allgather_async",
+      "grouped_allgather", "grouped_allgather_async", "reducescatter",
+      "reducescatter_async", "grouped_reducescatter",
+      "grouped_reducescatter_async", "alltoall", "alltoall_async",
+      "broadcast", "broadcast_async", "broadcast_", "broadcast_async_",
+      "barrier", "synchronize", "poll")),
     (".optimizer", ("DistributedOptimizer",)),
     (".compression", ("Compression",)),
     (".functions",
      ("broadcast_parameters", "broadcast_optimizer_state",
-      "broadcast_object")),
+      "broadcast_object", "allgather_object")),
 ):
     for _n in _names:
         _EXPORTS[_n] = (_mod, _n)

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from . import process_sets
 from .topology import Topology, launched, topology_from_env
 
 
@@ -74,6 +75,7 @@ def shutdown():
     with _state.lock:
         if _state.topology is None:
             return
+        process_sets.reset()
         dist.destroy_process_group()
         _state.topology = _state.device = None
 

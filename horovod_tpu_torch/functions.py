@@ -1,4 +1,5 @@
-"""Broadcast of model parameters, optimizer state and Python objects.
+"""Broadcast of model parameters, optimizer state and Python objects, and
+the allgather of Python objects.
 
 Counterpart of ``horovod_tpu/torch/functions.py``.
 """
@@ -11,6 +12,7 @@ import torch
 import torch.distributed as dist
 
 from .common import basics
+from .common.process_sets import ProcessSet, global_process_set
 from .ops.collectives import broadcast_async_
 
 
@@ -34,6 +36,18 @@ def broadcast_object(obj: Any, root_rank: int = 0, name=None) -> Any:
     box = [obj if basics.rank() == root_rank else None]
     dist.broadcast_object_list(box, src=root_rank)
     return box[0]
+
+
+def allgather_object(obj: Any, name=None,
+                     process_set: ProcessSet = global_process_set) -> list:
+    """Every member's picklable ``obj``, in rank order."""
+    basics.topology()
+    if not process_set.included():
+        raise ValueError("rank %d is not part of %r"
+                         % (basics.rank(), process_set))
+    out = [None] * process_set.size()
+    dist.all_gather_object(out, obj, group=process_set.group)
+    return out
 
 
 class _TensorSlot:

@@ -21,6 +21,9 @@ numerics of ``horovod_tpu/jax/optimizer.py``:
   its pre- and post-scale) runs on the wire, and each result is
   decompressed after ``wait()``, the order of the JAX and torch
   surfaces of the JAX package;
+* ``op=Adasum`` keeps the hooks and groups, and reduces each gradient of
+  a group alone (``collectives.adasum_allreduce``), never in a fused
+  buffer;
 * ``step()`` waits for the reductions, writes the results into ``.grad``
   and runs the wrapped optimizer.
 """

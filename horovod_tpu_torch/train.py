@@ -26,6 +26,7 @@ from .models.convert_bert import params_from_jax as bert_from_jax
 from .models.convert_resnet import params_from_flax
 from .models.resnet import ResNetConfig, resnet_loss_fn
 from .models.transformer import TransformerConfig, loss_fn
+from .ops.collectives import AVERAGE
 from .optimizer import DistributedOptimizer
 
 
@@ -170,7 +171,7 @@ def make_bert_train_step(cfg: bert.BertConfig,
                                              torch.optim.Optimizer],
                          objective: str = "classification",
                          compression=Compression.none, num_groups: int = 0,
-                         device=None):
+                         op: str = AVERAGE, device=None):
     """Returns ``(build, shard_batch)``, as ``make_train_step`` does, for
     BERT fine-tuning with the ``classification_loss`` or ``mlm_loss``
     objective.
@@ -178,9 +179,9 @@ def make_bert_train_step(cfg: bert.BertConfig,
     ``build(np_params)`` puts the JAX-layout tree on ``device`` (CUDA
     unless "cpu"), broadcasts rank 0's parameters and optimizer state,
     wraps ``optimizer(model.parameters())`` in ``DistributedOptimizer``
-    with ``compression`` and ``num_groups`` (the recipe of
-    ``examples/pytorch_bert_finetune.py``: AdamW, 8 groups, fp16 wire)
-    and returns ``(step, model, opt)``; ``step(batch) -> loss`` (this
+    with ``compression``, ``num_groups`` and the reduce ``op`` (the recipe
+    of ``examples/pytorch_bert_finetune.py``: AdamW, 8 groups, fp16 wire;
+    ``op=hvd.Adasum`` for Adasum) and returns ``(step, model, opt)``; ``step(batch) -> loss`` (this
     rank's loss, detached).  ``shard_batch(global_batch)`` gives this
     rank's rows on ``device``.  Needs ``hvd.init()`` first."""
     loss_fn = {"classification": bert.classification_loss,
@@ -196,7 +197,7 @@ def make_bert_train_step(cfg: bert.BertConfig,
         opt = DistributedOptimizer(opt,
                                    named_parameters=model.named_parameters(),
                                    num_groups=num_groups,
-                                   compression=compression)
+                                   compression=compression, op=op)
 
         def step(batch):
             opt.zero_grad()

@@ -67,7 +67,7 @@ def test_package_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 25
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
@@ -102,7 +102,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda: Bert(bcfg),
                  lambda: convert_bert.params_from_jax(
                      convert_bert.init_params(bcfg), bcfg),
-                 lambda: make_bert_train_step(bcfg, adamw)):
+                 lambda: make_bert_train_step(bcfg, adamw),
+                 lambda: make_bert_train_step(bcfg, adamw, op=hvd.Adasum)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not hvd.is_initialized()
@@ -164,6 +165,20 @@ def test_bn_kernel_wrappers_take_no_cpu_tensor():
     assert bn.launch_counts() == {k.__name__: 0 for k in bn.KERNELS}
 
 
+def test_adasum_on_cpu_tensors_launches_no_kernel():
+    """Adasum's combine takes the scale-sum kernel's plain version for CPU
+    tensors, and its wrapper takes no CPU tensor."""
+    from horovod_tpu_torch.ops import scale_sum as ss
+    from horovod_tpu_torch.utils.adasum import adasum_reduce_stacked
+    ss.reset_launch_counts()
+    x = torch.arange(12, dtype=torch.float32).view(4, 3)
+    out = adasum_reduce_stacked(x)
+    assert out.shape == (3,) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ss.scale_sum_kernel(x, x)
+    assert ss.launch_counts() == {"scale_sum_kernel": 0}
+
+
 def test_kernels_build_into_an_ignored_directory():
     """The kernels build under the package at first use, into a
     ``build/`` directory that ``.gitignore`` lists, from the sources in
@@ -176,7 +191,8 @@ def test_kernels_build_into_an_ignored_directory():
     assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
                                                   "flash_bwd.cu",
                                                   "flash_bwd_onepass.cu",
-                                                  "batch_norm.cu"}
+                                                  "batch_norm.cu",
+                                                  "scale_sum.cu"}
     assert os.path.exists(_build.CSRC / "flash_common.cuh")
 
 

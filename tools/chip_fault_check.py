@@ -5,8 +5,9 @@
 
 Each fault is a one-line edit to a kernel source: a dropped part of the
 attention sum, a one-pass slot left unwritten or written past its rows,
-or a dropped row chunk, mask term or channel tile of the BatchNorm
-kernels.  For each, the script copies ``horovod_tpu_torch/`` and
+a dropped row chunk, mask term or channel tile of the BatchNorm kernels,
+or a dropped ragged tail, a coefficient on the wrong operand or a
+contracted FMA in the scale-sum kernel.  For each, the script copies ``horovod_tpu_torch/`` and
 ``chip_smoke.py`` into ``build/fault_check/<fault>/`` (ignored by git;
 the sources in the checkout are not touched), applies the edit there,
 and in a fresh process builds the kernels and runs chip_smoke's checks:
@@ -14,13 +15,19 @@ the flash kernels at its three attention shapes (a ragged full one, the
 decoder's causal one, BERT-Large's full one; the one-pass partials land
 in a NaN-poisoned block), the BN kernels at its four BN shapes, the
 small decoder, the small ResNet-50 and the small BERT under both
-backward choices.  The first case, ``none``, applies no edit.
+backward choices, the scale-sum kernel at every case of its bit check
+(its outputs in a NaN-poisoned block), and the Adasum reduction of the
+small BERT's gradients over four 2-row shards against the same reduction
+with the plain version, bit for bit (the BERT-Large path's check at a
+size that builds in seconds).  The first case, ``none``, applies no
+edit.
 
 It prints each case's readings, and for comparison whether the kernel
 outputs would also pass a tolerance scaled by the tensor's largest
 value, |err| <= 1e-3 + 1e-2 max|plain|.  Exits non-zero unless the
 unedited kernels pass every check and every fault fails the check of
-its kernel family (flash or BN); a dropped BN row chunk must fail it at
+its kernel family (flash, BN, or scale-sum, whose faults must also fail
+the Adasum bit check); a dropped BN row chunk must fail it at
 the stem's shape itself, and each one-pass fault at every attention
 shape where its code runs (a dead causal tile exists only at the causal
 shape, a ragged tail only at S 200).  A check process that dies counts
@@ -100,6 +107,21 @@ FAULTS = {
         "        const float de = xhat_dy<RELU, RES>(",
         "        const float de = xhat_dy<RELU, false>(",
         "BN bwd_red: the residual left out of the recomputed ReLU mask"),
+    "scale_sum_tail_dropped": (
+        "scale_sum.cu",
+        "    done = nv * V;",
+        "    done = n;",
+        "scale-sum: the elements past the last whole vector left unwritten"),
+    "scale_sum_beta_on_a": (
+        "scale_sum.cu",
+        "__fmul_rn(beta, widen(b))",
+        "__fmul_rn(beta, widen(a))",
+        "scale-sum: beta applied to a"),
+    "scale_sum_fma": (
+        "scale_sum.cu",
+        "__fadd_rn(__fmul_rn(alpha, widen(a)), __fmul_rn(beta, widen(b)))",
+        "alpha * widen(a) + beta * widen(b)",
+        "scale-sum: compiled with FMA contraction"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -124,6 +146,7 @@ CHILD = """
 import json, torch, chip_smoke as cs
 from horovod_tpu_torch.ops import batch_norm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import scale_sum as ss
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 errs, poisoned = {}, {}
@@ -148,7 +171,8 @@ bert = {c: cs.bert_model_errors(c) for c in ("pallas", "pallas_onepass")}
 print(json.dumps({"kernels": errs, "poisoned": poisoned, "bn": bn_errs,
                   "loss": loss, "leaves": leaves, "rn_loss": rn_loss,
                   "rn_leaves": rn_leaves, "rn_bf16": rn_bf16,
-                  "bert": bert}))
+                  "bert": bert, "scale_sum": cs.scale_sum_errors(ss),
+                  "adasum": cs.small_bert_adasum_errors(ss)}))
 """
 
 
@@ -227,17 +251,30 @@ def main() -> int:
                           or not b_leaves[b_worst] <= cs.BERT_LEAF_TOL)
             print("  bert (%s): loss rel err %.4g, worst leaf %s %.4g"
                   % (choice, b_loss, b_worst, b_leaves[b_worst]))
+        ss_bad = {k: v for k, v in res["scale_sum"].items() if v[0]}
+        ss_fail = bool(ss_bad)
+        print("  scale_sum: %d of %d cases with any bit off; %s"
+              % (len(ss_bad), len(res["scale_sum"]), json.dumps(
+                  dict(list(ss_bad.items())[:6]))))
+        n_t, n_el, worst, total = res["adasum"]
+        adasum_fail = n_t > 0
+        print("  adasum (small BERT, 4 shards): %d tensors and %d of %d "
+              "elements with any bit off the plain reduction, max abs err "
+              "%.4g" % (n_t, n_el, total, worst))
         print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
-              "check %s" % tuple("fails" if f else "passes"
-                                 for f in fails["kernels"] + fails["bn"]
-                                 + (model_fail, rn_fail, bert_fail)),
-              flush=True)
+              "check %s, scale_sum check %s, adasum check %s"
+              % tuple("fails" if f else "passes"
+                      for f in fails["kernels"] + fails["bn"]
+                      + (model_fail, rn_fail, bert_fail, ss_fail,
+                         adasum_fail)), flush=True)
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
             ok &= not (fails["kernels"][0] or fails["bn"][0] or model_fail
-                       or rn_fail or bert_fail)
+                       or rn_fail or bert_fail or ss_fail or adasum_fail)
+        elif fault[0] == "scale_sum.cu":
+            ok &= ss_fail and adasum_fail
         else:
             ok &= fails["bn" if fault[0] == "batch_norm.cu" else "kernels"][0]
             ok &= MUST_FAIL_AT.get(name, set()) <= failed_at

@@ -85,10 +85,13 @@ KERNEL_TOL = {"o": (2 ** -7, 2 ** -5), "lse": (2 ** -16, 2 ** -16),
               "dq": (2 ** -7, 2 ** -5), "dqp": (2 ** -7, 2 ** -5),
               "dk": (2 ** -7, 2 ** -5), "dv": (2 ** -7, 2 ** -5)}
 # (BH, S, D, causal) of phase 2: a ragged full shape, the decoder's
-# attention (batch 4 x 8 heads, seq 2048) and BERT-Large's (batch 32 x 16
-# heads, seq 384).
+# attention (batch 4 x 8 heads, seq 2048), BERT-Large's (batch 32 x 16
+# heads, seq 384), a ragged causal D 32 shape (the kernels' 64-byte
+# swizzle) and a ragged full D 128 shape (two 128-byte panels, a last
+# tile of 2 rows).
 DECODER_SHAPE, BERT_SHAPE = (32, 2048, 128, True), (512, 384, 64, False)
-FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE)
+FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE,
+                (4, 200, 32, True), (2, 130, 128, False))
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_bwd_onepass")
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:

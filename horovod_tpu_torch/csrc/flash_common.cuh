@@ -1,4 +1,6 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the WMMA flash-attention backward kernels of
+// flash_bwd.cu (dq, dk/dv); flash_fwd.cu and flash_bwd_onepass.cu build
+// on sm90.cuh instead.
 //
 // Layout: q, k, v, o, g are (BH, S, D) row-major bf16; lse and delta are
 // (BH, S) f32.  q arrives pre-scaled by 1/sqrt(D); the kernels do no
@@ -20,7 +22,6 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int BQ = 64;             // rows of q per tile
 constexpr int BK = 64;             // rows of k per tile
-constexpr float NEG_INF = -1e30f;  // the mask value of the TPU kernels
 constexpr int LDS = BK + 4;        // f32 score tiles, padded against bank conflicts
 constexpr int LDP = BK + 8;        // bf16 probability tiles
 
@@ -80,18 +81,6 @@ __device__ __forceinline__ void strip_abt(float* c, const bf16* a, const bf16* b
 #pragma unroll
   for (int j = 0; j < N; ++j)
     wmma::store_matrix_sync(c + j * 16, acc[j], LDS, wmma::mem_row_major);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 }  // namespace hvdflash

@@ -4,153 +4,249 @@
 // _flash_attention_fwd_flat.  Same function: causal or full attention on a q
 // already scaled by 1/sqrt(D); an online softmax keeps m, l and acc in f32,
 // masked scores are -1e30, l is clamped at 1e-30, P is cast to v's dtype
-// before the PV product; out: O in bf16 and the row log-sum-exp in f32.
-// Tiles wholly above the diagonal are skipped.
+// before the PV product; out: O in bf16 and the row log-sum-exp in f32,
+// natural-log units.  Tiles wholly above the diagonal are skipped.
 //
-// Bound on the H100 SXM: compute.  At the flagship shape (BH 32, S 2048,
-// D 128, causal) the two products are 4*BH*D*S*(S+1)/2 = 34.4 GFLOP, about
-// 35 us at 989 TFLOP/s bf16, against 67 MB of input and output (20 us at
-// 3.35 TB/s).
+// Bound on the H100 SXM: compute at the decoder's shape (BH 32, S 2048,
+// D 128, causal): 4*BH*D*S*(S+1)/2 = 34.4 GFLOP, 35 us at 989 TFLOP/s
+// bf16, against 67 MB (20 us at 3.35 TB/s).  Bytes at BERT-Large's (BH
+// 512, S 384, D 64, full): 101 MB, 30 us, against 19.3 GFLOP (20 us).
 //
 // Design: the TPU grid ran its k axis in order and carried m, l and acc in
-// scratch from one grid step to the next.  Here one block of 4 warps owns a
-// (bh, 64-row q tile) and loops over the live 64-row k tiles itself.  Each
-// warp owns 16 rows: it computes their scores with WMMA, runs the online
-// softmax on them with warp shuffles, rescales its rows of acc and adds
-// P V, so warps meet only when a new K/V tile is loaded.  acc lives in
-// shared memory in f32, because the per-row rescale needs the row of every
-// accumulator element, which WMMA fragments do not expose.
+// VMEM scratch from one grid step to the next.  Here one block owns a (bh,
+// 128-row q tile) and loops over the live 128-row k tiles itself.  The
+// block is three warpgroups.  The third is the producer: it gives up
+// registers (setmaxnreg) and one of its threads starts TMA loads, Q once
+// and K/V through a ring of two stages, each with a "full" mbarrier (the
+// bytes landed) and an "empty" one (both consumers are done with it).  The
+// first two are consumers, 64 q rows each: S = Q K^T by wgmma from shared
+// memory into f32 registers; the online softmax on those registers (the
+// row max and sum from two quad shuffles, exp2 of s*log2e - m*log2e, the
+// mask only on the diagonal tile and a ragged last one); P packed to bf16
+// in registers straight from S's accumulator layout, which is the layout
+// of wgmma's register A operand; O += P V by wgmma with V read MN-major
+// (the transpose bit), O's accumulator rescaled by corr in registers.
+// Tiles are 64-col (128-byte) swizzled panels, the layout both TMA and
+// wgmma read without bank conflicts (D 32: one 64-byte panel).  O/l goes
+// back through the consumer's own rows of Q's tile and a TMA store, which
+// drops rows at or past S; 3-D tensor maps (D, S, BH) make a ragged tile
+// read zeros, not the next head's rows.  Blocks run the q tiles with the
+// most live k tiles first.
 //
-// Left on the table: wgmma and TMA (this runs on the older mma.sync path at
-// a fraction of the tensor-core rate), acc in registers, double-buffered
-// K/V loads (cp.async) to overlap copy with compute, exp2 with a folded
-// log2(e), and a persistent schedule that balances the causal triangle.
-#include "flash_common.cuh"
+// Left on the table: overlap inside a warpgroup of the softmax with the
+// next tile's Q K^T, ping-pong scheduling of the two consumers, a
+// persistent grid, and a third ring stage at D <= 64.
+#include "sm90.cuh"
 
 namespace hvdflash {
 
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int BQ = 128;  // q rows per block, 64 per consumer warpgroup
+constexpr int BK = 128;  // k rows per tile
+constexpr int STAGES = 2;
+constexpr float NEG_INF = -1e30f;  // the mask value of the TPU kernels
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int D>
 struct FwdSmem {
-  static constexpr int H = Ld<D>::H, F = Ld<D>::F;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + 64 * H * sizeof(bf16);
-  static constexpr size_t v = k + 64 * H * sizeof(bf16);
-  static constexpr size_t p = v + 64 * H * sizeof(bf16);
-  static constexpr size_t s = p + 64 * LDP * sizeof(bf16);
-  static constexpr size_t acc = s + 64 * LDS * sizeof(float);
-  static constexpr size_t m = acc + 64 * F * sizeof(float);
-  static constexpr size_t l = m + 64 * sizeof(float);
-  static constexpr size_t bytes = l + 64 * sizeof(float);
+  static constexpr size_t tile = BK * D * sizeof(bf16);
+  static constexpr size_t q = 0;                     // BQ x D
+  static constexpr size_t kv = q + BQ * D * sizeof(bf16);  // STAGES x (K, V)
+  static constexpr size_t bar = kv + STAGES * 2 * tile;
+  static constexpr size_t bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
 };
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const __grid_constant__ CUtensorMap mo,
                  float* __restrict__ lse, int S) {
   using L = FwdSmem<D>;
-  constexpr int H = L::H, F = L::F;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sAcc = reinterpret_cast<float*>(smem + L::acc);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
+  using PB = Panels<D>;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * BQ;
-  const size_t base = (size_t)bh * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;  // this warp's rows within the tile
-
-  load_tile<D, 128>(sQ, q + base, q0, S);
-  for (int i = threadIdx.x; i < 64 * F; i += 128) sAcc[i] = 0.f;
-  if (threadIdx.x < 64) {
-    sM[threadIdx.x] = NEG_INF;
-    sL[threadIdx.x] = 0.f;
-  }
-
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * BQ;
   const int nk = (S + BK - 1) / BK;
   // Causal liveness, as in the TPU kernel: k tile t is live while
   // t*BK <= q0 + BQ - 1.
   const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-  for (int kt = 0; kt < kend; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, 128>(sK, k + base, kt * BK, S);
-    load_tile<D, 128>(sV, v + base, kt * BK, S);
-    __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    strip_abt<D, 4>(sS + r0 * LDS, sQ + r0 * H, sK);
-    __syncwarp();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int row = q0 + r;
-      float s[2];
-      float mx = NEG_INF;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, BQ * D * sizeof(bf16));
+      for (int p = 0; p < PB::NP; ++p)
+        tma_load_3d(smem + L::q + p * BQ * PB::SWZ, mq, q_full, p * PB::PC, q0, bh);
+      for (int i = 0; i < kend; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::tile);
+        unsigned char* sk = smem + L::kv + s * 2 * L::tile;
+        for (int p = 0; p < PB::NP; ++p) {
+          tma_load_3d(sk + p * BK * PB::SWZ, mk, &full[s], p * PB::PC, i * BK, bh);
+          tma_load_3d(sk + L::tile + p * BK * PB::SWZ, mv, &full[s], p * PB::PC,
+                      i * BK, bh);
+        }
+      }
+    }
+  } else {  // consumers: rows [q0 + 64 wg, q0 + 64 wg + 64)
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 64 * wg + 16 * (t / 32) + lane / 4;  // first row in the tile; +8
+    const int c2 = 2 * (lane % 4);                      // first column of a pair
+    unsigned char* sq = smem + L::q + 64 * wg * PB::SWZ;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < kend; ++i) {
+      const int s = i % STAGES, k0 = i * BK;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* sk = smem + L::kv + s * 2 * L::tile;
+      const unsigned char* sv = sk + L::tile;
+
+      float sc[BK / 2];  // S, then P: rows rl, rl + 8 of 128 columns
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        MmaSS<BK, 0, 0>::run(sc, desc_kmajor<D, BQ>(sq, kk),
+                             desc_kmajor<D, BK>(sk, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      if ((CAUSAL && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + rl + (e >> 1) * 8, col = k0 + 8 * j + c2 + (e & 1);
+            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float corr[2], ms[2], sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = kt * BK + lane + 32 * h;
-        const bool ok = col < S && (!CAUSAL || col <= row);
-        s[h] = ok ? sS[r * LDS + lane + 32 * h] : NEG_INF;
-        mx = fmaxf(mx, s[h]);
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = exp2f((m[h] - mx[h]) * LOG2E);
+        m[h] = mx[h];
+        ms[h] = mx[h] * LOG2E;
       }
-      mx = warp_max(mx);
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      const float sum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_new);
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D; c += 32) sAcc[r * F + c] *= corr;
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * corr + sum;
-      }
-    }
-    __syncwarp();
-
-    // acc rows += P rows (16 x 64) @ V (64 x D)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragC c;
-      wmma::load_matrix_sync(c, sAcc + r0 * F + j * 16, F, wmma::mem_row_major);
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, sP + r0 * LDP + kk, LDP);
-        wmma::load_matrix_sync(b, sV + kk * H + j * 16, H);
-        wmma::mma_sync(c, a, b, c);
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(sc[4 * j + e], LOG2E, -ms[e >> 1]));
+          sc[4 * j + e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * corr[h] + sum[h];
       }
-      wmma::store_matrix_sync(sAcc + r0 * F + j * 16, c, F, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int row = q0 + r;
-    if (row >= S) break;
-    const float l = fmaxf(sL[r], 1e-30f);
-    for (int c = lane; c < D; c += 32)
-      o[base + (size_t)row * D + c] = __float2bfloat16(sAcc[r * F + c] / l);
-    if (lane == 0) lse[(size_t)bh * S + row] = sM[r] + logf(l);
+      // O += P V: P packed to bf16 in registers (the A operand's layout
+      // is S's accumulator layout), V MN-major
+      uint32_t pa[BK / 4];
+#pragma unroll
+      for (int x = 0; x < BK / 4; ++x) pa[x] = pack_bf16(sc[2 * x], sc[2 * x + 1]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        MmaRS<D, 1>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: O / l in bf16 into this warpgroup's rows of Q's tile, then
+    // one TMA store of them; lse = m + log(l).
+    float lc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lc[h] = fmaxf(l[h], 1e-30f);
+      const int row = q0 + rl + 8 * h;
+      if (lane % 4 == 0 && row < S) lse[(size_t)bh * S + row] = m[h] + logf(lc[h]);
+    }
+    unsigned char* so = smem + L::q;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(so + panel_offset<D, BQ>(rl + 8 * h, 8 * j + c2)) =
+            pack_bf16(o[4 * j + 2 * h] / lc[h], o[4 * j + 2 * h + 1] / lc[h]);
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (t == 0 && q0 + 64 * wg < S) {
+      for (int p = 0; p < PB::NP; ++p)
+        tma_store_3d(mo, sq + p * BQ * PB::SWZ, p * PB::PC, q0 + 64 * wg, bh);
+      tma_store_commit();
+      tma_store_wait_read<0>();
+    }
   }
 }
 
 template <int D, bool CAUSAL>
 static cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                           float* lse, int bh, int s, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err;
+  if ((err = panel_map<D>(&mq, q, s, bh, BQ)) != cudaSuccess ||
+      (err = panel_map<D>(&mk, k, s, bh, BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mv, v, s, bh, BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mo, o, s, bh, 64)) != cudaSuccess)
+    return err;
   auto kernel = flash_fwd_kernel<D, CAUSAL>;
   const size_t bytes = FwdSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + BQ - 1) / BQ, bh);
-  kernel<<<grid, 128, bytes, stream>>>(q, k, v, o, lse, s);
+  dim3 grid(bh, (s + BQ - 1) / BQ);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mo, lse, s);
   return cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@ multiplied by 1/sqrt(d) in f32 before its cast; the layout goes
 The backward is chosen as the JAX package chooses it, by
 ``HVD_TPU_FLASH_BWD`` read when the backward runs: ``pallas`` (the
 default) runs the dq and dk/dv kernels, ``pallas_onepass`` the one-pass
-kernel, whose f32 dq partials (one per 64-row k tile) are summed here
+kernel, whose f32 dq partials (one per 128-row k tile) are summed here
 (``partials.sum(1)``, the XLA reduce outside the TPU kernel).
 
 Each kernel has a wrapper (``*_kernel``) that launches it and counts its
@@ -32,9 +32,9 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_MAX_BH = 65535  # grid.y limit of the launches
+_MAX_BH = 65535  # grid.y limit of the dq and dk/dv launches
 _HEAD_DIMS = (32, 64, 128)
-BLOCK_K = 64  # rows of k per tile, hence per dq partial
+BLOCK_K = 128  # rows of k per one-pass tile, hence per dq partial
 BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -94,8 +94,8 @@ def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
 
 def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
     """-> (dq partials f32 (BH, nk, S, D), dk, dv): partial t is
-    ``ds[:, :, k tile t] @ k[k tile t]`` over 64-row k tiles (nk =
-    ceil(S / 64)), so that their sum is ``flash_bwd_reference``'s dq.  A
+    ``ds[:, :, k tile t] @ k[k tile t]`` over BLOCK_K-row k tiles (nk =
+    ceil(S / BLOCK_K)), so that their sum is ``flash_bwd_reference``'s dq.  A
     tile the causal mask kills is exactly 0."""
     bh, s, d = q.shape
     nk = -(-s // BLOCK_K)
@@ -116,7 +116,8 @@ def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
 def _check_kernel_args(name: str, flat, rows=()):
     """Raise on inputs the kernels do not take: they run on CUDA, on
     contiguous bf16 (BH, S, D) tensors with D in 32/64/128, and f32
-    (BH, S) row statistics."""
+    (BH, S) row statistics, each starting on a 16-byte boundary (TMA
+    reads and writes tiles only from there)."""
     bh, s, d = flat[0].shape
     for t in list(flat) + list(rows):
         if not t.is_cuda:
@@ -126,6 +127,9 @@ def _check_kernel_args(name: str, flat, rows=()):
             raise ValueError("%s takes contiguous tensors" % name)
         if t.device != flat[0].device:
             raise ValueError("%s takes tensors on one device" % name)
+        if t.data_ptr() % 16:
+            raise ValueError("%s takes tensors that start on a 16-byte "
+                             "boundary" % name)
     for t in flat:
         if t.dtype != torch.bfloat16 or tuple(t.shape) != (bh, s, d):
             raise ValueError("%s takes bf16 (BH, S, D) tensors of one shape, "

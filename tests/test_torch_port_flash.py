@@ -166,7 +166,7 @@ def _flat_bwd_inputs(bh, s, d, causal, seed, dtype=torch.float32):
                                       (67, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_onepass_partials_sum_to_the_two_pass_dq(s, causal, dtype):
-    """The one-pass plain version has nk = ceil(S/64) partials whose sum
+    """The one-pass plain version has nk = ceil(S/BLOCK_K) partials whose sum
     is the two-pass plain dq, and the same dk and dv bit for bit (same
     casts, same products).  The sum adds the tiles in another order than
     one product over all keys: 2e-5 of the largest |dq| in f32, bf16
@@ -175,7 +175,7 @@ def test_onepass_partials_sum_to_the_two_pass_dq(s, causal, dtype):
     partials, dk1, dv1 = fa.flash_bwd_onepass_reference(*args, causal)
     dq, dk, dv = fa.flash_bwd_reference(*args, causal)
     assert partials.dtype == torch.float32
-    assert tuple(partials.shape) == (2, -(-s // 64), s, 32)
+    assert tuple(partials.shape) == (2, -(-s // fa.BLOCK_K), s, 32)
     assert dk1.dtype == dk.dtype == dtype
     scale = dq.abs().max().item()
     np.testing.assert_allclose(partials.sum(1).numpy(), dq.numpy(),
@@ -185,13 +185,39 @@ def test_onepass_partials_sum_to_the_two_pass_dq(s, causal, dtype):
 
 
 def test_onepass_dead_causal_tiles_are_exactly_zero():
-    """Under the causal mask, partial t (keys [64t, 64t + 64)) of the q
-    rows before 64t is 0 exactly, and a live partial is not."""
+    """Under the causal mask, partial t (keys [B t, B t + B), B =
+    BLOCK_K) of the q rows before B t is 0 exactly, and a live partial is
+    not."""
     args = _flat_bwd_inputs(2, 200, 32, True, seed=5)
     partials, _, _ = fa.flash_bwd_onepass_reference(*args, True)
+    assert partials.shape[1] == -(-200 // fa.BLOCK_K) > 1
     for t in range(partials.shape[1]):
-        assert torch.count_nonzero(partials[:, t, :64 * t]) == 0
-        assert torch.count_nonzero(partials[:, t, 64 * t:]) > 0
+        assert torch.count_nonzero(partials[:, t, :fa.BLOCK_K * t]) == 0
+        assert torch.count_nonzero(partials[:, t, fa.BLOCK_K * t:]) > 0
+
+
+@pytest.mark.parametrize("s", [256, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_onepass_matches_jax_onepass_at_its_k_block(monkeypatch, s, causal):
+    """The port's one-pass backward (plain version, BLOCK_K-row k tiles)
+    against the JAX package's one-pass Pallas kernel in interpret mode at
+    the same k block (HVD_TPU_FLASH_BLOCK_K), whose S 384 plan it is:
+    dq (the partials' sum), dk and dv in f32, TOL."""
+    monkeypatch.setenv("HVD_TPU_FLASH_BWD", "pallas_onepass")
+    monkeypatch.setenv("HVD_TPU_FLASH_BLOCK_K", str(fa.BLOCK_K))
+    q, k, v, g = _inputs(s, 1, 1, 32, seed=s + causal)
+
+    @jax.jit
+    def jax_grads(q_, k_, v_):
+        _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=causal), q_, k_, v_)
+        return vjp(jnp.asarray(g))
+
+    grads_jax = jax_grads(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    fa.flash_attention(qt, kt, vt, causal=causal).backward(torch.from_numpy(g))
+    for got, want in zip((qt.grad, kt.grad, vt.grad), grads_jax):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=TOL, rtol=TOL)
 
 
 def test_backward_choice_is_checked_when_the_backward_runs(monkeypatch):

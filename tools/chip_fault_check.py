@@ -53,8 +53,8 @@ FAULTS = {
     "none": None,
     "fwd_diagonal_tile": (
         "flash_fwd.cu",
-        "  for (int kt = 0; kt < kend; ++kt) {",
-        "  for (int kt = 0; kt < kend - (CAUSAL && 2 * q0 >= S); ++kt) {",
+        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
+        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
         "forward: the diagonal k tile skipped for q rows in the second half"),
     "dkv_last_q_tile": (
         "flash_bwd.cu",
@@ -63,9 +63,20 @@ FAULTS = {
         "dk/dv: the last q tile skipped for k rows in the first half"),
     "fwd_mask_off_by_one": (
         "flash_fwd.cu",
-        "        const bool ok = col < S && (!CAUSAL || col <= row);",
-        "        const bool ok = col < S && (!CAUSAL || col < row + (2 * row < S));",
+        "            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
+        "            if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) "
+        "sc[4 * j + e] = NEG_INF;",
         "forward: causal mask drops the diagonal key in the second half"),
+    "fwd_lse_log2": (
+        "flash_fwd.cu",
+        "lse[(size_t)bh * S + row] = m[h] + logf(lc[h]);",
+        "lse[(size_t)bh * S + row] = m[h] * LOG2E + log2f(lc[h]);",
+        "forward: lse left in log2 units"),
+    "fwd_v_transpose_bit": (
+        "flash_fwd.cu",
+        "MmaRS<D, 1>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
+        "MmaRS<D, 0>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
+        "forward: V read K-major (its transpose bit flipped)"),
     "dq_mask_off_by_one": (
         "flash_bwd.cu", _DQ_ROW + _MASK, _DQ_ROW + _MASK_OFF_BY_ONE,
         "dq: causal mask drops the diagonal key in the second half"),
@@ -74,24 +85,49 @@ FAULTS = {
         "dk/dv: causal mask drops the diagonal key in the second half"),
     "onepass_dead_tiles_not_zeroed": (
         "flash_bwd_onepass.cu",
-        "  for (size_t i = threadIdx.x; i < (size_t)qstart * BQ * D / 4; i += 256)",
-        "  for (size_t i = threadIdx.x; i < (size_t)0 * BQ * D / 4; i += 256)",
+        "    for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
+        "    for (size_t i = t + 128 * wg; i < (size_t)0 * BQ * D / 4; i += 256)",
         "one-pass: the dead causal tiles' partial rows left unwritten"),
+    "onepass_dead_slot_last_tile": (
+        "flash_bwd_onepass.cu",
+        "    for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
+        "    for (size_t i = t + 128 * wg; i < (size_t)max(qstart - 1, 0) * BQ * D "
+        "/ 4; i += 256)",
+        "one-pass: the last dead q tile's rows of a slot left unwritten"),
     "onepass_dkv_last_q_tile": (
         "flash_bwd_onepass.cu",
-        "    for (int kk = 0; kk < BQ; kk += 16) {",
-        "    for (int kk = 0; kk < BQ * (qt + 1 < nq); kk += 16) {",
-        "one-pass: the last q tile left out of dk and dv"),
+        "      for (int kk = 0; kk < BQ / 16; ++kk) {\n"
+        "        const uint32_t a[4] = {pp[",
+        "      for (int kk = 0; kk < BQ / 16 * (qstart + i + 1 < nq); ++kk) {\n"
+        "        const uint32_t a[4] = {pp[",
+        "one-pass: the last q tile left out of dv"),
     "onepass_last_k_partial": (
         "flash_bwd_onepass.cu",
-        "    for (int kk = 0; kk < BK; kk += 16) {",
-        "    for (int kk = 0; kk < BK * (kt + 1 < nk); kk += 16) {",
-        "one-pass: the last k tile's dq partial dropped (written as zeros)"),
+        "      for (int kk = 0; kk < BK / 16; ++kk)\n"
+        "        MmaSS<D / 2, 1, 1>",
+        "      for (int kk = 0; kk < BK / 16 * (kt + 1 < nk); ++kk)\n"
+        "        MmaSS<D / 2, 1, 1>",
+        "one-pass: the last k tile's dq partial dropped (its registers unset)"),
     "onepass_ragged_rows_written": (
         "flash_bwd_onepass.cu",
-        "    if (row0 + r < S)\n",
-        "    if (true)\n",
-        "one-pass: partial rows past S written (into the next slot)"),
+        ("panel_map<D / 2, 4>(&mdqp, dqp, s, (uint64_t)bh * nk, BQ, D)",
+         "q0,\n                       bh * nk + kt);"),
+        ("panel_map<D / 2, 4>(&mdqp, dqp, (uint64_t)s * bh * nk, 1, BQ, D)",
+         "(bh * nk + kt) * S + q0,\n                       0);"),
+        "one-pass: partial rows past S written (the partials' map flattened, "
+        "so the next slot takes them)"),
+    "onepass_stale_ring_stage": (
+        "flash_bwd_onepass.cu",
+        "      mbar_wait(&full[s], (i / STAGES) & 1);",
+        "      mbar_wait(&full[s], ((i / STAGES) & 1) ^ (i >= STAGES));",
+        "one-pass: a ring stage read again before its next tile lands "
+        "(wrong parity)"),
+    "onepass_partial_store_unawaited": (
+        "flash_bwd_onepass.cu",
+        "    if (t == 0) tma_store_wait_read<0>();\n    named_sync(1, 256);",
+        "    named_sync(1, 256);",
+        "one-pass: the last partial TMA stores not awaited before the "
+        "epilogue reuses their buffers"),
     "bn_stats_last_chunk": (
         "batch_norm.cu",
         "      static_cast<float*>(sq), (int)grid.y, c);",
@@ -131,16 +167,25 @@ FAULTS = {
 }
 # Faults that must fail their family's check at these shapes themselves:
 # at the stem a dropped BN chunk is 1 of 1024, the smallest share of any
-# held shape; a one-pass fault at each attention shape where its code
-# runs.
+# held shape; a forward or one-pass fault at each attention shape where
+# its code runs (a dead causal tile and the diagonal only at the causal
+# shapes, a second round of the ring only past two tiles).
 RAGGED, DECODER, BERT = "BH4 S200 D64 full", "BH32 S2048 D128 causal", \
     "BH512 S384 D64 full"
+RAGGED32, RAGGED128 = "BH4 S200 D32 causal", "BH2 S130 D128 full"
+ALL = {RAGGED, DECODER, BERT, RAGGED32, RAGGED128}
+CAUSAL = {DECODER, RAGGED32}
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
-                "onepass_dead_tiles_not_zeroed": {DECODER},
-                "onepass_dkv_last_q_tile": {RAGGED, DECODER, BERT},
-                "onepass_last_k_partial": {RAGGED, DECODER, BERT},
-                "onepass_ragged_rows_written": {RAGGED}}
+                "fwd_diagonal_tile": CAUSAL,
+                "fwd_mask_off_by_one": CAUSAL,
+                "fwd_lse_log2": ALL,
+                "fwd_v_transpose_bit": ALL,
+                "onepass_dead_tiles_not_zeroed": CAUSAL,
+                "onepass_dead_slot_last_tile": CAUSAL,
+                "onepass_dkv_last_q_tile": ALL,
+                "onepass_last_k_partial": ALL,
+                "onepass_stale_ring_stage": ALL}
 
 CHILD = """
 import json, torch, chip_smoke as cs
@@ -186,10 +231,13 @@ def run_case(name, fault):
         src, old, new, _ = fault
         path = work / "horovod_tpu_torch" / "csrc" / src
         text = path.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError("%s: the line to edit is not in %s once"
-                               % (name, src))
-        path.write_text(text.replace(old, new))
+        pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
+        for o, n in pairs:
+            if text.count(o) != 1:
+                raise RuntimeError("%s: the text to edit is not in %s once"
+                                   % (name, src))
+            text = text.replace(o, n)
+        path.write_text(text)
     proc = subprocess.run([sys.executable, "-c", CHILD], cwd=work,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:

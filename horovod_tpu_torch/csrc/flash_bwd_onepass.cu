@@ -347,8 +347,11 @@ extern "C" int hvd_flash_bwd_onepass(const void* q, const void* k, const void* v
                                      const void* g, const void* lse,
                                      const void* delta, void* dqp, void* dk,
                                      void* dv, int bh, int s, int d, int causal,
-                                     void* stream) {
+                                     int block_k, void* stream) {
   using namespace hvdflash;
+  // the caller allocates one partial slot per block_k rows of k; the
+  // kernel writes one per BK
+  if (block_k != BK) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto Q = static_cast<const bf16*>(q);
   auto K = static_cast<const bf16*>(k);

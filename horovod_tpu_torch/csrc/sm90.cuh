@@ -129,15 +129,21 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Wait until the barrier's phase with parity `parity` has completed.  A
-// wait that has not ended after about 2^33 cycles (seconds) traps: a lost
-// arrival is a fault of the kernel, and a trap reports it where a hang
-// would not.
+// build with HVD_SM90_WATCHDOG defined (tools/chip_fault_check.py's
+// copies) traps on a wait that has not ended after about 2^33 cycles
+// (seconds), so that a planted lost arrival ends the launch with an error
+// instead of hanging the card; the shipped wait only spins.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
+#ifdef HVD_SM90_WATCHDOG
   if (mbar_try_wait(addr, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait(addr, parity))
     if (clock64() - t0 > (1ll << 33)) __trap();
+#else
+  while (!mbar_try_wait(addr, parity)) {
+  }
+#endif
 }
 
 __device__ __forceinline__ uint64_t map_addr(const CUtensorMap& map) {

@@ -34,7 +34,9 @@ from . import _build
 NEG_INF = -1e30
 _MAX_BH = 65535  # grid.y limit of the dq and dk/dv launches
 _HEAD_DIMS = (32, 64, 128)
-BLOCK_K = 128  # rows of k per one-pass tile, hence per dq partial
+# rows of k per one-pass tile, hence per dq partial; passed to the kernel,
+# which refuses a value other than its own
+BLOCK_K = 128
 BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,7 +44,7 @@ _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P]},
     "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
-    "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 4 + [_P]},
+    "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 5 + [_P]},
 }
 
 
@@ -200,7 +202,7 @@ def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     _build.check(_lib("flash_bwd_onepass").hvd_flash_bwd_onepass(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, s, d, int(causal), _stream(q)),
+        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, _stream(q)),
         "flash_bwd_onepass_kernel")
     flash_bwd_onepass_kernel.launches += 1
     return partials, dk, dv

@@ -128,15 +128,22 @@ def test_bf16_inputs_keep_their_dtype():
 @pytest.mark.parametrize("choice", ["pallas", "pallas_onepass"])
 @pytest.mark.parametrize("s,causal", [(128, True), (128, False),
                                       (192, True), (192, False),
-                                      (200, True), (200, False)])
+                                      (200, True), (200, False),
+                                      (256, True), (256, False),
+                                      (384, True), (384, False)])
 def test_grads_match_jax_under_each_backward(monkeypatch, choice, s, causal):
     """Both packages read HVD_TPU_FLASH_BWD when the backward runs: the
     JAX side runs its two-pass or one-pass Pallas kernels (interpret
     mode), the port the plain versions of its dq and dk/dv kernels or of
-    its one-pass kernel, whose partials it sums.  S 192 is three 64-row
-    tiles; at S 200 the port's last tile is ragged and the JAX package
-    falls back to plain attention (64 does not divide S).  f32, TOL."""
+    its one-pass kernel, whose partials it sums.  Where BLOCK_K divides S
+    (128, 256, 384: one, two and three of the port's k tiles) the JAX
+    one-pass kernel runs at the same k block (HVD_TPU_FLASH_BLOCK_K), as
+    its own plan does at S 384; at S 192 it keeps its plan.  At S 200 the
+    port's last tiles are ragged and the JAX package falls back to plain
+    attention (64 does not divide S).  f32, TOL."""
     monkeypatch.setenv("HVD_TPU_FLASH_BWD", choice)
+    if choice == "pallas_onepass" and s % fa.BLOCK_K == 0:
+        monkeypatch.setenv("HVD_TPU_FLASH_BLOCK_K", str(fa.BLOCK_K))
     q, k, v, g = _inputs(s, 1, 1, 32, seed=s + causal)
 
     @jax.jit
@@ -194,30 +201,6 @@ def test_onepass_dead_causal_tiles_are_exactly_zero():
     for t in range(partials.shape[1]):
         assert torch.count_nonzero(partials[:, t, :fa.BLOCK_K * t]) == 0
         assert torch.count_nonzero(partials[:, t, fa.BLOCK_K * t:]) > 0
-
-
-@pytest.mark.parametrize("s", [256, 384])
-@pytest.mark.parametrize("causal", [True, False])
-def test_onepass_matches_jax_onepass_at_its_k_block(monkeypatch, s, causal):
-    """The port's one-pass backward (plain version, BLOCK_K-row k tiles)
-    against the JAX package's one-pass Pallas kernel in interpret mode at
-    the same k block (HVD_TPU_FLASH_BLOCK_K), whose S 384 plan it is:
-    dq (the partials' sum), dk and dv in f32, TOL."""
-    monkeypatch.setenv("HVD_TPU_FLASH_BWD", "pallas_onepass")
-    monkeypatch.setenv("HVD_TPU_FLASH_BLOCK_K", str(fa.BLOCK_K))
-    q, k, v, g = _inputs(s, 1, 1, 32, seed=s + causal)
-
-    @jax.jit
-    def jax_grads(q_, k_, v_):
-        _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=causal), q_, k_, v_)
-        return vjp(jnp.asarray(g))
-
-    grads_jax = jax_grads(q, k, v)
-    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    fa.flash_attention(qt, kt, vt, causal=causal).backward(torch.from_numpy(g))
-    for got, want in zip((qt.grad, kt.grad, vt.grad), grads_jax):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                   atol=TOL, rtol=TOL)
 
 
 def test_backward_choice_is_checked_when_the_backward_runs(monkeypatch):

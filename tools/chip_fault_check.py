@@ -1,40 +1,51 @@
 #!/usr/bin/env python3
 """Planted kernel faults against the checks of ``chip_smoke.py``.
 
-    python3 tools/chip_fault_check.py
+    python3 tools/chip_fault_check.py [fault ...]
 
-Each fault is a one-line edit to a kernel source: a dropped part of the
-attention sum, a one-pass slot left unwritten or written past its rows,
-a dropped row chunk, mask term or channel tile of the BatchNorm kernels,
-or a dropped ragged tail, a coefficient on the wrong operand or a
-contracted FMA in the scale-sum kernel.  For each, the script copies ``horovod_tpu_torch/`` and
-``chip_smoke.py`` into ``build/fault_check/<fault>/`` (ignored by git;
-the sources in the checkout are not touched), applies the edit there,
-and in a fresh process builds the kernels and runs chip_smoke's checks:
-the flash kernels at its three attention shapes (a ragged full one, the
-decoder's causal one, BERT-Large's full one; the one-pass partials land
-in a NaN-poisoned block), the BN kernels at its four BN shapes, the
-small decoder, the small ResNet-50 and the small BERT under both
-backward choices, the scale-sum kernel at every case of its bit check
-(its outputs in a NaN-poisoned block), and the Adasum reduction of the
-small BERT's gradients over four 2-row shards against the same reduction
-with the plain version, bit for bit (the BERT-Large path's check at a
-size that builds in seconds).  The first case, ``none``, applies no
-edit.
+Each fault is a one-line edit to a kernel source (or a few lines that
+make one fault): a dropped part of the attention sum, a mask off by one,
+lse in log2 units, V's transpose bit flipped, a one-pass slot left
+unwritten or written past its rows, a stale ring stage, partial stores
+not awaited, a dropped row chunk, mask term or channel tile of the
+BatchNorm kernels, or a dropped ragged tail, a coefficient on the wrong
+operand or a contracted FMA in the scale-sum kernel.  For each, the
+script copies ``horovod_tpu_torch/`` and ``chip_smoke.py`` into
+``build/fault_check/<fault>/`` (ignored by git; the sources in the
+checkout are not touched), defines ``HVD_SM90_WATCHDOG`` there (an
+mbarrier wait of seconds traps, so a lost arrival ends its launch with
+an error instead of hanging the card), applies the edit, and in a fresh
+process builds the kernels and runs chip_smoke's checks: the flash
+kernels at its five attention shapes (two ragged full ones at S 200 and
+S 130, the decoder's causal one, BERT-Large's full one, a ragged causal
+one at S 200 and D 32; the one-pass partials land in a NaN-poisoned
+block), the BN kernels at its four BN shapes, the small decoder, the
+small ResNet-50 and the small BERT under both backward choices, the
+scale-sum kernel at every case of its bit check (its outputs in a
+NaN-poisoned block), and the Adasum reduction of the small BERT's
+gradients over four 2-row shards against the same reduction with the
+plain version, bit for bit (the BERT-Large path's check at a size that
+builds in seconds).  The first case, ``none``, applies no edit; names
+on the command line run ``none`` and those faults only.
+
+A check process that dies is recorded at the shape (or at the model
+checks) it was in, and a fresh process runs the rest, so that every
+shape is held.  A death counts as a failed check (chip_smoke would exit
+non-zero) only if its error is one of a kernel's execution (an illegal
+address or instruction, a launch failure); any other death voids the
+case.
 
 It prints each case's readings, and for comparison whether the kernel
 outputs would also pass a tolerance scaled by the tensor's largest
 value, |err| <= 1e-3 + 1e-2 max|plain|.  Exits non-zero unless the
 unedited kernels pass every check and every fault fails the check of
 its kernel family (flash, BN, or scale-sum, whose faults must also fail
-the Adasum bit check); a dropped BN row chunk must fail it at
-the stem's shape itself, and each one-pass fault at every attention
-shape where its code runs (a dead causal tile exists only at the causal
-shape, a ragged tail only at S 200).  A check process that dies counts
-as a failed check: chip_smoke would exit non-zero.  Needs a CUDA device.
+the Adasum bit check), at each shape that ``MUST_FAIL_AT`` names for
+it.  Needs a CUDA device.
 """
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -43,7 +54,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 WORK = REPO / "build" / "fault_check"
 
-# name -> (source, text as it stands, text with the fault, what it drops)
+# name -> (source, text as it stands, text with the fault, what it drops);
+# a fault of several edits gives tuples of texts
 _DQ_ROW = "      const int row = q0 + r, col = kt * BK + c;\n"
 _DKV_ROW = "      const int row = q0 + r, col = k0 + c;\n"
 _MASK = "      const bool ok = row < S && col < S && (!CAUSAL || col <= row);"
@@ -111,11 +123,14 @@ FAULTS = {
     "onepass_ragged_rows_written": (
         "flash_bwd_onepass.cu",
         ("panel_map<D / 2, 4>(&mdqp, dqp, s, (uint64_t)bh * nk, BQ, D)",
-         "q0,\n                       bh * nk + kt);"),
+         "q0,\n                       bh * nk + kt);",
+         "if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
         ("panel_map<D / 2, 4>(&mdqp, dqp, (uint64_t)s * bh * nk, 1, BQ, D)",
-         "(bh * nk + kt) * S + q0,\n                       0);"),
+         "(bh * nk + kt) * S + q0,\n                       0);",
+         "if (!(kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
         "one-pass: partial rows past S written (the partials' map flattened, "
-        "so the next slot takes them)"),
+        "so the next slot takes them; the rows past S unmasked, so that "
+        "they are not zeros)"),
     "onepass_stale_ring_stage": (
         "flash_bwd_onepass.cu",
         "      mbar_wait(&full[s], (i / STAGES) & 1);",
@@ -169,12 +184,16 @@ FAULTS = {
 # at the stem a dropped BN chunk is 1 of 1024, the smallest share of any
 # held shape; a forward or one-pass fault at each attention shape where
 # its code runs (a dead causal tile and the diagonal only at the causal
-# shapes, a second round of the ring only past two tiles).
+# shapes, rows past S only at the ragged ones; every shape has a block
+# with three q tiles or more, so a second round of the ring).  The
+# unawaited partial stores are a race: it shows where thousands of blocks
+# run, at the decoder's and BERT's shapes, not at the three small ones.
 RAGGED, DECODER, BERT = "BH4 S200 D64 full", "BH32 S2048 D128 causal", \
     "BH512 S384 D64 full"
 RAGGED32, RAGGED128 = "BH4 S200 D32 causal", "BH2 S130 D128 full"
 ALL = {RAGGED, DECODER, BERT, RAGGED32, RAGGED128}
 CAUSAL = {DECODER, RAGGED32}
+RAGGED_S = {RAGGED, RAGGED32, RAGGED128}
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
@@ -185,51 +204,79 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "onepass_dead_slot_last_tile": CAUSAL,
                 "onepass_dkv_last_q_tile": ALL,
                 "onepass_last_k_partial": ALL,
-                "onepass_stale_ring_stage": ALL}
+                "onepass_ragged_rows_written": RAGGED_S,
+                "onepass_stale_ring_stage": ALL,
+                "onepass_partial_store_unawaited": {DECODER, BERT}}
+# What a check process that dies must have said: an error of a kernel's
+# execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
+# illegal instruction, misaligned address, invalid address space, invalid
+# program counter, launch failure), not a build or Python error.
+CUDA_FAULT = re.compile(
+    r"CUDA error (700|71[4-9])\b|CUDA error: (an illegal memory access|an "
+    r"illegal instruction|misaligned address|unspecified launch failure|"
+    r"hardware stack error|operation not supported on global/shared address "
+    r"space|invalid program counter)")
+MODELS = "the model checks"
 
 CHILD = """
-import json, torch, chip_smoke as cs
+import json, sys, torch, chip_smoke as cs
 from horovod_tpu_torch.ops import batch_norm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import scale_sum as ss
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-errs, poisoned = {}, {}
-for bh, s, d, causal in cs.FLASH_SHAPES:
-    label = "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
-    e, poisoned[label], _, _ = cs.kernel_errors(
-        fa, *cs.kernel_inputs(bh, s, d), causal)
-    for name, outs in e.items():
-        for out, v in outs.items():
-            errs.setdefault(name, {})["%s at %s" % (out, label)] = v
-    del e
+nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
+for unit in json.loads(sys.argv[1]):
+    print("AT %d" % unit, flush=True)
+    if unit < nf:
+        bh, s, d, causal = cs.FLASH_SHAPES[unit]
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d), causal)
+        res = {"errs": errs, "poisoned": poisoned}
+    elif unit < nf + nb:
+        label, m, c, relu, residual = cs.BN_SHAPES[unit - nf]
+        x, dy, r, g, b = cs.bn_inputs(m, c, residual)
+        res = {"errs": cs.bn_errors(bn, x, dy, r, g, b, relu)[0]}
+        del x, dy, r
+    else:
+        loss, leaves = cs.model_errors()
+        rn_loss, rn_leaves, rn_bf16 = cs.resnet_model_errors()
+        res = {"loss": loss, "leaves": leaves, "rn_loss": rn_loss,
+               "rn_leaves": rn_leaves, "rn_bf16": rn_bf16,
+               "bert": {c: cs.bert_model_errors(c)
+                        for c in ("pallas", "pallas_onepass")},
+               "scale_sum": cs.scale_sum_errors(ss),
+               "adasum": cs.small_bert_adasum_errors(ss)}
+    print("RESULT " + json.dumps(res), flush=True)
     torch.cuda.empty_cache()
-bn_errs = {}
-for label, m, c, relu, residual in cs.BN_SHAPES:
-    x, dy, res, g, b = cs.bn_inputs(m, c, residual)
-    for name, outs in cs.bn_errors(bn, x, dy, res, g, b, relu)[0].items():
-        for out, e in outs.items():
-            bn_errs.setdefault(name, {})["%s at %s" % (out, label)] = e
-loss, leaves = cs.model_errors()
-rn_loss, rn_leaves, rn_bf16 = cs.resnet_model_errors()
-bert = {c: cs.bert_model_errors(c) for c in ("pallas", "pallas_onepass")}
-print(json.dumps({"kernels": errs, "poisoned": poisoned, "bn": bn_errs,
-                  "loss": loss, "leaves": leaves, "rn_loss": rn_loss,
-                  "rn_leaves": rn_leaves, "rn_bf16": rn_bf16,
-                  "bert": bert, "scale_sum": cs.scale_sum_errors(ss),
-                  "adasum": cs.small_bert_adasum_errors(ss)}))
 """
 
 
-def run_case(name, fault):
+def unit_labels(cs):
+    """The check units of a case, in the order a check process runs them:
+    each attention shape, each BN shape, then the model checks."""
+    return (["BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
+             for bh, s, d, causal in cs.FLASH_SHAPES]
+            + [shape[0] for shape in cs.BN_SHAPES] + [MODELS])
+
+
+def run_case(name, fault, labels):
+    """Copy the package, plant ``fault`` (and the mbarrier watchdog, so a
+    lost arrival traps instead of hanging) and run every check unit.
+    A process that dies is recorded at the unit it was in, and a fresh
+    one runs the units after it.  -> ({label: readings}, {label: the
+    dead process's stderr})."""
     work = WORK / name
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(REPO / "horovod_tpu_torch", work / "horovod_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(REPO / "chip_smoke.py", work / "chip_smoke.py")
+    csrc = work / "horovod_tpu_torch" / "csrc"
+    header = csrc / "sm90.cuh"
+    header.write_text("#define HVD_SM90_WATCHDOG 1\n" + header.read_text())
     if fault:
         src, old, new, _ = fault
-        path = work / "horovod_tpu_torch" / "csrc" / src
+        path = csrc / src
         text = path.read_text()
         pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
         for o, n in pairs:
@@ -238,98 +285,154 @@ def run_case(name, fault):
                                    % (name, src))
             text = text.replace(o, n)
         path.write_text(text)
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=work,
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        return {"died": proc.stderr[-2000:]}
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    readings, died = {}, {}
+    todo = list(range(len(labels)))
+    while todo:
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", CHILD, json.dumps(todo)], cwd=work,
+                capture_output=True, text=True, timeout=900)
+            out, err, rc = proc.stdout, proc.stderr, proc.returncode
+        except subprocess.TimeoutExpired as e:
+            out = (e.stdout or b"").decode(errors="replace")
+            err, rc = "the check process timed out after 900 s", None
+        at = None
+        for line in out.splitlines():
+            if line.startswith("AT "):
+                at = int(line[3:])
+            elif line.startswith("RESULT "):
+                readings[labels[at]] = json.loads(line[7:])
+        if rc == 0:
+            break
+        if at is None:  # before the first unit: the build or an import
+            died["set-up"] = err[-2000:]
+            break
+        readings.pop(labels[at], None)
+        died[labels[at]] = err[-2000:]
+        todo = todo[todo.index(at) + 1:]
+    return readings, died
 
 
-def main() -> int:
+def check_family(readings, labels):
+    """Print each kernel output's readings at ``labels``; -> (the labels
+    where an output is past its limit, whether an output would also fail
+    the max-scaled rule)."""
+    failed_at, max_rule_fail = set(), False
+    for label in labels:
+        if label not in readings:
+            continue
+        for kern, outs in readings[label]["errs"].items():
+            for out, e in outs.items():
+                max_rule = 1e-3 + 1e-2 * e["max_abs_plain"]
+                max_rule_fail |= not e["max_abs_err"] <= max_rule
+                if not e["worst"] <= 1.0:
+                    failed_at.add(label)
+                print("  %s %s at %s: worst %.4g, max abs err %.4g, "
+                      "max-scaled limit %.4g" % (kern, out, label, e["worst"],
+                                                 e["max_abs_err"], max_rule))
+    return failed_at, max_rule_fail
+
+
+def model_verdicts(cs, res):
+    """Print the model, scale-sum and Adasum readings; -> whether the
+    decoder, ResNet, BERT, scale-sum and Adasum checks fail."""
+    leaves = res["leaves"]
+    worst_leaf = max(leaves, key=leaves.get)
+    model_fail = (not res["loss"] <= cs.LOSS_TOL
+                  or not leaves[worst_leaf] <= cs.LEAF_TOL)
+    rn_leaves = res["rn_leaves"]
+    rn_worst = max(rn_leaves, key=rn_leaves.get)
+    rn_fail = (not res["rn_loss"] <= cs.RN_LOSS_TOL
+               or not rn_leaves[rn_worst] <= cs.RN_LEAF_TOL
+               or not res["rn_bf16"] <= cs.RN_BF16_LOSS_TOL)
+    bert_fail = False
+    print("  decoder: loss rel err %.4g, worst leaf %s %.4g"
+          % (res["loss"], worst_leaf, leaves[worst_leaf]))
+    print("  resnet: f32 loss rel err %.4g, worst leaf %s %.4g, bf16 loss "
+          "rel err %.4g" % (res["rn_loss"], rn_worst, rn_leaves[rn_worst],
+                            res["rn_bf16"]))
+    for choice, (b_loss, b_leaves) in res["bert"].items():
+        b_worst = max(b_leaves, key=b_leaves.get)
+        bert_fail |= (not b_loss <= cs.BERT_LOSS_TOL
+                      or not b_leaves[b_worst] <= cs.BERT_LEAF_TOL)
+        print("  bert (%s): loss rel err %.4g, worst leaf %s %.4g"
+              % (choice, b_loss, b_worst, b_leaves[b_worst]))
+    ss_bad = {k: v for k, v in res["scale_sum"].items() if v[0]}
+    print("  scale_sum: %d of %d cases with any bit off; %s"
+          % (len(ss_bad), len(res["scale_sum"]), json.dumps(
+              dict(list(ss_bad.items())[:6]))))
+    n_t, n_el, worst, total = res["adasum"]
+    print("  adasum (small BERT, 4 shards): %d tensors and %d of %d "
+          "elements with any bit off the plain reduction, max abs err %.4g"
+          % (n_t, n_el, total, worst))
+    return model_fail, rn_fail, bert_fail, bool(ss_bad), n_t > 0
+
+
+def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     import torch
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA device", file=sys.stderr)
         return 2
+    unknown = set(argv) - set(FAULTS)
+    if unknown:
+        print("chip_fault_check: no fault named %s" % ", ".join(sorted(unknown)),
+              file=sys.stderr)
+        return 2
     print(cs.card_line(), flush=True)
+    labels = unit_labels(cs)
+    nf = len(cs.FLASH_SHAPES)
+    flash_labels, bn_labels = labels[:nf], labels[nf:-1]
     ok = True
     for name, fault in FAULTS.items():
-        res = run_case(name, fault)
-        print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
-        if "died" in res:
-            print("  the check process died (a failed check):\n%s"
-                  % res["died"])
-            ok &= fault is not None
+        if argv and name != "none" and name not in argv:
             continue
+        readings, died = run_case(name, fault, labels)
+        print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
+        cuda_deaths = set()
+        for label, err in died.items():
+            valid = bool(CUDA_FAULT.search(err))
+            print("  the check process died at %s (%s):\n%s" % (
+                label, "a CUDA fault, a failed check" if valid else
+                "NOT a kernel's fault: the case is void", err))
+            ok &= valid
+            if valid:
+                cuda_deaths.add(label)
         print("  one-pass partials in a NaN-poisoned block: %s"
-              % res["poisoned"])
-        fails, failed_at = {}, set()
-        for family in ("kernels", "bn"):
-            kernel_fail = max_rule_fail = False
-            for kern, outs in res[family].items():
-                for out, e in outs.items():
-                    max_rule = 1e-3 + 1e-2 * e["max_abs_plain"]
-                    kernel_fail |= not e["worst"] <= 1.0
-                    max_rule_fail |= not e["max_abs_err"] <= max_rule
-                    if not e["worst"] <= 1.0:
-                        failed_at.add(out.split(" at ", 1)[1])
-                    print("  %s %s: worst %.4g, max abs err %.4g, max-scaled "
-                          "limit %.4g" % (kern, out, e["worst"],
-                                          e["max_abs_err"], max_rule))
-            fails[family] = (kernel_fail, max_rule_fail)
-        leaves = res["leaves"]
-        worst_leaf = max(leaves, key=leaves.get)
-        model_fail = (not res["loss"] <= cs.LOSS_TOL
-                      or not leaves[worst_leaf] <= cs.LEAF_TOL)
-        rn_leaves = res["rn_leaves"]
-        rn_worst = max(rn_leaves, key=rn_leaves.get)
-        rn_fail = (not res["rn_loss"] <= cs.RN_LOSS_TOL
-                   or not rn_leaves[rn_worst] <= cs.RN_LEAF_TOL
-                   or not res["rn_bf16"] <= cs.RN_BF16_LOSS_TOL)
-        bert_fail = False
-        print("  decoder: loss rel err %.4g, worst leaf %s %.4g"
-              % (res["loss"], worst_leaf, leaves[worst_leaf]))
-        print("  resnet: f32 loss rel err %.4g, worst leaf %s %.4g, bf16 loss "
-              "rel err %.4g" % (res["rn_loss"], rn_worst, rn_leaves[rn_worst],
-                                res["rn_bf16"]))
-        for choice, (b_loss, b_leaves) in res["bert"].items():
-            b_worst = max(b_leaves, key=b_leaves.get)
-            bert_fail |= (not b_loss <= cs.BERT_LOSS_TOL
-                          or not b_leaves[b_worst] <= cs.BERT_LEAF_TOL)
-            print("  bert (%s): loss rel err %.4g, worst leaf %s %.4g"
-                  % (choice, b_loss, b_worst, b_leaves[b_worst]))
-        ss_bad = {k: v for k, v in res["scale_sum"].items() if v[0]}
-        ss_fail = bool(ss_bad)
-        print("  scale_sum: %d of %d cases with any bit off; %s"
-              % (len(ss_bad), len(res["scale_sum"]), json.dumps(
-                  dict(list(ss_bad.items())[:6]))))
-        n_t, n_el, worst, total = res["adasum"]
-        adasum_fail = n_t > 0
-        print("  adasum (small BERT, 4 shards): %d tensors and %d of %d "
-              "elements with any bit off the plain reduction, max abs err "
-              "%.4g" % (n_t, n_el, total, worst))
+              % {label: readings[label]["poisoned"]
+                 for label in flash_labels if label in readings})
+        flash_at, flash_max = check_family(readings, flash_labels)
+        bn_at, bn_max = check_family(readings, bn_labels)
+        flash_at |= cuda_deaths & set(flash_labels)
+        bn_at |= cuda_deaths & set(bn_labels)
+        if MODELS in readings:
+            models = model_verdicts(cs, readings[MODELS])
+        else:
+            models = (MODELS in cuda_deaths,) * 5
         print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
               "check %s, scale_sum check %s, adasum check %s"
               % tuple("fails" if f else "passes"
-                      for f in fails["kernels"] + fails["bn"]
-                      + (model_fail, rn_fail, bert_fail, ss_fail,
-                         adasum_fail)), flush=True)
+                      for f in (bool(flash_at), flash_max, bool(bn_at),
+                                bn_max) + models), flush=True)
+        failed_at = flash_at | bn_at
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
-            ok &= not (fails["kernels"][0] or fails["bn"][0] or model_fail
-                       or rn_fail or bert_fail or ss_fail or adasum_fail)
+            ok &= not (died or failed_at or any(models))
         elif fault[0] == "scale_sum.cu":
-            ok &= ss_fail and adasum_fail
+            ok &= models[3] and models[4]
         else:
-            ok &= fails["bn" if fault[0] == "batch_norm.cu" else "kernels"][0]
-            ok &= MUST_FAIL_AT.get(name, set()) <= failed_at
+            family_at = bn_at if fault[0] == "batch_norm.cu" else flash_at
+            must = MUST_FAIL_AT.get(name, set())
+            ok &= bool(family_at) and must <= family_at
+            if must - family_at:
+                print("  MISSED at: %s" % ", ".join(sorted(must - family_at)))
     shutil.rmtree(WORK, ignore_errors=True)
     print("fault check: %s" % ("ok" if ok else "FAILED"))
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,7 +14,9 @@
    a ragged full shape (BH 4, S 200, D 64), the decoder's attention
    (BH 32, S 2048, D 128, causal) and BERT-Large's (BH 512, S 384, D 64,
    full), against ``scaled_dot_product_attention``, with both whole
-   backward variants timed; the four BatchNorm kernels at four NormAct
+   backward variants timed, and untimed at BH 65,600 (past the 65,535
+   blocks of a grid's y axis; S 64, D 32, causal); the four BatchNorm
+   kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
    ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
@@ -23,9 +25,10 @@
    coefficients read on the device, timed beside the two-call ATen form
    (no one PyTorch call computes it).
 3. Holds three small models on the card against the same weights in f32
-   on the CPU (plain versions): the decoder (bf16), ResNet-50 (image 64,
-   batch 4; f32 for the gradients, bf16 for the loss) and BERT (bf16,
-   under both backward choices).
+   on the CPU (plain versions): the decoder (bf16; at head_dim 128 and at
+   96, which ``flash_attention`` zero-pads to the kernels' 128),
+   ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
+   loss) and BERT (bf16, under both backward choices).
 4. The main paths, each run with every launch count set to 0 just
    before it and read just after, from numpy seeds at full width and
    depth.  Through ``hvd.init()`` (a one-rank NCCL world),
@@ -92,12 +95,17 @@ KERNEL_TOL = {"o": (2 ** -7, 2 ** -5), "lse": (2 ** -16, 2 ** -16),
 DECODER_SHAPE, BERT_SHAPE = (32, 2048, 128, True), (512, 384, 64, False)
 FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE,
                 (4, 200, 32, True), (2, 130, 128, False))
+# More (batch x head) rows than a grid's y axis holds (65,535): every
+# flash kernel puts bh on x.  Held, not timed (about 270 MB a tensor).
+WIDE_BH_SHAPE = (65600, 64, 32, True)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_bwd_onepass")
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
+# Held at head_dim 128 and at 96, which the kernels take zero-padded.
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
+MODEL_HEAD_DIMS = (128, 96)
 STEPS = 5
 
 # The BatchNorm kernels against their plain versions (f32 arithmetic, the
@@ -289,6 +297,29 @@ def flash_bwd_env(value):
             os.environ["HVD_TPU_FLASH_BWD"] = old
 
 
+def held_errors(fa, q, k, v, do, causal, label):
+    """``kernel_errors``, printed; raises if any output is past its
+    limit."""
+    errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
+    for name, outs in errs.items():
+        for out, e in outs.items():
+            say("  %s %s at %s: %s (rtol %.3g, atol %.3g x row scale)" % (
+                name, out, label, json.dumps({k: float("%.4g" % x)
+                                              for k, x in e.items()}),
+                *KERNEL_TOL[out]))
+    say("  flash_bwd_onepass partials in a NaN-poisoned block: %s" % poisoned)
+    bad = ["%s %s" % (name, out) for name, outs in errs.items()
+           for out, e in outs.items() if not e["worst"] <= 1.0]
+    if bad:
+        raise AssertionError("kernel output off its plain version at %s: %s"
+                             % (label, ", ".join(bad)))
+    return errs, lse_ref, delta
+
+
+def shape_label(bh, s, d, causal):
+    return "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
+
+
 def check_kernels(fa, bh, s, d, causal):
     """One shape: every kernel against its plain version, timed beside
     the plain version and SDPA, and both whole backward variants timed
@@ -299,19 +330,8 @@ def check_kernels(fa, bh, s, d, causal):
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d)
     fa.reset_launch_counts()
-    errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
-    for name, outs in errs.items():
-        for out, e in outs.items():
-            say("  %s %s: %s (rtol %.3g, atol %.3g x row scale)" % (
-                name, out, json.dumps({k: float("%.4g" % x)
-                                       for k, x in e.items()}),
-                *KERNEL_TOL[out]))
-    say("  flash_bwd_onepass partials in a NaN-poisoned block: %s" % poisoned)
-    bad = ["%s %s" % (name, out) for name, outs in errs.items()
-           for out, e in outs.items() if not e["worst"] <= 1.0]
-    if bad:
-        raise AssertionError("kernel output off its plain version: %s"
-                             % ", ".join(bad))
+    errs, lse_ref, delta = held_errors(fa, q, k, v, do, causal,
+                                       shape_label(bh, s, d, causal))
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     io, rows = bh * s * d * 2, bh * s * 4
     partials = bh * -(-s // fa.BLOCK_K) * s * d * 4
@@ -367,10 +387,12 @@ def check_kernels(fa, bh, s, d, causal):
 
 
 def check_flash_kernels(fa):
-    """The four flash kernels at FLASH_SHAPES -> {shape: records}."""
+    """The four flash kernels at FLASH_SHAPES -> {shape: records}, then
+    held at WIDE_BH_SHAPE."""
+    import torch
     out = {}
     for bh, s, d, causal in FLASH_SHAPES:
-        label = "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
+        label = shape_label(bh, s, d, causal)
         records, variants = check_kernels(fa, bh, s, d, causal)
         for name, rec in records.items():
             say("kernel %s %s: %s" % (name, label, json.dumps(
@@ -381,21 +403,25 @@ def check_flash_kernels(fa):
             % (label, variants["pallas"], variants["pallas_onepass"],
                variants["sdpa"]))
         out[(bh, s, d, causal)] = records
+    *wide, causal = WIDE_BH_SHAPE
+    held_errors(fa, *kernel_inputs(*wide), causal,
+                shape_label(*WIDE_BH_SHAPE) + " (untimed)")
+    torch.cuda.empty_cache()
     return out
 
 
-def model_errors():
-    """Loss and gradients of a small decoder on the card (bf16, kernels)
-    against the same weights in f32 on the CPU (plain versions): the
-    loss's relative error and each parameter's relative gradient norm
-    error."""
+def model_errors(head_dim=128):
+    """Loss and gradients of a small decoder (2 heads of ``head_dim``) on
+    the card (bf16, kernels) against the same weights in f32 on the CPU
+    (plain versions): the loss's relative error and each parameter's
+    relative gradient norm error."""
     import dataclasses
     import torch
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
     from horovod_tpu_torch.train import synthetic_batch
 
-    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+    cfg = TransformerConfig(vocab_size=512, d_model=2 * head_dim, n_layers=2,
                             n_heads=2, n_kv_heads=1, d_ff=512, max_seq=256)
     cfg32 = dataclasses.replace(cfg, dtype="float32", logits_dtype="f32")
     params, batch = init_params(cfg, seed=1), synthetic_batch(cfg, 2, seed=1)
@@ -414,17 +440,20 @@ def model_errors():
 
 
 def check_model():
-    loss_err, leaves = model_errors()
-    worst = max(leaves, key=leaves.get)
-    say("model check: loss relative error %.3g (tol %.3g); gradient "
-        "relative norm error per parameter: worst %s %.3g (tol %.3g), %s"
-        % (loss_err, LOSS_TOL, worst, leaves[worst], LEAF_TOL,
-           json.dumps({n: float("%.3g" % e) for n, e in leaves.items()})))
-    bad = [n for n, e in leaves.items() if not e <= LEAF_TOL]
-    if not loss_err <= LOSS_TOL or bad:
-        raise AssertionError("small decoder on the card disagrees with the "
-                             "f32 CPU reference: loss %.3g, gradients of %s"
-                             % (loss_err, bad))
+    for head_dim in MODEL_HEAD_DIMS:
+        loss_err, leaves = model_errors(head_dim)
+        worst = max(leaves, key=leaves.get)
+        say("model check (head_dim %d): loss relative error %.3g (tol %.3g); "
+            "gradient relative norm error per parameter: worst %s %.3g (tol "
+            "%.3g), %s" % (head_dim, loss_err, LOSS_TOL, worst, leaves[worst],
+                           LEAF_TOL, json.dumps({n: float("%.3g" % e)
+                                                 for n, e in leaves.items()})))
+        bad = [n for n, e in leaves.items() if not e <= LEAF_TOL]
+        if not loss_err <= LOSS_TOL or bad:
+            raise AssertionError(
+                "small decoder (head_dim %d) on the card disagrees with the "
+                "f32 CPU reference: loss %.3g, gradients of %s"
+                % (head_dim, loss_err, bad))
 
 
 def bn_inputs(m, c, residual):
@@ -1527,12 +1556,10 @@ def main() -> int:
                   "bn_bwd_dx": ("horovod_tpu/ops/pallas_bn.py:177",
                                 "bn_bwd_dx_kernel")}
     say("kernels: " + "; ".join(
-        "%s held at %s (phase 2; its record at BH%d S%d D%d %s), launched %d "
+        "%s held at %s and %s (phase 2; its record at %s), launched %d "
         "times in decoder training and %d in BERT-Large training (phase 4)"
-        % (name, ", ".join("BH%d S%d D%d %s" % (bh, sq, d, "causal" if c
-                                                 else "full")
-                           for bh, sq, d, c in FLASH_SHAPES),
-           *shape[:3], "causal" if shape[3] else "full", paths[0][w],
+        % (name, ", ".join(shape_label(*s) for s in FLASH_SHAPES),
+           shape_label(*WIDE_BH_SHAPE), shape_label(*shape), paths[0][w],
            paths[1][w])
         for name, (_, _, w, shape, paths) in sources.items()) + "; " +
         "; ".join(

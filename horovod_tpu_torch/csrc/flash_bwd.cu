@@ -11,252 +11,237 @@
 // accumulating in f32.  dq leaves the kernel in f32 so that the caller's
 // multiply by 1/sqrt(D) comes before the one rounding to bf16.
 //
-// Bound on the H100 SXM: compute.  At the flagship shape (BH 32, S 2048,
-// D 128, causal) dq does 3 products and dk/dv 4, each 2*BH*D*S*(S+1)/2
-// FLOP: 51.6 + 68.8 GFLOP, about 52 + 70 us at 989 TFLOP/s bf16, against
-// about 0.1 GB of input and output per kernel (30 us at 3.35 TB/s).
+// Bound on the H100 SXM: compute at the decoder's shape (BH 32, S 2048,
+// D 128, causal): dq does 3 products and dk/dv 4, each 2*BH*D*S*(S+1)/2
+// FLOP: 51.6 + 68.8 GFLOP, 52 + 70 us at 989 TFLOP/s bf16, against about
+// 0.1 GB of input and output per kernel (30 us at 3.35 TB/s).  Bytes at
+// BERT-Large's (BH 512, S 384, D 64, full): 152 MB each (45 us) against
+// 29 + 39 GFLOP.
 //
 // Design: the TPU kernels ran the reduction axis in grid order and carried
-// the sums in scratch.  Here the reduction is a loop inside the block, and
-// no block writes what another block reads, so there are no atomics.
-//   dq:   one block of 4 warps per (bh, 64-row q tile), looping over the
-//         live k tiles; each warp owns 16 rows of dq, kept in WMMA
-//         accumulator fragments for the whole loop.
-//   dkv:  one block of 8 warps per (bh, 64-row k tile), looping over the q
-//         tiles from the diagonal on; warps 0-3 own 16 rows of dv each and
-//         warps 4-7 16 rows of dk, again in fragments.
-// The scores and dp go through shared memory in f32 so that the softmax
-// recomputation can see row and column of every element.
+// the sums in VMEM scratch.  Here the reduction is a loop inside the
+// block, no block writes what another block reads (no atomics), and both
+// kernels put bh on gridDim.x, which takes 2^31 - 1 blocks (the dk/dv
+// kernel's 1-D lse and delta maps take BH S below 2^31 rows).  Each block
+// is three warpgroups: a producer that gives up registers (setmaxnreg) and
+// starts TMA loads from one thread through an mbarrier ring ("full": the
+// bytes landed; "empty": both consumers are done with the stage), and two
+// consumers that run wgmma into f32 registers.
+//   dk/dv: flash_bwd_kv.cuh's body without the dq partials (the one-pass
+//          kernel's body): one block per (bh, 128-row k tile), K and V
+//          loaded once, Q, dO, lse and delta streamed by 64-row q tile; a
+//          consumer owns 64 k rows, builds P^T and dS^T in registers and
+//          adds dV += P^T dO and dK += dS^T Q by wgmma with A from
+//          registers; dk and dv leave by TMA over its own rows of K and V.
+//   dq:    one block per (bh, 128-row q tile), the blocks with the most
+//          live k tiles first.  The producer loads Q and dO once and
+//          streams K and V by k tile; a consumer owns 64 q rows and reads
+//          their lse and delta once.  Per k tile: S = Q K^T and dP = dO V^T
+//          by wgmma from shared memory (both operands K-major), P =
+//          exp2(S log2e - lse log2e) and dS = P (dP - delta) on the
+//          registers (the mask only on a diagonal or ragged tile), dS
+//          packed to bf16 in the accumulator's layout, which is wgmma's
+//          register A layout, and dq += dS K with K read MN-major (the
+//          transpose bit).  dq stays in f32 registers; it leaves through a
+//          swizzled f32 tile in the ring, which both consumers are done
+//          with then, and a TMA store that drops rows at or past S.
+// 3-D tensor maps (D, S, BH) make a ragged tile read zeros, not the next
+// head's rows.
 //
-// Left on the table: wgmma and TMA, double-buffered loads, scores kept in
-// registers instead of shared memory, one fused kernel that writes dq
-// partials (the TPU's one-pass variant), and a schedule that balances the
-// causal triangle across blocks.
-#include "flash_common.cuh"
+// Left on the table: overlap inside a consumer of one tile's elementwise
+// work with the next tile's products (each tile now runs products,
+// softmax, products in series), ping-pong of the two consumers, a
+// persistent grid (at BERT's S 384 a dq block walks three k tiles and a
+// dk/dv block six q tiles), and 128-row q tiles in the dk/dv kernel.
+#include "flash_bwd_kv.cuh"
 
 namespace hvdflash {
 
-// ---------------------------------------------------------------- dq kernel
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+// ----------------------------------------------------------------- dq kernel
+
+namespace dqtile {
+
+constexpr int BQ = 128;  // q rows per block, 64 per consumer warpgroup
+constexpr int BK = 128;  // k rows per tile
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct DqSmem {
-  static constexpr int H = Ld<D>::H;
-  static constexpr size_t q = 0;
-  static constexpr size_t g = q + 64 * H * sizeof(bf16);
-  static constexpr size_t k = g + 64 * H * sizeof(bf16);
-  static constexpr size_t v = k + 64 * H * sizeof(bf16);
-  static constexpr size_t ds = v + 64 * H * sizeof(bf16);
-  static constexpr size_t s = ds + 64 * LDP * sizeof(bf16);  // also the epilogue's f32 dq
-  static constexpr size_t dp = s + 64 * LDS * sizeof(float);
-  static constexpr size_t lse = dp + 64 * LDS * sizeof(float);
-  static constexpr size_t delta = lse + 64 * sizeof(float);
-  static constexpr size_t bytes = delta + 64 * sizeof(float);
-  static_assert(64 * Ld<D>::F * sizeof(float) <= 2 * 64 * LDS * sizeof(float),
-                "epilogue tile must fit in the s and dp tiles");
+struct Smem {
+  static constexpr size_t qtile = BQ * D * sizeof(bf16);
+  static constexpr size_t ktile = BK * D * sizeof(bf16);
+  static constexpr size_t q = 0;             // BQ x D
+  static constexpr size_t g = q + qtile;     // BQ x D
+  static constexpr size_t ring = g + qtile;  // STAGES x (K, V); then the dq tile
+  static constexpr size_t bar = ring + STAGES * 2 * ktile;
+  static constexpr size_t bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(BQ * D * sizeof(float) <= STAGES * 2 * ktile,
+                "the f32 dq tile fits in the ring");
 };
 
+}  // namespace dqtile
+
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int S) {
-  using L = DqSmem<D>;
-  constexpr int H = L::H, F = Ld<D>::F;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sG = reinterpret_cast<bf16*>(smem + L::g);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mg,
+                    const __grid_constant__ CUtensorMap mdq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, int S) {
+  using L = dqtile::Smem<D>;
+  using PB = Panels<D>;     // bf16 (rows, D) tiles
+  using PF = Panels<D, 4>;  // a consumer's f32 (64, D) dq tile
+  constexpr int BQ = dqtile::BQ, BK = dqtile::BK, STAGES = dqtile::STAGES;
+  constexpr float LOG2E = dqtile::LOG2E;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * BQ;
-  const size_t base = (size_t)bh * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<D, 128>(sQ, q + base, q0, S);
-  load_tile<D, 128>(sG, g + base, q0, S);
-  load_rows<128>(sLse, lse + (size_t)bh * S, q0, S);
-  load_rows<128>(sDelta, delta + (size_t)bh * S, q0, S);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
   const int nk = (S + BK - 1) / BK;
+  // Causal liveness, as in the TPU kernel: k tile t is live while
+  // t*BK <= q0 + BQ - 1.
   const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-  for (int kt = 0; kt < kend; ++kt) {
-    __syncthreads();
-    load_tile<D, 128>(sK, k + base, kt * BK, S);
-    load_tile<D, 128>(sV, v + base, kt * BK, S);
-    __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    strip_abt<D, 4>(sS + r0 * LDS, sQ + r0 * H, sK);
-    strip_abt<D, 4>(sDP + r0 * LDS, sG + r0 * H, sV);
-    __syncwarp();
-
-    for (int i = lane; i < 16 * BK; i += 32) {
-      const int r = r0 + i / BK, c = i % BK;
-      const int row = q0 + r, col = kt * BK + c;
-      const bool ok = row < S && col < S && (!CAUSAL || col <= row);
-      const float p = ok ? expf(sS[r * LDS + c] - sLse[r]) : 0.f;
-      sDS[r * LDP + c] = __float2bfloat16(p * (sDP[r * LDS + c] - sDelta[r]));
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
     }
-    __syncwarp();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // dq rows += ds rows (16 x 64) @ K (64 x D)
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sDS + r0 * LDP + kk, LDP);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, sK + kk * H + j * 16, H);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(qg_full, 2 * L::qtile);
+      for (int p = 0; p < PB::NP; ++p) {
+        tma_load_3d(smem + L::q + p * BQ * PB::SWZ, mq, qg_full, p * PB::PC, q0, bh);
+        tma_load_3d(smem + L::g + p * BQ * PB::SWZ, mg, qg_full, p * PB::PC, q0, bh);
+      }
+      for (int i = 0; i < kend; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::ktile);
+        unsigned char* sk = smem + L::ring + s * 2 * L::ktile;
+        for (int p = 0; p < PB::NP; ++p) {
+          tma_load_3d(sk + p * BK * PB::SWZ, mk, &full[s], p * PB::PC, i * BK, bh);
+          tma_load_3d(sk + L::ktile + p * BK * PB::SWZ, mv, &full[s], p * PB::PC,
+                      i * BK, bh);
+        }
       }
     }
-  }
-
-  __syncthreads();  // the s and dp tiles become the f32 dq tile
-  float* sOut = sS;
+  } else {  // consumers: q rows [q0 + 64 wg, q0 + 64 wg + 64)
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 64 * wg + 16 * (t / 32) + lane / 4;  // first q row in the tile; +8
+    const int c2 = 2 * (lane % 4);                      // first k column of a pair
+    const unsigned char* sq = smem + L::q + 64 * wg * PB::SWZ;
+    const unsigned char* sg = smem + L::g + 64 * wg * PB::SWZ;
+    // lse (in log2 units) and delta of this thread's two rows; a row past
+    // S reads 0, its Q and dO are zeros, so its dS is 0 and not stored
+    float ls[2], dl[2];
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sOut + r0 * F + j * 16, acc[j], F, wmma::mem_row_major);
-  __syncwarp();
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int row = q0 + r;
-    if (row >= S) break;
-    for (int c = lane; c < D; c += 32) dq[base + (size_t)row * D + c] = sOut[r * F + c];
-  }
-}
-
-// --------------------------------------------------------------- dkv kernel
-
-template <int D>
-struct DkvSmem {
-  static constexpr int H = Ld<D>::H;
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + 64 * H * sizeof(bf16);
-  static constexpr size_t q = v + 64 * H * sizeof(bf16);
-  static constexpr size_t g = q + 64 * H * sizeof(bf16);
-  static constexpr size_t p = g + 64 * H * sizeof(bf16);
-  static constexpr size_t ds = p + 64 * LDP * sizeof(bf16);
-  static constexpr size_t s = ds + 64 * LDP * sizeof(bf16);  // also the epilogue's f32 tile
-  static constexpr size_t dp = s + 64 * LDS * sizeof(float);
-  static constexpr size_t lse = dp + 64 * LDS * sizeof(float);
-  static constexpr size_t delta = lse + 64 * sizeof(float);
-  static constexpr size_t bytes = delta + 64 * sizeof(float);
-  static_assert(64 * Ld<D>::F * sizeof(float) <= 2 * 64 * LDS * sizeof(float),
-                "epilogue tile must fit in the s and dp tiles");
-};
-
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* out, const float* tile, int k0,
-                                                int S) {
-  constexpr int F = Ld<D>::F;
-  for (int i = threadIdx.x; i < 64 * D; i += 256) {
-    const int r = i / D, c = i % D;
-    if (k0 + r < S) out[(size_t)(k0 + r) * D + c] = __float2bfloat16(tile[r * F + c]);
-  }
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ g,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S) {
-  using L = DkvSmem<D>;
-  constexpr int H = L::H, F = Ld<D>::F;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sG = reinterpret_cast<bf16*>(smem + L::g);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
-
-  const int kt = blockIdx.x, bh = blockIdx.y, k0 = kt * BK;
-  const size_t base = (size_t)bh * S * D;
-  const int warp = threadIdx.x / 32;
-  const int strip = (warp % 4) * 16;  // 16 rows of the 64-row tile
-  const bool is_dk = warp >= 4;       // warps 0-3: dv (and s); 4-7: dk (and dp)
-
-  load_tile<D, 256>(sK, k + base, k0, S);
-  load_tile<D, 256>(sV, v + base, k0, S);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int nq = (S + BQ - 1) / BQ;
-  // Causal liveness: q tile j is live while j*BQ + BQ - 1 >= k0.
-  const int qstart = CAUSAL ? k0 / BQ : 0;
-  for (int qt = qstart; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<D, 256>(sQ, q + base, q0, S);
-    load_tile<D, 256>(sG, g + base, q0, S);
-    load_rows<256>(sLse, lse + (size_t)bh * S, q0, S);
-    load_rows<256>(sDelta, delta + (size_t)bh * S, q0, S);
-    __syncthreads();
-
-    // s = q k^T (warps 0-3) and dp = g v^T (warps 4-7), 16 q rows each
-    if (is_dk)
-      strip_abt<D, 4>(sDP + strip * LDS, sG + strip * H, sV);
-    else
-      strip_abt<D, 4>(sS + strip * LDS, sQ + strip * H, sK);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < BQ * BK; i += 256) {
-      const int r = i / BK, c = i % BK;  // r: q row, c: k row of the tiles
-      const int row = q0 + r, col = k0 + c;
-      const bool ok = row < S && col < S && (!CAUSAL || col <= row);
-      const float p = ok ? expf(sS[r * LDS + c] - sLse[r]) : 0.f;
-      sP[r * LDP + c] = __float2bfloat16(p);
-      sDS[r * LDP + c] = __float2bfloat16(p * (sDP[r * LDS + c] - sDelta[r]));
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rl + 8 * h;
+      const size_t at = (size_t)bh * S + row;
+      ls[h] = row < S ? lse[at] * LOG2E : 0.f;
+      dl[h] = row < S ? delta[at] : 0.f;
     }
-    __syncthreads();
+    float acc[D / 2];  // dq: rows rl, rl + 8 of D columns
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // dv rows += p^T rows @ g, dk rows += ds^T rows @ q  (16 x 64 @ 64 x D)
-    const bf16* at = (is_dk ? sDS : sP) + strip;
-    const bf16* b = is_dk ? sQ : sG;
+    mbar_wait(qg_full, 0);
+    for (int i = 0; i < kend; ++i) {
+      const int s = i % STAGES, k0 = i * BK;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* sk = smem + L::ring + s * 2 * L::ktile;
+      const unsigned char* sv = sk + L::ktile;
+
+      // S = Q K^T and dP = dO V^T: rows rl, rl + 8 of BK k columns
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ; kk += 16) {
-      FragAT a;
-      wmma::load_matrix_sync(a, at + kk * LDP, LDP);
+      for (int kk = 0; kk < D / 16; ++kk)
+        MmaSS<BK, 0, 0>::run(sc, desc_kmajor<D, BQ>(sq, kk),
+                             desc_kmajor<D, BK>(sk, kk), kk > 0);
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, b + kk * H + j * 16, H);
-        wmma::mma_sync(acc[j], a, fb, acc[j]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        MmaSS<BK, 0, 0>::run(dp, desc_kmajor<D, BQ>(sg, kk),
+                             desc_kmajor<D, BK>(sv, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP - delta), packed to bf16 pairs in the accumulator's layout
+      const bool mask = (CAUSAL && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S;
+      uint32_t pds[BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(sc[x], LOG2E, -ls[h]));
+            if (mask) {
+              const int row = q0 + rl + 8 * h, col = k0 + 8 * j + c2 + e;
+              if (!(col < S && (!CAUSAL || col <= row))) p = 0.f;
+            }
+            d[e] = p * (dp[x] - dl[h]);
+          }
+          pds[2 * j + h] = pack_bf16(d[0], d[1]);
+        }
+
+      // dq += dS K: A from registers, K MN-major
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {pds[4 * kk], pds[4 * kk + 1], pds[4 * kk + 2],
+                               pds[4 * kk + 3]};
+        MmaRS<D, 1>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
     }
-  }
 
-  // Epilogue through the s and dp tiles, dv first, then dk.
-  float* sOut = sS;
+    // Epilogue: dq in f32 through this consumer's half of the ring, once
+    // both consumers are done with it, then one TMA store of its rows.
+    named_sync(1, 256);
+    unsigned char* so = smem + L::ring + wg * (64 * D * sizeof(float));
+    const int qr = rl - 64 * wg;
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    __syncthreads();
-    if (is_dk == (pass == 1)) {
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        wmma::store_matrix_sync(sOut + strip * F + j * 16, acc[j], F,
-                                wmma::mem_row_major);
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(so + panel_offset<D, 64, 4>(qr + 8 * h, 8 * j + c2)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (t == 0 && q0 + 64 * wg < S) {
+      for (int p = 0; p < PF::NP; ++p)
+        tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, q0 + 64 * wg, bh);
+      tma_store_commit();
+      tma_store_wait_read<0>();
     }
-    __syncthreads();
-    store_rows_bf16<D>((pass == 0 ? dv : dk) + base, sOut, k0, S);
   }
 }
 
@@ -264,27 +249,56 @@ template <int D, bool CAUSAL>
 static cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
                              const bf16* g, const float* lse, const float* delta,
                              float* dq, int bh, int s, cudaStream_t stream) {
+  using L = dqtile::Smem<D>;
+  CUtensorMap mq, mk, mv, mg, mdq;
+  cudaError_t err;
+  if ((err = panel_map<D>(&mq, q, s, bh, dqtile::BQ)) != cudaSuccess ||
+      (err = panel_map<D>(&mg, g, s, bh, dqtile::BQ)) != cudaSuccess ||
+      (err = panel_map<D>(&mk, k, s, bh, dqtile::BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mv, v, s, bh, dqtile::BK)) != cudaSuccess ||
+      (err = panel_map<D, 4>(&mdq, dq, s, bh, 64)) != cudaSuccess)
+    return err;
   auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
-  const size_t bytes = DqSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + BQ - 1) / BQ, bh);
-  kernel<<<grid, 128, bytes, stream>>>(q, k, v, g, lse, delta, dq, s);
+  dim3 grid(bh, (s + dqtile::BQ - 1) / dqtile::BQ);
+  kernel<<<grid, 384, L::bytes, stream>>>(mq, mk, mv, mg, mdq, lse, delta, s);
   return cudaGetLastError();
+}
+
+// --------------------------------------------------------------- dkv kernel
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mg,
+                     const __grid_constant__ CUtensorMap mlse,
+                     const __grid_constant__ CUtensorMap mdelta,
+                     const __grid_constant__ CUtensorMap mdk,
+                     const __grid_constant__ CUtensorMap mdv, int S) {
+  // no partials: the body reads neither its dq map (mdk stands in) nor dqp
+  kv::ktile_body<D, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdk, mdv,
+                                   nullptr, S);
 }
 
 template <int D, bool CAUSAL>
 static cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
                               const bf16* g, const float* lse, const float* delta,
                               bf16* dk, bf16* dv, int bh, int s, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<D, CAUSAL>;
-  const size_t bytes = DkvSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  CUtensorMap mq, mk, mv, mg, mlse, mdelta, mdk, mdv;
+  cudaError_t err = kv::ktile_maps<D>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
+                                      &mdv, q, k, v, g, lse, delta, dk, dv, bh, s);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + BK - 1) / BK, bh);
-  kernel<<<grid, 256, bytes, stream>>>(q, k, v, g, lse, delta, dk, dv, s);
+  auto kernel = flash_bwd_dkv_kernel<D, CAUSAL>;
+  const size_t bytes = kv::Smem<D, false>::bytes;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (s + kv::BK - 1) / kv::BK);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mg, mlse, mdelta, mdk, mdv, s);
   return cudaGetLastError();
 }
 

@@ -17,8 +17,10 @@ numerics follow the JAX code where they fix the bf16 rounding:
 * the pooler, classifier and MLM head run in f32.
 
 Attention without a padding mask runs ``flash_attention(causal=False)``
-(its kernels on CUDA, their plain versions on the CPU); with a mask it
-takes the plain additive-bias path in f32 torch, as the JAX package does.
+(its kernels on CUDA, their plain versions on the CPU) unless
+``HOROVOD_FLASH_ATTENTION`` turns flash off (``use_flash_attention``);
+with a mask, or with flash off, it takes the plain path in f32 torch
+(additive bias for the mask), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..common import basics
 from ..common.basics import resolve_device
 from ..ops.api import SUM, allreduce
 from ..ops.flash_attention import flash_attention
+from .transformer import use_flash_attention
 
 LAYER_KEYS = ("wq", "wk", "wv", "bq", "bk", "bv", "wo", "bo", "ln1_g",
               "ln1_b", "w_in", "b_in", "w_out", "b_out", "ln2_g", "ln2_b")
@@ -112,13 +115,15 @@ class EncoderLayer(nn.Module):
         q = (h @ self.wq.to(dt) + self.bq.to(dt)).reshape(b, s, -1, hd)
         k = (h @ self.wk.to(dt) + self.bk.to(dt)).reshape(b, s, -1, hd)
         v = (h @ self.wv.to(dt) + self.bv.to(dt)).reshape(b, s, -1, hd)
-        if mask is None:
+        if mask is None and use_flash_attention():
             attn = flash_attention(q, k, v, causal=False)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk",
                                   q.float() / math.sqrt(hd), k.float())
-            bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
-            p = torch.softmax(scores + bias, dim=-1)
+            if mask is not None:
+                scores = scores + torch.where(
+                    mask[:, None, None, :] > 0, 0.0, -1e9)
+            p = torch.softmax(scores, dim=-1)
             attn = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dt)
         return attn.reshape(b, s, -1) @ self.wo.to(dt) + self.bo.to(dt)
 

@@ -5,14 +5,17 @@ Counterpart of ``horovod_tpu/models/transformer.py`` for the dense model
 split halves, GQA attention through the flash kernels, a SiLU-gated FFN,
 and logits from the tied embedding.  Weights keep the JAX layout
 ``(in, out)`` and are used as ``x @ w``, cast to the activation dtype
-per use, as the JAX forward does.  Attention always goes through
-``flash_attention``: its kernels on CUDA, their plain versions on the
-CPU.
+per use, as the JAX forward does.  Attention goes through
+``flash_attention`` (its kernels on CUDA, their plain versions on the
+CPU) unless ``HOROVOD_FLASH_ATTENTION`` is 0, false or False, which
+takes ``local_attention``, as in the JAX model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -40,15 +43,15 @@ class TransformerConfig:
     # forward, as in the JAX model.
     fused_qkv: bool = False
     fused_gate: bool = False
-    # Vocab projection: "bf16" operands with an f32 result (what the JAX
-    # model's "auto" picks when flash attention runs, as it always does
-    # here), or "f32" operands.
-    logits_dtype: str = "bf16"
+    # Vocab projection: "bf16" operands with an f32 result, "f32"
+    # operands, or "auto", as in the JAX model: bf16 when flash attention
+    # runs, f32 with the plain attention.
+    logits_dtype: str = "auto"
 
     def __post_init__(self):
-        if self.logits_dtype not in ("bf16", "f32"):
-            raise ValueError("logits_dtype must be 'bf16' or 'f32', got %r"
-                             % (self.logits_dtype,))
+        if self.logits_dtype not in ("auto", "bf16", "f32"):
+            raise ValueError("logits_dtype must be 'auto', 'bf16' or 'f32', "
+                             "got %r" % (self.logits_dtype,))
         if self.d_model % self.n_heads or self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must divide d_model and n_kv_heads "
                              "must divide n_heads")
@@ -60,6 +63,33 @@ class TransformerConfig:
     @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+def use_flash_attention() -> bool:
+    """``HOROVOD_FLASH_ATTENTION`` as the JAX model reads it: 0, false or
+    False turns flash attention off.  Unset, it is on (on the card, as on
+    the TPU; the JAX package's default off the TPU is the one that
+    differs)."""
+    flag = os.environ.get("HOROVOD_FLASH_ATTENTION")
+    return flag is None or flag not in ("0", "false", "False")
+
+
+def local_attention(q, k, v, causal: bool = True):
+    """Plain softmax attention on ``(batch, seq, heads, head_dim)``, the
+    counterpart of the JAX package's ``local_attention``: f32 scores
+    scaled by 1/sqrt(head_dim), masked with -1e30, an f32 softmax and
+    product, the result cast to q's dtype; GQA repeats each KV head."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        idx = torch.arange(q.shape[1], device=q.device)
+        s = s.masked_fill(idx[None, :] > idx[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 def rms_norm(x, scale, eps: float):
@@ -120,7 +150,8 @@ class DecoderLayer(nn.Module):
             k = (x @ self.wk.to(x.dtype)).reshape(b, s, -1, hd)
             v = (x @ self.wv.to(x.dtype)).reshape(b, s, -1, hd)
         q, k = rope(cos, sin, q), rope(cos, sin, k)
-        attn = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+        attend = flash_attention if use_flash_attention() else local_attention
+        attn = attend(q, k, v, causal=True).reshape(b, s, -1)
         return attn @ self.wo.to(x.dtype)
 
     def ffn(self, h):
@@ -165,7 +196,8 @@ class Transformer(nn.Module):
         for layer in self.layers:
             x = layer(x, cos, sin)
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
-        if cfg.logits_dtype == "f32":
+        if cfg.logits_dtype == "f32" or (cfg.logits_dtype == "auto"
+                                         and not use_flash_attention()):
             return x.float() @ self.embed.float().t()
         # bf16 operands, f32 result: the bf16 values widened to f32 make
         # every product exact, so this equals a bf16 product with f32

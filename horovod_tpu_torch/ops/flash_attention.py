@@ -4,9 +4,11 @@ and the autograd function around them.
 Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` ``flash_attention``
 (``_flash_fwd``, ``_flash_bwd``).  Around the kernels, in torch, as the
 JAX package does it: GQA repeats KV heads; q is scaled by 1/sqrt(d) in
-its own dtype; ``delta = rowsum(g * o)`` is computed in f32; dq is
-multiplied by 1/sqrt(d) in f32 before its cast; the layout goes
-``(B, S, H, D) <-> (B*H, S, D)``.
+its own dtype; the head dim is zero-padded to the next width the kernels
+take (32, 64 or 128; the JAX package pads to 128 lanes: zero columns add
+0 to every product) and the outputs sliced back; ``delta = rowsum(g *
+o)`` is computed in f32; dq is multiplied by 1/sqrt(d) in f32 before its
+cast; the layout goes ``(B, S, H, D) <-> (B*H, S, D)``.
 
 The backward is chosen as the JAX package chooses it, by
 ``HVD_TPU_FLASH_BWD`` read when the backward runs: ``pallas`` (the
@@ -32,8 +34,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_MAX_BH = 65535  # grid.y limit of the dq and dk/dv launches
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128)  # the kernels' widths; flash_attention pads to one
 # rows of k per one-pass tile, hence per dq partial; passed to the kernel,
 # which refuses a value other than its own
 BLOCK_K = 128
@@ -117,9 +118,10 @@ def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
 
 def _check_kernel_args(name: str, flat, rows=()):
     """Raise on inputs the kernels do not take: they run on CUDA, on
-    contiguous bf16 (BH, S, D) tensors with D in 32/64/128, and f32
-    (BH, S) row statistics, each starting on a 16-byte boundary (TMA
-    reads and writes tiles only from there)."""
+    contiguous bf16 (BH, S, D) tensors with D in 32/64/128 (what
+    ``flash_attention`` pads a head dim up to 128 to), and f32 (BH, S)
+    row statistics, each starting on a 16-byte boundary (TMA reads and
+    writes tiles only from there)."""
     bh, s, d = flat[0].shape
     for t in list(flat) + list(rows):
         if not t.is_cuda:
@@ -140,11 +142,9 @@ def _check_kernel_args(name: str, flat, rows=()):
         if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
             raise ValueError("%s takes f32 (BH, S) row statistics" % name)
     if d not in _HEAD_DIMS:
-        raise ValueError("%s takes head_dim in %s, got %d"
-                         % (name, _HEAD_DIMS, d))
-    if bh > _MAX_BH:
-        raise ValueError("%s takes at most %d (batch x head) rows, got %d"
-                         % (name, _MAX_BH, bh))
+        raise ValueError("%s takes head_dim in %s, got %d: flash_attention "
+                         "zero-pads a head dim up to 128, and no kernel "
+                         "takes a wider one" % (name, _HEAD_DIMS, d))
     return bh, s, d
 
 
@@ -261,46 +261,62 @@ def flash_bwd(q, k, v, g, lse, delta, causal: bool):
 # autograd
 # ---------------------------------------------------------------------------
 
-def _to_flat(x):
+def padded_head_dim(d: int) -> int:
+    """The kernels' width that holds a head dim of ``d``: the smallest of
+    32, 64 and 128 at or above it, else ``d`` itself (the plain versions
+    take any width; the kernels raise)."""
+    return next((w for w in _HEAD_DIMS if w >= d), d)
+
+
+def _to_flat(x, width: int):
+    """(B, S, H, D) -> contiguous (B*H, S, width), zero columns past D."""
     b, s, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    x = x.transpose(1, 2).reshape(b * h, s, d)
+    if width != d:
+        x = torch.nn.functional.pad(x, (0, width - d))
+    return x.contiguous()
 
 
-def _from_flat(x, b: int, h: int):
-    _, s, d = x.shape
-    return x.view(b, h, s, d).transpose(1, 2)
+def _from_flat(x, b: int, h: int, d: int):
+    """(B*H, S, width) -> (B, S, H, D), the first D columns."""
+    _, s, width = x.shape
+    return x.view(b, h, s, width)[..., :d].transpose(1, 2)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
         b, _, h, d = q.shape
+        width = padded_head_dim(d)
+        # The true head dim's scale, as the JAX plan pre-scales before it
+        # pads.  Scaled in q's own dtype: the factor is rounded to it
+        # first, as q * pre_scale does on a bf16 array in the JAX package.
         scale = 1.0 / math.sqrt(d)
-        # Scaled in q's own dtype: the factor is rounded to it first, as
-        # q * pre_scale does on a bf16 array in the JAX package.
-        qs = _to_flat(q * torch.tensor(scale, dtype=q.dtype, device=q.device))
-        kf, vf = _to_flat(k), _to_flat(v)
+        qs = _to_flat(q * torch.tensor(scale, dtype=q.dtype, device=q.device),
+                      width)
+        kf, vf = _to_flat(k, width), _to_flat(v, width)
         o, lse = flash_fwd(qs, kf, vf, causal)
         ctx.save_for_backward(qs, kf, vf, o, lse)
-        ctx.causal, ctx.scale, ctx.shape = causal, scale, (b, h)
+        ctx.causal, ctx.scale, ctx.shape = causal, scale, (b, h, d)
         ctx.q_dtype = q.dtype
-        return _from_flat(o, b, h)
+        return _from_flat(o, b, h, d)
 
     @staticmethod
     def backward(ctx, g):
         qs, kf, vf, o, lse = ctx.saved_tensors
-        b, h = ctx.shape
-        gf = _to_flat(g.to(o.dtype))
+        b, h, d = ctx.shape
+        gf = _to_flat(g.to(o.dtype), o.shape[-1])
         delta = (gf.float() * o.float()).sum(-1)
         dq, dk, dv = flash_bwd(qs, kf, vf, gf, lse, delta, ctx.causal)
         dq = (dq.float() * ctx.scale).to(ctx.q_dtype)
-        return (_from_flat(dq, b, h), _from_flat(dk, b, h),
-                _from_flat(dv, b, h), None)
+        return (_from_flat(dq, b, h, d), _from_flat(dk, b, h, d),
+                _from_flat(dv, b, h, d), None)
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """Fused attention on ``(batch, seq, heads, head_dim)`` tensors; GQA
-    (fewer KV heads) repeats each KV head over its group of q heads."""
+    (fewer KV heads) repeats each KV head over its group of q heads.  On
+    CUDA the kernels take bf16 and a head dim up to 128."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)

@@ -193,7 +193,6 @@ def test_kernels_build_into_an_ignored_directory():
                                                   "flash_bwd_onepass.cu",
                                                   "batch_norm.cu",
                                                   "scale_sum.cu"}
-    assert os.path.exists(_build.CSRC / "flash_common.cuh")
 
 
 def test_capability_probes_tell_the_truth():

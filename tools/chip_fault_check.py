@@ -3,13 +3,16 @@
 
     python3 tools/chip_fault_check.py [fault ...]
 
-Each fault is a one-line edit to a kernel source (or a few lines that
-make one fault): a dropped part of the attention sum, a mask off by one,
-lse in log2 units, V's transpose bit flipped, a one-pass slot left
-unwritten or written past its rows, a stale ring stage, partial stores
-not awaited, a dropped row chunk, mask term or channel tile of the
-BatchNorm kernels, or a dropped ragged tail, a coefficient on the wrong
-operand or a contracted FMA in the scale-sum kernel.  For each, the
+Each fault is a one-line edit to a kernel source (or a few lines, in
+one or two files, that make one fault): a dropped part of the attention
+sum, a mask off by one, lse in log2 units, V's or K's transpose bit
+flipped, a one-pass slot left unwritten or written past its rows, dq
+rows past S written, a stale ring stage, partial stores not awaited, a
+dropped row chunk, mask term or channel tile of the BatchNorm kernels,
+or a dropped ragged tail, a coefficient on the wrong operand or a
+contracted FMA in the scale-sum kernel.  The dk/dv and one-pass kernels
+share one body (``csrc/flash_bwd_kv.cuh``): a fault planted there is in
+both.  For each, the
 script copies ``horovod_tpu_torch/`` and ``chip_smoke.py`` into
 ``build/fault_check/<fault>/`` (ignored by git; the sources in the
 checkout are not touched), defines ``HVD_SM90_WATCHDOG`` there (an
@@ -55,12 +58,14 @@ REPO = Path(__file__).resolve().parent.parent
 WORK = REPO / "build" / "fault_check"
 
 # name -> (source, text as it stands, text with the fault, what it drops);
-# a fault of several edits gives tuples of texts
-_DQ_ROW = "      const int row = q0 + r, col = kt * BK + c;\n"
-_DKV_ROW = "      const int row = q0 + r, col = k0 + c;\n"
-_MASK = "      const bool ok = row < S && col < S && (!CAUSAL || col <= row);"
-_MASK_OFF_BY_ONE = ("      const bool ok = row < S && col < S && "
-                    "(!CAUSAL || col < row + (2 * row < S));")
+# a fault of several edits gives tuples of texts, and a tuple of sources
+# where they lie in more than one file
+_KV = "flash_bwd_kv.cuh"
+_KV_MASK = "if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"
+_KV_P = "p[e] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));"
+_DQ_STORE = ("tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, "
+             "q0 + 64 * wg, bh);")
+_DQ_MAP = "panel_map<D, 4>(&mdq, dq, s, bh, 64)"
 FAULTS = {
     "none": None,
     "fwd_diagonal_tile": (
@@ -69,10 +74,11 @@ FAULTS = {
         "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
         "forward: the diagonal k tile skipped for q rows in the second half"),
     "dkv_last_q_tile": (
-        "flash_bwd.cu",
-        "  for (int qt = qstart; qt < nq; ++qt) {",
-        "  for (int qt = qstart; qt < nq - (CAUSAL && 2 * k0 < S); ++qt) {",
-        "dk/dv: the last q tile skipped for k rows in the first half"),
+        _KV, _KV_P,
+        _KV_P[:-1] + " * (CAUSAL && 2 * k0 < S && qstart + i + 1 == nq "
+        "? 0.f : 1.f);",
+        "dk/dv: the last q tile dropped (its P zero) for k rows in the first "
+        "half"),
     "fwd_mask_off_by_one": (
         "flash_fwd.cu",
         "            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
@@ -90,57 +96,85 @@ FAULTS = {
         "MmaRS<D, 0>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
         "forward: V read K-major (its transpose bit flipped)"),
     "dq_mask_off_by_one": (
-        "flash_bwd.cu", _DQ_ROW + _MASK, _DQ_ROW + _MASK_OFF_BY_ONE,
+        "flash_bwd.cu",
+        "if (!(col < S && (!CAUSAL || col <= row))) p = 0.f;",
+        "if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) p = 0.f;",
         "dq: causal mask drops the diagonal key in the second half"),
     "dkv_mask_off_by_one": (
-        "flash_bwd.cu", _DKV_ROW + _MASK, _DKV_ROW + _MASK_OFF_BY_ONE,
+        _KV, _KV_MASK,
+        "if (!(q < S && kr < S && (!CAUSAL || kr < q + (2 * q < S)))) "
+        "p[e] = 0.f;",
         "dk/dv: causal mask drops the diagonal key in the second half"),
+    "dq_diagonal_tile": (
+        "flash_bwd.cu",
+        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
+        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
+        "dq: the diagonal k tile skipped for q rows in the second half"),
+    "dq_k_transpose_bit": (
+        "flash_bwd.cu",
+        "MmaRS<D, 1>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
+        "MmaRS<D, 0>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
+        "dq: K read K-major in dS K (its transpose bit flipped)"),
+    "dq_stale_ring_stage": (
+        "flash_bwd.cu",
+        "      mbar_wait(&full[s], (i / STAGES) & 1);",
+        "      mbar_wait(&full[s], ((i / STAGES) & 1) ^ (i >= STAGES));",
+        "dq: a ring stage read again before its next k tile lands (wrong "
+        "parity)"),
+    "dq_ragged_rows_written": (
+        "flash_bwd.cu",
+        (_DQ_MAP, _DQ_STORE, "dl[h] = row < S ? delta[at] : 0.f;"),
+        ("panel_map<D, 4>(&mdq, dq, (uint64_t)s * bh, 1, 64)",
+         _DQ_STORE.replace("q0 + 64 * wg, bh);", "bh * S + q0 + 64 * wg, 0);"),
+         "dl[h] = row < S ? delta[at] : 1.f;"),
+        "dq: rows past S written (dq's map flattened, so the next head's "
+        "first rows take them; their delta 1, so that they are not zeros)"),
     "onepass_dead_tiles_not_zeroed": (
-        "flash_bwd_onepass.cu",
-        "    for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
-        "    for (size_t i = t + 128 * wg; i < (size_t)0 * BQ * D / 4; i += 256)",
+        _KV,
+        "      for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
+        "      for (size_t i = t + 128 * wg; i < (size_t)0 * BQ * D / 4; i += 256)",
         "one-pass: the dead causal tiles' partial rows left unwritten"),
     "onepass_dead_slot_last_tile": (
-        "flash_bwd_onepass.cu",
-        "    for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
-        "    for (size_t i = t + 128 * wg; i < (size_t)max(qstart - 1, 0) * BQ * D "
+        _KV,
+        "      for (size_t i = t + 128 * wg; i < (size_t)qstart * BQ * D / 4; i += 256)",
+        "      for (size_t i = t + 128 * wg; i < (size_t)max(qstart - 1, 0) * BQ * D "
         "/ 4; i += 256)",
         "one-pass: the last dead q tile's rows of a slot left unwritten"),
     "onepass_dkv_last_q_tile": (
-        "flash_bwd_onepass.cu",
+        _KV,
         "      for (int kk = 0; kk < BQ / 16; ++kk) {\n"
         "        const uint32_t a[4] = {pp[",
         "      for (int kk = 0; kk < BQ / 16 * (qstart + i + 1 < nq); ++kk) {\n"
         "        const uint32_t a[4] = {pp[",
-        "one-pass: the last q tile left out of dv"),
+        "one-pass and dk/dv: the last q tile left out of dv"),
     "onepass_last_k_partial": (
-        "flash_bwd_onepass.cu",
-        "      for (int kk = 0; kk < BK / 16; ++kk)\n"
-        "        MmaSS<D / 2, 1, 1>",
-        "      for (int kk = 0; kk < BK / 16 * (kt + 1 < nk); ++kk)\n"
-        "        MmaSS<D / 2, 1, 1>",
+        _KV,
+        "        for (int kk = 0; kk < BK / 16; ++kk)\n"
+        "          MmaSS<D / 2, 1, 1>",
+        "        for (int kk = 0; kk < BK / 16 * (kt + 1 < nk); ++kk)\n"
+        "          MmaSS<D / 2, 1, 1>",
         "one-pass: the last k tile's dq partial dropped (its registers unset)"),
     "onepass_ragged_rows_written": (
-        "flash_bwd_onepass.cu",
-        ("panel_map<D / 2, 4>(&mdqp, dqp, s, (uint64_t)bh * nk, BQ, D)",
-         "q0,\n                       bh * nk + kt);",
-         "if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
-        ("panel_map<D / 2, 4>(&mdqp, dqp, (uint64_t)s * bh * nk, 1, BQ, D)",
-         "(bh * nk + kt) * S + q0,\n                       0);",
+        ("flash_bwd_onepass.cu", _KV, _KV),
+        ("panel_map<D / 2, 4>(&mdqp, dqp, s, (uint64_t)bh * nk, kv::BQ, D)",
+         "q0,\n                         bh * nk + kt);",
+         _KV_MASK),
+        ("panel_map<D / 2, 4>(&mdqp, dqp, (uint64_t)s * bh * nk, 1, kv::BQ, D)",
+         "(bh * nk + kt) * S + q0,\n                         0);",
          "if (!(kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
         "one-pass: partial rows past S written (the partials' map flattened, "
         "so the next slot takes them; the rows past S unmasked, so that "
         "they are not zeros)"),
     "onepass_stale_ring_stage": (
-        "flash_bwd_onepass.cu",
+        _KV,
         "      mbar_wait(&full[s], (i / STAGES) & 1);",
         "      mbar_wait(&full[s], ((i / STAGES) & 1) ^ (i >= STAGES));",
-        "one-pass: a ring stage read again before its next tile lands "
-        "(wrong parity)"),
+        "one-pass and dk/dv: a ring stage read again before its next tile "
+        "lands (wrong parity)"),
     "onepass_partial_store_unawaited": (
-        "flash_bwd_onepass.cu",
-        "    if (t == 0) tma_store_wait_read<0>();\n    named_sync(1, 256);",
-        "    named_sync(1, 256);",
+        _KV,
+        "      if (t == 0) tma_store_wait_read<0>();\n      named_sync(1, 256);",
+        "      named_sync(1, 256);",
         "one-pass: the last partial TMA stores not awaited before the "
         "epilogue reuses their buffers"),
     "bn_stats_last_chunk": (
@@ -182,12 +216,16 @@ FAULTS = {
 }
 # Faults that must fail their family's check at these shapes themselves:
 # at the stem a dropped BN chunk is 1 of 1024, the smallest share of any
-# held shape; a forward or one-pass fault at each attention shape where
-# its code runs (a dead causal tile and the diagonal only at the causal
-# shapes, rows past S only at the ragged ones; every shape has a block
-# with three q tiles or more, so a second round of the ring).  The
-# unawaited partial stores are a race: it shows where thousands of blocks
-# run, at the decoder's and BERT's shapes, not at the three small ones.
+# held shape; a flash fault at each attention shape where its code runs
+# (a dead causal tile, the diagonal and the causal mask only at the
+# causal shapes, rows past S only at the ragged ones; every shape has a
+# k-tile block with three q tiles or more, so a second round of its ring,
+# but only the decoder's and BERT's have a dq block with three k tiles).
+# The unawaited partial stores are a race: it shows where thousands of
+# blocks run, at the decoder's and BERT's shapes, not at the three small
+# ones.  So are dq rows past S, which land in the next head's first q
+# tile: they show where that tile's block ends first, at the ragged
+# causal shape, whose last q tile has twice the k tiles of its first.
 RAGGED, DECODER, BERT = "BH4 S200 D64 full", "BH32 S2048 D128 causal", \
     "BH512 S384 D64 full"
 RAGGED32, RAGGED128 = "BH4 S200 D32 causal", "BH2 S130 D128 full"
@@ -200,6 +238,13 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "fwd_mask_off_by_one": CAUSAL,
                 "fwd_lse_log2": ALL,
                 "fwd_v_transpose_bit": ALL,
+                "dq_mask_off_by_one": CAUSAL,
+                "dq_diagonal_tile": CAUSAL,
+                "dq_k_transpose_bit": ALL,
+                "dq_stale_ring_stage": {DECODER, BERT},
+                "dq_ragged_rows_written": {RAGGED32},
+                "dkv_last_q_tile": CAUSAL,
+                "dkv_mask_off_by_one": CAUSAL,
                 "onepass_dead_tiles_not_zeroed": CAUSAL,
                 "onepass_dead_slot_last_tile": CAUSAL,
                 "onepass_dkv_last_q_tile": ALL,
@@ -255,8 +300,7 @@ for unit in json.loads(sys.argv[1]):
 def unit_labels(cs):
     """The check units of a case, in the order a check process runs them:
     each attention shape, each BN shape, then the model checks."""
-    return (["BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
-             for bh, s, d, causal in cs.FLASH_SHAPES]
+    return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
             + [shape[0] for shape in cs.BN_SHAPES] + [MODELS])
 
 
@@ -276,15 +320,17 @@ def run_case(name, fault, labels):
     header.write_text("#define HVD_SM90_WATCHDOG 1\n" + header.read_text())
     if fault:
         src, old, new, _ = fault
-        path = csrc / src
-        text = path.read_text()
-        pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
-        for o, n in pairs:
+        if not isinstance(old, tuple):
+            src, old, new = (src,), (old,), (new,)
+        elif not isinstance(src, tuple):
+            src = (src,) * len(old)
+        for s, o, n in zip(src, old, new):
+            path = csrc / s
+            text = path.read_text()
             if text.count(o) != 1:
                 raise RuntimeError("%s: the text to edit is not in %s once"
-                                   % (name, src))
-            text = text.replace(o, n)
-        path.write_text(text)
+                                   % (name, s))
+            path.write_text(text.replace(o, n))
     readings, died = {}, {}
     todo = list(range(len(labels)))
     while todo:

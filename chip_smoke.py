@@ -32,8 +32,11 @@
 4. The main paths, each run with every launch count set to 0 just
    before it and read just after, from numpy seeds at full width and
    depth.  Through ``hvd.init()`` (a one-rank NCCL world),
-   ``broadcast_parameters`` and ``DistributedOptimizer`` with its fused
-   allreduce: the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048,
+   ``broadcast_parameters`` and ``DistributedOptimizer``, whose gradient
+   hooks enqueue named allreduces into the negotiating engine (each
+   path prints the engine's cycles, executed groups and fused bytes a
+   step, and fails unless every gradient byte was submitted to it):
+   the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048,
    Adam, ``HVD_TPU_FLASH_BWD=pallas``; flash forward, dq and dk/dv 12
    launches a step each), ResNet-50 of ``bench.py:274-321`` (batch 128,
    224^2, SGD 0.1 with momentum 0.9; each BN kernel 53 launches a step),
@@ -44,13 +47,22 @@
    form of Adasum allreduce: the gradients of four 8-row shards of the
    same batch 32, one after another, stacked and reduced by
    ``adasum_reduce_stacked`` (the scale-sum kernel 3 times per gradient
-   tensor a step, no host synchronisation), then AdamW; step 0's reduced
-   gradients bit for bit against the plain reduction.  No path launches
-   another family's kernels.  Each profiles one more step by kernel
-   family; the BN and BERT flash kernels' device time in that step is
-   printed beside the step's bound for them, and the Adasum step's
-   reduction is split into the scale-sum kernel and the rest.  Last, each
-   collective of the surface once on the one-rank NCCL world.
+   tensor a step), the results then one grouped Adasum allreduce through
+   the engine over the world's one rank, all with no host
+   synchronisation, then AdamW; step 0's reduced gradients bit for bit
+   against the plain reduction.  No path launches another family's
+   kernels.  Each profiles one more step by kernel family; the BN and
+   BERT flash kernels' device time in that step is printed beside the
+   step's bound for them, and the Adasum step's reduction is split into
+   the scale-sum kernel and the rest.  Then each collective of the
+   surface once on the one-rank NCCL world, and the engine on the card:
+   64 named CUDA tensors (f32, bf16, f16, i32; every reduce op, pre- and
+   post-scaled) under a 1 MiB fusion threshold, each result bit for bit,
+   in more than one fused group, none above the threshold; one decoder
+   step (d1024, 2 layers) whose backward and reduction run under
+   ``torch.cuda.set_sync_debug_mode("error")``, its gradients bit for
+   bit against the same backward's local ones; ``hvd.join()``; and the
+   ``HOROVOD_TIMELINE`` trace, which must parse and name every gradient.
 5. Prints one JSON line of kernel records (nine kernels), then as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -908,16 +920,17 @@ def train_flagship(torch):
     data = shard_batch(synthetic_batch(cfg, batch, seed=0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say("flagship: d%d L%d hd%d seq %d batch %d, %d parameters, %d fused "
-        "allreduce group(s); set-up %.1f s"
-        % (d, L, cfg.head_dim, seq, batch, n_params, len(opt._groups),
-           time.perf_counter() - t0))
+    say("flagship: d%d L%d hd%d seq %d batch %d, %d parameters, one named "
+        "allreduce per parameter (%d) through the engine; set-up %.1f s"
+        % (d, L, cfg.head_dim, seq, batch, n_params,
+           len(list(model.parameters())), time.perf_counter() - t0))
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     bn.reset_launch_counts()
     ss.reset_launch_counts()
     losses, times = [], []
+    before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
         loss = step(data)
@@ -925,6 +938,9 @@ def train_flagship(torch):
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
         say("step %d: loss %.6f, %.2f ms" % (i, losses[-1], times[-1] * 1e3))
+    report_engine("flagship", before, engine_counts(), STEPS,
+                  sum(p.grad.numel() * p.grad.element_size()
+                      for p in model.parameters()))
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     if any(bn.launch_counts().values()):
         raise AssertionError("the decoder launched BN kernels: %s"
@@ -953,6 +969,43 @@ def check_counts(counts, expected):
                                  % (name, n, expected[name]))
 
 
+ENGINE_SERIES = {"cycles": "engine_cycles_total",
+                 "groups": "engine_last_group_id",
+                 "fused_tensors": "engine_tensors_fused_total",
+                 "fused_bytes": "engine_bytes_fused_total",
+                 "submitted": "engine_bytes_submitted_total"}
+
+
+def engine_counts():
+    """The engine's counters now (``hvd.metrics_snapshot``); ``groups``
+    is the id of the last executed collective group of the running
+    engine, so its difference counts the groups executed between two
+    readings."""
+    import horovod_tpu_torch as hvd
+    snap = hvd.metrics_snapshot()
+    return {k: snap.get(v, {}).get("value", 0.0)
+            for k, v in ENGINE_SERIES.items()}
+
+
+def report_engine(label, before, after, steps, grad_bytes):
+    """Prints the engine's cycles, executed groups, fused tensors and
+    fused bytes per step over ``steps`` steps, and fails unless every
+    gradient byte of every step (``grad_bytes`` a step) was submitted."""
+    d = {k: after[k] - before[k] for k in after}
+    say("%s: engine per step (%d steps): %.1f cycles, %.1f executed "
+        "collective groups, %.1f tensors in multi-tensor fused groups, "
+        "%.0f fused bytes; %.0f bytes submitted a step, %d gradient bytes "
+        "a step" % (label, steps, d["cycles"] / steps, d["groups"] / steps,
+                    d["fused_tensors"] / steps, d["fused_bytes"] / steps,
+                    d["submitted"] / steps, grad_bytes))
+    if d["submitted"] != steps * grad_bytes:
+        raise AssertionError("%s: %d bytes submitted to the engine in %d "
+                             "steps, expected %d" % (
+                                 label, d["submitted"], steps,
+                                 steps * grad_bytes))
+    return {k: v / steps for k, v in d.items()}
+
+
 def train_resnet_flagship(torch, batch=128, image=224):
     """ResNet-50 of bench.py:274-321 through the port's entry points:
     batch 128, 224^2, 1000 classes, bf16, SGD(0.1, momentum 0.9), from
@@ -979,9 +1032,11 @@ def train_resnet_flagship(torch, batch=128, image=224):
     torch.cuda.synchronize()
     norms = [m for m in model.modules() if isinstance(m, NormAct)]
     say("resnet flagship: ResNet-50 batch %d, %dx%d, %d parameters, %d "
-        "NormActs, %d fused allreduce group(s); set-up %.1f s"
+        "NormActs, one named allreduce per parameter (%d) through the "
+        "engine; set-up %.1f s"
         % (batch, image, image, sum(p.numel() for p in model.parameters()),
-           len(norms), len(opt._groups), time.perf_counter() - t0))
+           len(norms), len(list(model.parameters())),
+           time.perf_counter() - t0))
 
     # The NormAct input shapes of one step, read by forward pre-hooks
     # during the first timed step (they launch nothing): they give the
@@ -999,6 +1054,7 @@ def train_resnet_flagship(torch, batch=128, image=224):
     bn.reset_launch_counts()
     ss.reset_launch_counts()
     losses, times = [], []
+    before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
         loss = step(data)
@@ -1010,6 +1066,9 @@ def train_resnet_flagship(torch, batch=128, image=224):
         hooks = []
         say("resnet step %d: loss %.6f, %.2f ms"
             % (i, losses[-1], times[-1] * 1e3))
+    report_engine("resnet flagship", before, engine_counts(), STEPS,
+                  sum(p.grad.numel() * p.grad.element_size()
+                      for p in model.parameters()))
     counts = bn.launch_counts()
     flash = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
@@ -1078,8 +1137,8 @@ def train_bert_flagship(torch, batch=32, seq=384):
     data = shard_batch(synthetic_bert_batch(cfg, batch, seq, seed=0))
     torch.cuda.synchronize()
     say("bert flagship: BERT-Large d%d L%d %d heads of %d, d_ff %d, batch "
-        "%d, seq %d, %d parameters, %d fused allreduce group(s), fp16 wire, "
-        "backward %s; set-up %.1f s"
+        "%d, seq %d, %d parameters, %d grouped allreduces through the "
+        "engine, fp16 wire, backward %s; set-up %.1f s"
         % (cfg.d_model, L, cfg.n_heads, cfg.head_dim, cfg.d_ff, batch, seq,
            sum(p.numel() for p in model.parameters()), len(opt._groups),
            fa.bwd_choice(), time.perf_counter() - t0))
@@ -1095,6 +1154,7 @@ def train_bert_flagship(torch, batch=32, seq=384):
     bn.reset_launch_counts()
     ss.reset_launch_counts()
     losses, times = [], []
+    before = engine_counts()
     for i in range(STEPS):
         dist.all_reduce = record if i == 0 else all_reduce
         try:
@@ -1104,9 +1164,15 @@ def train_bert_flagship(torch, batch=32, seq=384):
             times.append(time.perf_counter() - t)
         finally:
             dist.all_reduce = all_reduce
+        if i == 0:
+            step0_groups = engine_counts()["groups"] - before["groups"]
         losses.append(loss.item())
         say("bert step %d: loss %.6f, %.2f ms" % (i, losses[-1],
                                                  times[-1] * 1e3))
+    # fp16 wire: two bytes per gradient element.
+    report_engine("bert flagship", before, engine_counts(), STEPS,
+                  sum(2 * p.grad.numel() for p in model.parameters()
+                      if p.grad is not None))
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
     say("bert flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
@@ -1120,10 +1186,12 @@ def train_bert_flagship(torch, batch=32, seq=384):
     if any(bn.launch_counts().values()):
         raise AssertionError("BERT launched BN kernels: %s"
                              % bn.launch_counts())
-    if len(wires) != len(opt._groups) or any(
+    # Each of the 8 groups fuses by the threshold, within itself only.
+    if len(wires) != step0_groups or len(wires) < len(opt._groups) or any(
             dt != "torch.float16" for dt, _ in wires):
-        raise AssertionError("expected %d fused fp16 allreduces in a step, "
-                             "got %s" % (len(opt._groups), wires))
+        raise AssertionError("expected %d fp16 allreduces (the engine's "
+                             "groups) in a step, at least %d, got %s"
+                             % (step0_groups, len(opt._groups), wires))
     check_counts(counts, {"flash_fwd_kernel": L * STEPS,
                           "flash_bwd_dq_kernel": 0,
                           "flash_bwd_dkv_kernel": 0,
@@ -1306,13 +1374,17 @@ def train_bert_adasum(torch, batch=32, seq=384):
     synchronisation, held by ``torch.cuda.set_sync_debug_mode("error")``),
     sets ``.grad`` and steps AdamW(5e-5, weight decay 0.01).  Classification
     loss, bf16 activations, f32 parameters, HVD_TPU_FLASH_BWD=pallas_onepass
-    as set by the caller; weights and data from numpy seed 0.  Step 0's
-    reduced gradients must equal, bit for bit, the same reduction with
-    scale_sum_plain on the same stacked gradients.  Each step must launch
-    the scale-sum kernel 3 times per gradient tensor, flash_fwd and
-    flash_bwd_onepass once per layer per shard, and nothing else of the
-    port.  Returns the launch counts and the profiled step's device time
-    by kernel family."""
+    as set by the caller; weights and data from numpy seed 0.  The
+    reduced gradients then go through the engine as one grouped Adasum
+    allreduce over the one-rank NCCL world (``hvd.init()``; the world's
+    ranks, where the shards are the in-process ones), inside the same
+    no-synchronisation region.  Step 0's reduced gradients must equal,
+    bit for bit, the same reduction with scale_sum_plain on the same
+    stacked gradients.  Each step must launch the scale-sum kernel 3
+    times per gradient tensor, flash_fwd and flash_bwd_onepass once per
+    layer per shard, and nothing else of the port.  Returns the launch
+    counts and the profiled step's device time by kernel family."""
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.bert import BertConfig, classification_loss
     from horovod_tpu_torch.models.convert_bert import (init_params,
                                                        params_from_jax)
@@ -1322,6 +1394,7 @@ def train_bert_adasum(torch, batch=32, seq=384):
     from horovod_tpu_torch.train import synthetic_bert_batch
     from horovod_tpu_torch.utils.adasum import adasum_reduce_stacked
 
+    hvd.init()
     cfg = BertConfig(**BERT_LARGE)
     L, per = cfg.n_layers, batch // ADASUM_RANKS
     t0 = time.perf_counter()
@@ -1345,8 +1418,12 @@ def train_bert_adasum(torch, batch=32, seq=384):
         torch.cuda.set_sync_debug_mode("error")
         try:
             with torch.profiler.record_function("adasum_reduce"):
-                for p, s in stacked.items():
-                    p.grad = adasum_reduce_stacked(s)
+                params = list(stacked)
+                reduced = hvd.grouped_allreduce_async(
+                    [adasum_reduce_stacked(stacked[p]) for p in params],
+                    name="adasum", op=hvd.Adasum).wait()
+                for p, g in zip(params, reduced):
+                    p.grad = g
         finally:
             torch.cuda.set_sync_debug_mode("default")
         b.record()
@@ -1360,6 +1437,7 @@ def train_bert_adasum(torch, batch=32, seq=384):
     bn.reset_launch_counts()
     ss.reset_launch_counts()
     losses, times = [], []
+    before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
         loss = step()
@@ -1382,6 +1460,9 @@ def train_bert_adasum(torch, batch=32, seq=384):
             if n_bad or ss.launch_counts()["scale_sum_kernel"] != launched:
                 raise AssertionError("Adasum reduction off its plain "
                                      "version in %d tensors" % n_bad)
+    report_engine("bert adasum", before, engine_counts(), STEPS,
+                  sum(s[0].numel() * s.element_size()
+                      for s in box["stacked"].values()))
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     n_grads = len(box["stacked"])
     med = statistics.median(times)
@@ -1411,6 +1492,7 @@ def train_bert_adasum(torch, batch=32, seq=384):
                           "scale_sum_kernel": 3 * n_grads * STEPS})
     prof = profile_step(torch, step, None, med * 1e3,
                         annotation="adasum_reduce")
+    hvd.shutdown()
     return counts, prof
 
 
@@ -1452,6 +1534,190 @@ def check_collectives_on_card(torch):
         % (json.dumps(checks), ss.launch_counts()["scale_sum_kernel"]))
     if not all(checks.values()):
         raise AssertionError("collectives on the card: %s" % checks)
+
+
+# The engine phase: 64 named CUDA tensors (16 of each dtype, the five
+# reduce ops in turn, ragged lengths up to 128K elements) under a fusion
+# threshold of 1 MiB, so that they fuse into many groups.
+ENGINE_THRESHOLD = 1 << 20
+ENGINE_DTYPES = ("float32", "bfloat16", "float16", "int32")
+ENGINE_OPS = ("Sum", "Average", "Min", "Max", "Product")
+ENGINE_TENSORS = 64
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def engine_named_tensors(torch):
+    """The phase's named tensors and their wanted results at size 1: the
+    input times the pre-scale, then the post-scale, each cast to the
+    tensor's dtype first (Average divides by one)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for i in range(ENGINE_TENSORS):
+        dtype = getattr(torch, ENGINE_DTYPES[i % 4])
+        n = 16384 * (1 + i % 8) + i
+        if dtype == torch.int32:
+            x = torch.randint(-50, 50, (n,), generator=g, device="cuda",
+                              dtype=dtype)
+            pre, post = 2, 3
+        else:
+            x = (torch.rand(n, generator=g, device="cuda") + 0.5).to(dtype)
+            pre, post = 0.3, 1.7
+        cast = lambda f: torch.tensor(f, device="cuda").to(dtype)
+        out.append(("engine.%02d" % i, x, ENGINE_OPS[i % 5], pre, post,
+                    x * cast(pre) * cast(post)))
+    return out
+
+
+def engine_waits_on_the_enqueue(torch, hvd):
+    """Prints the seconds from an allreduce's enqueue to its result on
+    the device, while a sleep kernel of about a second, queued on the caller's stream
+    right after the enqueue, still runs; raises if the result waited for
+    the sleep.  The executor's stream waits on an event recorded at the
+    enqueue, so work the caller queues later (the rest of a backward) does
+    not hold a reduction back."""
+    x = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    h = hvd.allreduce_async(x, name="engine.after_enqueue", op=hvd.Sum)
+    torch.cuda._sleep(1 << 31)
+    while not h.poll():
+        time.sleep(1e-4)
+    done = h._entries[0].out_token  # the result's event on the executor
+    while not done.query() and time.perf_counter() - t < 10:
+        time.sleep(1e-4)
+    secs = time.perf_counter() - t
+    sleeping = not torch.cuda.current_stream().query()
+    ok = torch.equal(h.wait(), x)
+    torch.cuda.synchronize()
+    say("engine on the card: an allreduce's result on the device %.4f s "
+        "after its enqueue, the sleep queued after the enqueue %s"
+        % (secs, "still running" if sleeping else "over"))
+    if not (done.query() and sleeping and ok):
+        raise AssertionError("engine on the card: the executor waited for "
+                             "work queued after the enqueue")
+
+
+def check_engine_on_card(torch):
+    """The negotiating engine on the one-rank NCCL world, with CUDA
+    tensors: (1) the 64 named tensors under HVD_TPU_FUSION_THRESHOLD=1 MiB,
+    enqueued at once, each result bit for bit against its wanted value,
+    in more than one fused group, no all_reduce buffer above the
+    threshold, and one more allreduce whose result does not wait for work
+    queued after its enqueue (``engine_waits_on_the_enqueue``); (2) under
+    HOROVOD_TIMELINE, one step of the decoder at the
+    flagship's width (2 layers) whose backward and
+    ``DistributedOptimizer.synchronize()`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, its gradients bit for bit
+    equal to the same backward's local gradients (Average at size 1),
+    ``hvd.join()`` returning 0, and the trace parsing and naming every
+    gradient's negotiation and execution."""
+    import horovod_tpu_torch as hvd
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      loss_fn)
+    from horovod_tpu_torch.train import make_train_step, synthetic_batch
+
+    with env_set(HVD_TPU_FUSION_THRESHOLD=str(ENGINE_THRESHOLD)):
+        hvd.init()
+    cases = engine_named_tensors(torch)
+    buffers, all_reduce = [], dist.all_reduce
+
+    def record(tensor, *args, **kwargs):
+        buffers.append(tensor.numel() * tensor.element_size())
+        return all_reduce(tensor, *args, **kwargs)
+
+    before = engine_counts()
+    dist.all_reduce = record
+    try:
+        handles = [hvd.allreduce_async(x, name=name, op=op,
+                                       prescale_factor=pre,
+                                       postscale_factor=post)
+                   for name, x, op, pre, post, _ in cases]
+        got = [h.wait() for h in handles]
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    d = {k: v - before[k] for k, v in engine_counts().items()}
+    engine_waits_on_the_enqueue(torch, hvd)
+    hvd.shutdown()
+    bad = [name for (name, _, _, _, _, want), g in zip(cases, got)
+           if g.dtype != want.dtype or not torch.equal(g, want)]
+    say("engine on the card: %d named tensors (%s), threshold %d bytes: %d "
+        "cycles, %d executed groups (%d all_reduce buffers, largest %d "
+        "bytes), %d tensors in fused groups; %d results off their inputs "
+        "pre- and post-scaled, bit for bit%s" % (
+            len(cases), "/".join(ENGINE_DTYPES), ENGINE_THRESHOLD,
+            d["cycles"], d["groups"], len(buffers), max(buffers),
+            d["fused_tensors"], len(bad), (": %s" % bad) if bad else ""))
+    if bad or len(buffers) < 2 or len(buffers) != d["groups"] \
+            or max(buffers) > ENGINE_THRESHOLD or d["fused_tensors"] < 2:
+        raise AssertionError("engine on the card: fusion or results off")
+
+    trace_path = _build.build_dir().parent / "engine_timeline.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    with env_set(HOROVOD_TIMELINE=str(trace_path)):
+        hvd.init()
+    cfg = TransformerConfig(vocab_size=8192, d_model=1024, n_layers=2,
+                            n_heads=8, n_kv_heads=8, d_ff=3072, max_seq=2048)
+    build, shard_batch = make_train_step(
+        cfg, lambda params: torch.optim.Adam(params, 1e-3))
+    step, model, opt = build(init_params(cfg, seed=0))
+    data = shard_batch(synthetic_batch(cfg, 4, seed=0))
+    step(data)
+    local = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p: local.__setitem__(p, p.grad.clone()))
+        for p in model.parameters()]
+    opt.zero_grad()
+    loss = loss_fn(model, data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss.backward()
+        opt.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    off = [n for n, p in model.named_parameters()
+           if not torch.equal(p.grad, local[p])]
+    last = hvd.join()
+    hvd.shutdown()
+    records = json.loads(trace_path.read_text())
+    phases = {}
+    for rec in records:
+        if "name" in rec:
+            phases.setdefault(rec["tid"], set()).add(rec["name"])
+    names = ["allreduce." + n for n, _ in model.named_parameters()]
+    untraced = [n for n in names if "NEGOTIATE_ALLREDUCE" not in
+                phases.get(n, ()) or not phases[n] & {
+                    "EXEC_ALLREDUCE", "EXEC_FUSED_ALLREDUCE"}]
+    say("engine on the card: decoder d%d L%d step, backward and "
+        "synchronize() under sync debug mode 'error': %d of %d gradients "
+        "off the local ones bit for bit; join() returned %d; timeline %d "
+        "records, %d of %d gradients without a negotiate and an execute "
+        "record" % (cfg.d_model, cfg.n_layers, len(off), len(names), last,
+                    len(records), len(untraced),
+                    len(names)))
+    if off or last != 0 or untraced:
+        raise AssertionError("engine on the card: gradients %s, join %d, "
+                             "untraced %s" % (off[:4], last, untraced[:4]))
 
 
 def main() -> int:
@@ -1526,6 +1792,7 @@ def main() -> int:
                        if "scale_sum" in adasum_prof else "not measured"))
     torch.cuda.empty_cache()
     check_collectives_on_card(torch)
+    check_engine_on_card(torch)
 
     # -- 5: results
     # (source, TPU kernel, wrapper, the phase-2 shape of its record, the

@@ -3,8 +3,11 @@
 The synchronous data-parallel training step over ``torch.distributed``
 (NCCL on CUDA, gloo on the CPU) and Horovod's collective surface
 (allreduce with Adasum, allgather, reducescatter, alltoall, broadcast,
-barrier, process sets), with the attention, BatchNorm and Adasum-combine
-kernels written by hand in CUDA C++ for Hopper (``csrc/``).  Usage mirrors Horovod's::
+barrier, join, process sets) behind a negotiating engine: named requests
+are negotiated across ranks by rank 0, fused by threshold and executed
+in one order on every rank by one cycle thread.  The attention,
+BatchNorm and Adasum-combine kernels are written by hand in CUDA C++ for
+Hopper (``csrc/``).  Usage mirrors Horovod's::
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -29,7 +32,8 @@ for _mod, _names in (
       "cuda_built")),
     (".common.process_sets",
      ("ProcessSet", "global_process_set", "add_process_set",
-      "remove_process_set")),
+      "remove_process_set", "process_set_by_id", "process_set_ids")),
+    (".common.metrics", ("metrics_snapshot",)),
     (".ops.api",
      ("SUM", "AVERAGE", "MIN", "MAX", "PRODUCT", "ADASUM", "Handle",
       "allreduce", "allreduce_async", "grouped_allreduce",
@@ -38,7 +42,7 @@ for _mod, _names in (
       "reducescatter_async", "grouped_reducescatter",
       "grouped_reducescatter_async", "alltoall", "alltoall_async",
       "broadcast", "broadcast_async", "broadcast_", "broadcast_async_",
-      "barrier", "synchronize", "poll")),
+      "barrier", "join", "synchronize", "poll", "HorovodInternalError")),
     (".optimizer", ("DistributedOptimizer",)),
     (".compression", ("Compression",)),
     (".functions",

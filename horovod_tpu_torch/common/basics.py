@@ -3,13 +3,22 @@
 ``init`` starts the default process group from the launcher's
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``),
 or as a world of one process when that environment is missing.  The
-backend is NCCL on CUDA and gloo for ``device="cpu"``.  Counterpart of
-``horovod_tpu.common.basics`` (``init``, ``shutdown``, the rank and size
-queries and the ``*_built`` probes).
+data group is NCCL on CUDA and gloo for ``device="cpu"``; a world of
+more than one rank also gets a gloo group for the controller.  Then it
+starts the engine (``ops/engine.py``), whose cycle thread alone issues
+collectives from then on, configured from the environment
+(``common/config.py``).  ``shutdown`` asks the engine to stop (a
+negotiated stop: every rank must call it), joins its thread and destroys
+the groups; ``init`` registers it with ``atexit``, and a later ``init``
+starts a new world.  Counterpart of ``horovod_tpu.common.basics``
+(``init``, ``shutdown``, the rank and size queries and the ``*_built``
+probes).
 """
 
 from __future__ import annotations
 
+import atexit
+import logging
 import threading
 from typing import Optional
 
@@ -17,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from . import process_sets
+from .config import Config
 from .topology import Topology, launched, topology_from_env
 
 
@@ -25,6 +35,10 @@ class _State:
         self.lock = threading.Lock()
         self.topology: Optional[Topology] = None
         self.device: Optional[torch.device] = None
+        self.engine = None
+        self.control = None  # the controller's gloo group
+        self.worlds = 0  # worlds started in this process
+        self.atexit_registered = False
 
 
 _state = _State()
@@ -62,22 +76,52 @@ def init(device=None, comm=None):
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if launched():
-            dist.init_process_group(backend, init_method="env://",
-                                    rank=topo.rank, world_size=topo.size)
+            # The launcher's store, with this world's keys under a prefix
+            # of their own: a world started after shutdown() on the same
+            # address may find the last world's store still serving, and
+            # its keys (group names restart with each world) stale.
+            store, _, _ = next(dist.rendezvous(
+                "env://", rank=topo.rank, world_size=topo.size))
+            dist.init_process_group(
+                backend, store=dist.PrefixStore(
+                    "horovod_tpu_torch.world%d" % _state.worlds, store),
+                rank=topo.rank, world_size=topo.size)
         else:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
+        config = Config.from_env()
+        logging.getLogger("horovod_tpu_torch").setLevel(
+            config.log_level.upper())
+        control = dist.new_group(backend="gloo") if topo.size > 1 else None
+        from ..ops.engine import Engine
+        try:
+            engine = Engine(config, topo.rank, topo.size, dev, control)
+        except BaseException:
+            dist.destroy_process_group()
+            raise
+        _state.worlds += 1
         _state.topology, _state.device = topo, dev
+        _state.control, _state.engine = control, engine
+        engine.start()
+        if not _state.atexit_registered:
+            atexit.register(shutdown)
+            _state.atexit_registered = True
 
 
 def shutdown():
-    """Tear the world down (``hvd.shutdown``)."""
+    """Tear the world down (``hvd.shutdown``): every rank calls it."""
     with _state.lock:
         if _state.topology is None:
             return
+        _state.engine.shutdown()
+        if _state.control is not None:
+            # Every rank is past its last use of this world before any
+            # destroys it.
+            dist.barrier(group=_state.control)
         process_sets.reset()
         dist.destroy_process_group()
-        _state.topology = _state.device = None
+        _state.topology = _state.device = _state.engine = None
+        _state.control = None
 
 
 def is_initialized() -> bool:
@@ -90,6 +134,12 @@ def _require_init() -> Topology:
         raise ValueError("horovod_tpu_torch has not been initialized; "
                          "call hvd.init() first")
     return topo
+
+
+def engine():
+    """The running engine (``ops/engine.py``)."""
+    _require_init()
+    return _state.engine
 
 
 def topology() -> Topology:

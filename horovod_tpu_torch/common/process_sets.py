@@ -5,7 +5,8 @@ ranks, mapped onto ``torch.distributed``'s default group, and sets of a
 subset of ranks, each over a ``torch.distributed.new_group``.  Every rank
 of the world calls ``add_process_set`` with the same ranks in the same
 order (the reference's contract; ``new_group`` needs every rank of the
-world), so the ids agree across the world.
+world), so the ids agree across the world: every collective carries its
+set's id through the engine's negotiation (``process_set_by_id``).
 """
 
 from __future__ import annotations
@@ -36,12 +37,10 @@ class ProcessSet:
         return self._group
 
     def included(self) -> bool:
-        from . import basics
         return self.ranks is None or basics.rank() in self.ranks
 
     def rank(self) -> int:
         """The caller's rank within the set."""
-        from . import basics
         if self.ranks is None:
             return basics.rank()
         if basics.rank() not in self.ranks:
@@ -50,7 +49,6 @@ class ProcessSet:
         return self.ranks.index(basics.rank())
 
     def size(self) -> int:
-        from . import basics
         return basics.size() if self.ranks is None else len(self.ranks)
 
     def global_rank(self, set_rank: int) -> int:
@@ -80,7 +78,6 @@ _next_id = [1]
 def add_process_set(process_set) -> ProcessSet:
     """Register a set (a ``ProcessSet`` or a list of ranks) on every rank
     of the world, in the same order everywhere; returns the set."""
-    from . import basics
     if not isinstance(process_set, ProcessSet):
         process_set = ProcessSet(process_set)
     if process_set.ranks is None:
@@ -115,6 +112,29 @@ def remove_process_set(process_set: ProcessSet) -> bool:
     return True
 
 
+def process_set_by_id(process_set_id: int) -> Optional[ProcessSet]:
+    """The registered set with this id (0: the global set), or None."""
+    if process_set_id == GLOBAL_PROCESS_SET_ID:
+        return global_process_set
+    with _lock:
+        return _registered.get(process_set_id)
+
+
+def process_set_ids() -> List[int]:
+    """The ids of the global set and every registered set."""
+    with _lock:
+        return [GLOBAL_PROCESS_SET_ID] + sorted(_registered)
+
+
+def members(process_set_id: int, world: int) -> Optional[List[int]]:
+    """The world ranks of set ``process_set_id``, or None when it is not
+    registered on this rank."""
+    ps = process_set_by_id(process_set_id)
+    if ps is None:
+        return None
+    return list(range(world)) if ps.ranks is None else list(ps.ranks)
+
+
 def reset():
     """Forget every registered set (the world they belong to is gone)."""
     with _lock:
@@ -122,3 +142,8 @@ def reset():
             ps.process_set_id, ps._group = None, None
         _registered.clear()
         _next_id[0] = 1
+
+
+# Last: ``basics`` imports this module.  A set's rank and size queries
+# run per collective on the cycle thread, so not an import each call.
+from . import basics  # noqa: E402

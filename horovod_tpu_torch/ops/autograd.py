@@ -19,21 +19,29 @@ from __future__ import annotations
 import torch
 
 from ..common import basics
-from . import collectives as C
+from ..common.message import AVERAGE, SUM
+
+
+def _api():
+    # ops.api imports this module for its synchronous forms.
+    from . import api
+    return api
 
 
 class GroupedAllreduceFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op, prescale, postscale, process_set, *tensors):
         ctx.args = (op, prescale, postscale, process_set)
-        return tuple(C.fused_allreduce_async(tensors, op, prescale, postscale,
-                                             process_set).wait())
+        return tuple(_api().grouped_allreduce_async(
+            tensors, op=op, prescale_factor=prescale,
+            postscale_factor=postscale, process_set=process_set).wait())
 
     @staticmethod
     def backward(ctx, *grads):
         op, prescale, postscale, ps = ctx.args
-        gs = C.fused_allreduce_async([g.contiguous() for g in grads], op,
-                                     prescale, postscale, ps).wait()
+        gs = _api().grouped_allreduce_async(
+            [g.contiguous() for g in grads], op=op, prescale_factor=prescale,
+            postscale_factor=postscale, process_set=ps).wait()
         return (None,) * 4 + tuple(gs)
 
 
@@ -43,17 +51,19 @@ class GroupedAllgatherFn(torch.autograd.Function):
         ctx.process_set = process_set
         ctx.n_locals = [int(t.shape[0]) if t.dim() else 1 for t in tensors]
         ctx.shapes = [t.shape for t in tensors]
-        return tuple(C.allgather_async(tensors, process_set).wait())
+        return tuple(_api().grouped_allgather_async(
+            tensors, process_set=process_set).wait())
 
     @staticmethod
     def backward(ctx, *grads):
         ps, me = ctx.process_set, ctx.process_set.rank()
-        summed = C.fused_allreduce_async([g.contiguous() for g in grads],
-                                         C.SUM, process_set=ps).wait()
+        summed = _api().grouped_allreduce_async(
+            [g.contiguous() for g in grads], op=SUM, process_set=ps).wait()
         # Every member's row counts, to find this rank's rows of each sum.
         rows = torch.tensor(ctx.n_locals, dtype=torch.int64,
                             device=basics.device())
-        counts = C.allgather_async([rows.view(1, -1)], ps).wait()[0].t()
+        counts = _api().allgather_async(rows.view(1, -1),
+                                        process_set=ps).wait().t()
         own = [s[sum(c[:me]):sum(c[:me + 1])]
                for s, c in zip(summed, counts.tolist())]
         return (None,) + tuple(g.reshape(s) for g, s in zip(own, ctx.shapes))
@@ -63,13 +73,13 @@ class BroadcastFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, root_rank, process_set):
         ctx.root_rank, ctx.process_set = root_rank, process_set
-        return C.broadcast_async_(tensor.detach().clone(), root_rank,
-                                  process_set).wait()
+        return _api().broadcast_async(tensor, root_rank,
+                                      process_set=process_set).wait()
 
     @staticmethod
     def backward(ctx, grad):
-        g = C.fused_allreduce_async([grad.contiguous()], C.SUM,
-                                    process_set=ctx.process_set).wait()[0]
+        g = _api().allreduce_async(grad.contiguous(), op=SUM,
+                                   process_set=ctx.process_set).wait()
         if basics.rank() != ctx.root_rank:
             g = torch.zeros_like(g)
         return g, None, None
@@ -79,13 +89,15 @@ class GroupedReducescatterFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op, process_set, *tensors):
         ctx.op, ctx.process_set = op, process_set
-        return tuple(C.reducescatter_async(tensors, op, process_set).wait())
+        return tuple(_api().grouped_reducescatter_async(
+            tensors, op, process_set=process_set).wait())
 
     @staticmethod
     def backward(ctx, *grads):
-        gs = C.allgather_async([g.contiguous() for g in grads],
-                               ctx.process_set).wait()
-        if ctx.op == C.AVERAGE:
+        gs = _api().grouped_allgather_async(
+            [g.contiguous() for g in grads],
+            process_set=ctx.process_set).wait()
+        if ctx.op == AVERAGE:
             gs = [g / ctx.process_set.size() for g in gs]
         return (None, None) + tuple(gs)
 
@@ -94,7 +106,8 @@ class AlltoallFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, splits, process_set):
         ctx.process_set = process_set
-        out, recv = C.alltoall_async(tensor, splits, process_set).wait()
+        out, recv = _api().alltoall_async(tensor, splits,
+                                          process_set=process_set).wait()
         ctx.recv = recv
         recv_t = torch.tensor(recv, dtype=torch.int64)
         ctx.mark_non_differentiable(recv_t)
@@ -102,6 +115,6 @@ class AlltoallFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad, _grad_recv):
-        g, _ = C.alltoall_async(grad.contiguous(), ctx.recv,
-                                ctx.process_set).wait()
+        g, _ = _api().alltoall_async(grad.contiguous(), ctx.recv,
+                                     process_set=ctx.process_set).wait()
         return g, None, None

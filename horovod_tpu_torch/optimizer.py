@@ -1,29 +1,30 @@
-"""DistributedOptimizer: gradient hooks, then one fused allreduce.
+"""DistributedOptimizer: gradient hooks that enqueue named allreduces.
 
-Horovod's torch surface (``horovod_tpu/torch/optimizer.py``) with the
-numerics of ``horovod_tpu/jax/optimizer.py``:
+Horovod's torch surface (``horovod_tpu/torch/optimizer.py``,
+``_allreduce_grad_async``, ``:200``, and the grouped form, ``:233``) with
+the numerics of ``horovod_tpu/jax/optimizer.py``:
 
-* every parameter gets a ``register_post_accumulate_grad_hook``; when the
-  last member of a group has its gradient, the group's gradients go out
-  as one fused allreduce (one buffer per dtype), asynchronously, while
-  backward goes on;
+* every parameter gets a ``register_post_accumulate_grad_hook``;
+* with neither ``num_groups`` nor ``groups``, each hook enqueues its
+  parameter's gradient as its own allreduce, named
+  ``allreduce.<parameter name>`` (from ``named_parameters``, or
+  ``param.<index>`` in hook order), while backward goes on; the engine
+  fuses what is ready by ``HOROVOD_FUSION_THRESHOLD``;
 * groups: ``num_groups`` splits the parameters into that many groups in
-  order, ``groups`` lists them; with neither, all parameters form one
-  group (the fusion that the negotiation engine will size in a later
-  slice);
+  order, ``groups`` lists them (parameters in no group go alone); when
+  the last member of a group has its gradient, the group goes out as one
+  ``grouped_allreduce``, negotiated as a whole;
 * ``gradient_predivide_factor`` f: pre-scale 1/f, Sum, post-scale
   f/size, instead of Average;
 * ``backward_passes_per_step`` n: gradients accumulate locally over n
   backward passes, and the sum divided by n is reduced;
 * ``compression`` (``Compression.fp16``/``bf16``): each gradient is
-  compressed before it joins its group's buffer, so the group's
-  gradients fuse into one buffer of the wire dtype; the reduction (with
-  its pre- and post-scale) runs on the wire, and each result is
-  decompressed after ``wait()``, the order of the JAX and torch
-  surfaces of the JAX package;
-* ``op=Adasum`` keeps the hooks and groups, and reduces each gradient of
-  a group alone (``collectives.adasum_allreduce``), never in a fused
-  buffer;
+  compressed before it is enqueued, so the engine fuses the wire dtype;
+  the reduction (with its pre- and post-scale) runs on the wire, and
+  each result is decompressed after ``wait()``, the order of the JAX and
+  torch surfaces of the JAX package;
+* ``op=Adasum`` keeps the hooks and groups; the engine reduces each
+  gradient alone (``collectives.adasum_allreduce``), never fused;
 * ``step()`` waits for the reductions, writes the results into ``.grad``
   and runs the wrapped optimizer.
 """
@@ -31,13 +32,19 @@ numerics of ``horovod_tpu/jax/optimizer.py``:
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Dict, List
 
 import torch
 
+from .common import basics
 from .common.process_sets import ProcessSet, global_process_set
 from .compression import Compression, check_reduce_safe
-from .ops.collectives import AVERAGE, SUM, fused_allreduce_async
+from .ops.api import allreduce_requests
+from .ops.engine import wait_all
+from .ops.collectives import AVERAGE, SUM
+
+_instances = itertools.count()
 
 
 class _DistributedOptimizer:
@@ -70,6 +77,8 @@ class _DistributedOptimizer:
 
         hooked = [p for group in optimizer.param_groups
                   for p in group["params"] if p.requires_grad]
+        self._names: Dict[int, str] = {
+            id(p): "param.%d" % i for i, p in enumerate(hooked)}
         if named_parameters is not None:
             named = list(named_parameters)
             names = [n for n, _ in named]
@@ -80,18 +89,24 @@ class _DistributedOptimizer:
                 raise ValueError(
                     "named_parameters must name every parameter in "
                     "optimizer.param_groups")
+            self._names.update((id(p), n) for n, p in named)
+        self._instance = next(_instances)
         self._groups = self._make_groups(hooked, num_groups, groups)
         self._group_of: Dict[int, int] = {
             id(p): gid for gid, members in enumerate(self._groups)
             for p in members}
+        self._hooked = hooked
         self._passes: Dict[int, int] = {id(p): 0 for p in hooked}
         self._ready: Dict[int, List[torch.Tensor]] = {}
+        self._sent = set()
+        self._requests: Dict[tuple, list] = {}
         self._handles: List[tuple] = []
         self._hook_handles = [p.register_post_accumulate_grad_hook(
             self._hook) for p in hooked]
 
     @staticmethod
     def _make_groups(hooked, num_groups, groups):
+        """The explicit groups; a parameter in none is reduced alone."""
         if isinstance(groups, int):
             num_groups, groups = groups, None
         if groups is not None:
@@ -109,12 +124,10 @@ class _DistributedOptimizer:
                             "optimizer's param_groups")
                     seen.add(id(p))
                 out.append(members)
-            # Parameters left out of every group reduce one by one.
-            out.extend([p] for p in hooked if id(p) not in seen)
             return [g for g in out if g]
-        n = min(num_groups, len(hooked)) if num_groups > 0 else 1
-        if not hooked:
+        if num_groups <= 0 or not hooked:
             return []
+        n = min(num_groups, len(hooked))
         size, rem = divmod(len(hooked), n)
         out, start = [], 0
         for gid in range(n):
@@ -141,12 +154,16 @@ class _DistributedOptimizer:
         self._passes[key] += 1
         if self._passes[key] < self.backward_passes_per_step:
             return
-        gid = self._group_of[key]
-        ready = self._ready.setdefault(gid, [])
-        if any(q is p for q in ready):
+        if key in self._sent or any(
+                q is p for q in self._ready.get(self._group_of.get(key), ())):
             raise AssertionError(
                 "gradient of a parameter produced more than "
                 "backward_passes_per_step times before step()")
+        gid = self._group_of.get(key)
+        if gid is None:
+            self._send([p])
+            return
+        ready = self._ready.setdefault(gid, [])
         ready.append(p)
         if len(ready) == len(self._groups[gid]):
             self._fire(gid)
@@ -155,34 +172,58 @@ class _DistributedOptimizer:
         ready = {id(p) for p in self._ready.pop(gid, [])}
         # Group order is construction order, identical on every rank.
         params = [p for p in self._groups[gid] if id(p) in ready]
-        if not params:
-            return
+        if params:
+            self._send(params, gid)
+
+    def _send(self, params, gid=None):
+        """Enqueue the gradients of ``params``: one allreduce, or the
+        group ``gid`` as one grouped allreduce."""
         n = self.backward_passes_per_step
         wires, ctxs = zip(*(self._compression.compress(
             p.grad if n == 1 else p.grad / n) for p in params))
         for p in params:
             self._passes[id(p)] = 0
-        self._handles.append((params, ctxs, fused_allreduce_async(
-            wires, self._op, self._prescale, self._postscale,
-            self._process_set)))
+            self._sent.add(id(p))
+        # A parameter's (or group's) requests repeat every step: built
+        # once per wire dtype and shape, since the hooks are on the
+        # backward pass's critical path.
+        key = (gid, tuple(id(p) for p in params),
+               tuple((w.dtype, w.shape) for w in wires))
+        reqs = self._requests.get(key)
+        if reqs is None:
+            reqs = self._requests[key] = allreduce_requests(
+                wires, op=self._op, prescale_factor=self._prescale,
+                postscale_factor=self._postscale,
+                process_set=self._process_set, grouped=gid is not None,
+                name="allreduce." + self._names[id(params[0])]
+                if gid is None else "DistributedOptimizer.o%d.group%d"
+                % (self._instance, gid))
+        self._handles.append((params, ctxs, basics.engine().enqueue(
+            reqs, list(wires), list)))
 
     def synchronize(self):
         """Wait for every outstanding reduction and install the results
-        in ``.grad``.  A group that is not complete (a frozen branch, or
-        fewer backward passes than ``backward_passes_per_step``) goes out
-        now over the members that have a gradient."""
-        for gid, members in enumerate(self._groups):
-            for p in members:
-                if (self._passes[id(p)] > 0 and p.grad is not None
-                        and not any(q is p
-                                    for q in self._ready.get(gid, []))):
+        in ``.grad``.  A gradient not yet sent (a frozen branch, fewer
+        backward passes than ``backward_passes_per_step``, an incomplete
+        group) goes out now; a group over the members that have one."""
+        for p in self._hooked:
+            key = id(p)
+            gid = self._group_of.get(key)
+            if (self._passes[key] > 0 and p.grad is not None
+                    and key not in self._sent
+                    and not any(q is p for q in self._ready.get(gid, ()))):
+                if gid is None:
+                    self._send([p])
+                else:
                     self._ready.setdefault(gid, []).append(p)
         for gid in list(self._ready):
             self._fire(gid)
-        for params, ctxs, handle in self._handles:
-            for p, ctx, out in zip(params, ctxs, handle.wait()):
+        results = wait_all([h for _, _, h in self._handles])
+        for (params, ctxs, _), outs in zip(self._handles, results):
+            for p, ctx, out in zip(params, ctxs, outs):
                 p.grad.copy_(self._compression.decompress(out, ctx))
         self._handles.clear()
+        self._sent.clear()
 
     @contextlib.contextmanager
     def skip_synchronize(self):

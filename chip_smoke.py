@@ -35,7 +35,12 @@
    ``broadcast_parameters`` and ``DistributedOptimizer``, whose gradient
    hooks enqueue named allreduces into the negotiating engine (each
    path prints the engine's cycles, executed groups and fused bytes a
-   step, and fails unless every gradient byte was submitted to it):
+   step, and fails unless every gradient byte was submitted to it).
+   The engine's fast path is on, its default: the decoder, ResNet-50
+   and BERT-Large each take ``WARMUP_STEPS`` steps, by which their
+   schedule must have frozen, then their 5 timed steps, which must all
+   run frozen, with no negotiated cycle and no thaw (each prints its
+   frozen rounds, buckets a step and ``fastpath.describe()``):
    the d1024 L12 decoder of ``bench.py`` (batch 4, seq 2048,
    Adam, ``HVD_TPU_FLASH_BWD=pallas``; flash forward, dq and dk/dv 12
    launches a step each), ResNet-50 of ``bench.py:274-321`` (batch 128,
@@ -50,7 +55,8 @@
    tensor a step), the results then one grouped Adasum allreduce through
    the engine over the world's one rank, all with no host
    synchronisation, then AdamW; step 0's reduced gradients bit for bit
-   against the plain reduction.  No path launches another family's
+   against the plain reduction; its rounds stay negotiated (Adasum
+   cannot freeze).  No path launches another family's
    kernels.  Each profiles one more step by kernel family; the BN and
    BERT flash kernels' device time in that step is printed beside the
    step's bound for them, and the Adasum step's reduction is split into
@@ -63,6 +69,14 @@
    ``torch.cuda.set_sync_debug_mode("error")``, its gradients bit for
    bit against the same backward's local ones; ``hvd.join()``; and the
    ``HOROVOD_TIMELINE`` trace, which must parse and name every gradient.
+   Then the fast path on the card (``HOROVOD_FAST_PATH_WARM_CYCLES=3``):
+   a d1024 L2 decoder step run frozen and with ``HOROVOD_FAST_PATH=0``
+   on the same weights and inputs, backward and reduction under
+   ``set_sync_debug_mode("error")``, every reduced gradient bit for bit
+   between the two and against the local one; the 64 named tensors
+   frozen, then one of them changing its shape (a thaw, reason shape)
+   and the schedule frozen again before ``join()`` (a thaw, reason
+   membership), every result bit for bit.
 5. Prints one JSON line of kernel records (nine kernels), then as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -119,6 +133,11 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96)
 STEPS = 5
+# Untimed steps before a flagship's timed ones: its rounds (a step each,
+# after the broadcast rounds of its set-up) warm the fast path for
+# HOROVOD_FAST_PATH_WARM_CYCLES (10), the report of the tenth reaches
+# rank 0 during the eleventh, and the verdict names the round after it.
+WARMUP_STEPS = 12
 
 # The BatchNorm kernels against their plain versions (f32 arithmetic, the
 # kernels' casts) on the same bf16 inputs, element by element:
@@ -901,6 +920,7 @@ def train_flagship(torch):
     from horovod_tpu_torch.models.convert import init_params
     from horovod_tpu_torch.models.transformer import TransformerConfig
     from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import fastpath
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import make_train_step, synthetic_batch
@@ -929,7 +949,9 @@ def train_flagship(torch):
     fa.reset_launch_counts()
     bn.reset_launch_counts()
     ss.reset_launch_counts()
+    warm_up("flagship", step, data)
     losses, times = [], []
+    fp_before = fastpath.describe()
     before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
@@ -938,9 +960,10 @@ def train_flagship(torch):
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
         say("step %d: loss %.6f, %.2f ms" % (i, losses[-1], times[-1] * 1e3))
-    report_engine("flagship", before, engine_counts(), STEPS,
-                  sum(p.grad.numel() * p.grad.element_size()
-                      for p in model.parameters()))
+    per_step = report_engine("flagship", before, engine_counts(), STEPS,
+                             sum(p.grad.numel() * p.grad.element_size()
+                                 for p in model.parameters()))
+    report_fastpath("flagship", fp_before, per_step, STEPS)
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     if any(bn.launch_counts().values()):
         raise AssertionError("the decoder launched BN kernels: %s"
@@ -949,12 +972,13 @@ def train_flagship(torch):
     say("flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
         % (med * 1e3, batch * seq / med,
            torch.cuda.max_memory_allocated() / 1e9))
-    say("launches on the main path (%d steps): %s" % (STEPS, counts))
+    n = WARMUP_STEPS + STEPS
+    say("launches on the main path (%d steps): %s" % (n, counts))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss: %s" % losses)
-    check_counts(counts, {"flash_fwd_kernel": L * STEPS,
-                          "flash_bwd_dq_kernel": L * STEPS,
-                          "flash_bwd_dkv_kernel": L * STEPS,
+    check_counts(counts, {"flash_fwd_kernel": L * n,
+                          "flash_bwd_dq_kernel": L * n,
+                          "flash_bwd_dkv_kernel": L * n,
                           "flash_bwd_onepass_kernel": 0,
                           "scale_sum_kernel": 0})
     profile_step(torch, step, data, med * 1e3)
@@ -1006,6 +1030,49 @@ def report_engine(label, before, after, steps, grad_bytes):
     return {k: v / steps for k, v in d.items()}
 
 
+def warm_up(label, step, data):
+    """``WARMUP_STEPS`` untimed steps (the fast path freezes in them);
+    prints their losses and ms on one line."""
+    import torch
+    out = []
+    for _ in range(WARMUP_STEPS):
+        t = time.perf_counter()
+        loss = step(data)
+        torch.cuda.synchronize()
+        out.append("%.4f/%.1f" % (loss.item(), (time.perf_counter() - t) * 1e3))
+    say("%s: %d warm-up steps (loss/ms): %s" % (label, WARMUP_STEPS,
+                                                " ".join(out)))
+
+
+def report_fastpath(label, before, per_step, steps, frozen=True):
+    """Prints the fast path over the timed steps (``before``: its
+    ``describe()`` just before them; ``per_step``: ``report_engine``'s
+    counts a step) and fails unless every timed step ran frozen (one
+    frozen round a step, no negotiated cycle, no thaw), or, with
+    ``frozen`` False or the fast path off (``HOROVOD_FAST_PATH=0``),
+    unless none did."""
+    from horovod_tpu_torch.ops import fastpath
+    after = fastpath.describe()
+    rounds = after["frozen_cycles_total"] - before["frozen_cycles_total"]
+    thaws = {r: n - before["thaws_by_reason"].get(r, 0.0)
+             for r, n in after["thaws_by_reason"].items()
+             if n != before["thaws_by_reason"].get(r, 0.0)}
+    cycles = per_step["cycles"] * steps
+    say("%s: fast path over the %d timed steps: %d frozen rounds, %.1f "
+        "buckets a step, %d negotiated cycles, thaws by reason %s; "
+        "describe() %s" % (label, steps, rounds, per_step["groups"], cycles,
+                           json.dumps(thaws), json.dumps(after)))
+    plane = after["planes"].get("engine", {})
+    frozen = frozen and plane.get("enabled")
+    if frozen and (rounds != steps or cycles or thaws
+                   or not plane.get("frozen")):
+        raise AssertionError("%s: the fast path did not run every timed "
+                             "step frozen" % label)
+    if not frozen and (rounds or plane.get("frozen")):
+        raise AssertionError("%s: a round froze that must stay negotiated"
+                             % label)
+
+
 def train_resnet_flagship(torch, batch=128, image=224):
     """ResNet-50 of bench.py:274-321 through the port's entry points:
     batch 128, 224^2, 1000 classes, bf16, SGD(0.1, momentum 0.9), from
@@ -1017,6 +1084,7 @@ def train_resnet_flagship(torch, batch=128, image=224):
     from horovod_tpu_torch.models.convert_resnet import init_params
     from horovod_tpu_torch.models.resnet import NormAct, ResNetConfig
     from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import fastpath
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import (make_resnet_train_step,
@@ -1048,12 +1116,14 @@ def train_resnet_flagship(torch, batch=128, image=224):
         shapes[(x.numel() // x.shape[1], x.shape[1], mod.relu,
                 len(args) > 1 and args[1] is not None)] += 1
 
-    hooks = [m.register_forward_pre_hook(record) for m in norms]
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     bn.reset_launch_counts()
     ss.reset_launch_counts()
+    warm_up("resnet flagship", step, data)
+    hooks = [m.register_forward_pre_hook(record) for m in norms]
     losses, times = [], []
+    fp_before = fastpath.describe()
     before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
@@ -1066,17 +1136,19 @@ def train_resnet_flagship(torch, batch=128, image=224):
         hooks = []
         say("resnet step %d: loss %.6f, %.2f ms"
             % (i, losses[-1], times[-1] * 1e3))
-    report_engine("resnet flagship", before, engine_counts(), STEPS,
-                  sum(p.grad.numel() * p.grad.element_size()
-                      for p in model.parameters()))
+    per_step = report_engine("resnet flagship", before, engine_counts(),
+                             STEPS, sum(p.grad.numel() * p.grad.element_size()
+                                        for p in model.parameters()))
+    report_fastpath("resnet flagship", fp_before, per_step, STEPS)
     counts = bn.launch_counts()
     flash = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
     say("resnet flagship: median step_ms %.2f, img/s %.1f, peak memory "
         "%.2f GB" % (med * 1e3, batch / med,
                      torch.cuda.max_memory_allocated() / 1e9))
+    n = WARMUP_STEPS + STEPS
     say("launches on the resnet path (%d steps): %s, flash %s"
-        % (STEPS, counts, flash))
+        % (n, counts, flash))
     n_norm = sum(shapes.values())
     elems = sum(n * m * c for (m, c, _, _), n in shapes.items())
     res_elems = sum(n * m * c for (m, c, _, r), n in shapes.items() if r)
@@ -1090,10 +1162,10 @@ def train_resnet_flagship(torch, batch=128, image=224):
     if n_norm != len(norms) or any(flash.values()):
         raise AssertionError("%d NormActs seen in a step of %d; flash %s"
                              % (n_norm, len(norms), flash))
-    for name, n in counts.items():
-        if n != len(norms) * STEPS:
+    for name, k in counts.items():
+        if k != len(norms) * n:
             raise AssertionError("%s launched %d times, expected %d"
-                                 % (name, n, len(norms) * STEPS))
+                                 % (name, k, len(norms) * n))
     prof = profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
     return counts, shapes, prof
@@ -1115,6 +1187,7 @@ def train_bert_flagship(torch, batch=32, seq=384):
     from horovod_tpu_torch.models.bert import BertConfig
     from horovod_tpu_torch.models.convert_bert import init_params
     from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import fastpath
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import (make_bert_train_step,
@@ -1153,7 +1226,9 @@ def train_bert_flagship(torch, batch=32, seq=384):
     fa.reset_launch_counts()
     bn.reset_launch_counts()
     ss.reset_launch_counts()
+    warm_up("bert flagship", step, data)
     losses, times = [], []
+    fp_before = fastpath.describe()
     before = engine_counts()
     for i in range(STEPS):
         dist.all_reduce = record if i == 0 else all_reduce
@@ -1170,32 +1245,36 @@ def train_bert_flagship(torch, batch=32, seq=384):
         say("bert step %d: loss %.6f, %.2f ms" % (i, losses[-1],
                                                  times[-1] * 1e3))
     # fp16 wire: two bytes per gradient element.
-    report_engine("bert flagship", before, engine_counts(), STEPS,
-                  sum(2 * p.grad.numel() for p in model.parameters()
-                      if p.grad is not None))
+    per_step = report_engine("bert flagship", before, engine_counts(),
+                             STEPS, sum(2 * p.grad.numel()
+                                        for p in model.parameters()
+                                        if p.grad is not None))
+    report_fastpath("bert flagship", fp_before, per_step, STEPS)
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     med = statistics.median(times)
     say("bert flagship: median step_ms %.2f, tok/s %.1f, peak memory %.2f GB"
         % (med * 1e3, batch * seq / med,
            torch.cuda.max_memory_allocated() / 1e9))
+    n = WARMUP_STEPS + STEPS
     say("launches on the bert path (%d steps): %s, bn %s; allreduces of "
-        "step 0 (dtype, elements): %s" % (STEPS, counts, bn.launch_counts(),
-                                          wires))
+        "timed step 0 (dtype, elements): %s" % (n, counts,
+                                                bn.launch_counts(), wires))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss: %s" % losses)
     if any(bn.launch_counts().values()):
         raise AssertionError("BERT launched BN kernels: %s"
                              % bn.launch_counts())
-    # Each of the 8 groups fuses by the threshold, within itself only.
+    # Each of the 8 groups goes out in buckets of its own (the frozen
+    # schedule is cut where a group begins).
     if len(wires) != step0_groups or len(wires) < len(opt._groups) or any(
             dt != "torch.float16" for dt, _ in wires):
         raise AssertionError("expected %d fp16 allreduces (the engine's "
                              "groups) in a step, at least %d, got %s"
                              % (step0_groups, len(opt._groups), wires))
-    check_counts(counts, {"flash_fwd_kernel": L * STEPS,
+    check_counts(counts, {"flash_fwd_kernel": L * n,
                           "flash_bwd_dq_kernel": 0,
                           "flash_bwd_dkv_kernel": 0,
-                          "flash_bwd_onepass_kernel": L * STEPS,
+                          "flash_bwd_onepass_kernel": L * n,
                           "scale_sum_kernel": 0})
     prof = profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
@@ -1389,6 +1468,7 @@ def train_bert_adasum(torch, batch=32, seq=384):
     from horovod_tpu_torch.models.convert_bert import (init_params,
                                                        params_from_jax)
     from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops import fastpath
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import scale_sum as ss
     from horovod_tpu_torch.train import synthetic_bert_batch
@@ -1437,6 +1517,7 @@ def train_bert_adasum(torch, batch=32, seq=384):
     bn.reset_launch_counts()
     ss.reset_launch_counts()
     losses, times = [], []
+    fp_before = fastpath.describe()
     before = engine_counts()
     for i in range(STEPS):
         t = time.perf_counter()
@@ -1460,9 +1541,11 @@ def train_bert_adasum(torch, batch=32, seq=384):
             if n_bad or ss.launch_counts()["scale_sum_kernel"] != launched:
                 raise AssertionError("Adasum reduction off its plain "
                                      "version in %d tensors" % n_bad)
-    report_engine("bert adasum", before, engine_counts(), STEPS,
-                  sum(s[0].numel() * s.element_size()
-                      for s in box["stacked"].values()))
+    per_step = report_engine("bert adasum", before, engine_counts(), STEPS,
+                             sum(s[0].numel() * s.element_size()
+                                 for s in box["stacked"].values()))
+    # Adasum shares no buffer: its rounds stay negotiated.
+    report_fastpath("bert adasum", fp_before, per_step, STEPS, frozen=False)
     counts = {**fa.launch_counts(), **ss.launch_counts()}
     n_grads = len(box["stacked"])
     med = statistics.median(times)
@@ -1720,6 +1803,146 @@ def check_engine_on_card(torch):
                              "untraced %s" % (off[:4], last, untraced[:4]))
 
 
+# The fast-path phase warms in 3 rounds (HOROVOD_FAST_PATH_WARM_CYCLES).
+FP_WARM = 3
+
+
+def fastpath_decoder_grads(torch, on):
+    """One d1024 L2 decoder step (SGD at lr 0, so every step sees the
+    initial weights) after ``FP_WARM + 2`` steps, with the fast path on
+    (the step then runs frozen) or off: its backward and
+    ``synchronize()`` under ``set_sync_debug_mode("error")``.  Returns
+    the reduced gradients, the names of those that differ from the
+    step's local gradients bit for bit, and the frozen rounds and
+    negotiated cycles of the step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import metrics
+    from horovod_tpu_torch.models.convert import init_params
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      loss_fn)
+    from horovod_tpu_torch.train import make_train_step, synthetic_batch
+
+    with env_set(HOROVOD_FAST_PATH="1" if on else "0",
+                 HOROVOD_FAST_PATH_WARM_CYCLES=str(FP_WARM)):
+        hvd.init()
+    cfg = TransformerConfig(vocab_size=8192, d_model=1024, n_layers=2,
+                            n_heads=8, n_kv_heads=8, d_ff=3072, max_seq=2048)
+    build, shard_batch = make_train_step(
+        cfg, lambda params: torch.optim.SGD(params, lr=0.0))
+    step, model, opt = build(init_params(cfg, seed=0))
+    data = shard_batch(synthetic_batch(cfg, 4, seed=0))
+    for _ in range(FP_WARM + 2):
+        step(data)
+    local = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p: local.__setitem__(p, p.grad.clone()))
+        for p in model.parameters()]
+    opt.zero_grad()
+    loss = loss_fn(model, data)
+    torch.cuda.synchronize()
+    frozen0 = metrics.series_sum("fastpath_frozen_cycles_total")
+    cycles0 = metrics.series_sum("engine_cycles_total")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss.backward()
+        opt.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    frozen = metrics.series_sum("fastpath_frozen_cycles_total") - frozen0
+    cycles = metrics.series_sum("engine_cycles_total") - cycles0
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    off = [n for n, p in model.named_parameters()
+           if not torch.equal(p.grad, local[p])]
+    hvd.shutdown()
+    return grads, off, frozen, cycles
+
+
+def fastpath_named_rounds(torch, hvd, cases, rounds, change=None):
+    """``rounds`` rounds of the engine phase's named tensors, each
+    enqueued at once and then waited for (``change(x, want)`` may give
+    the first tensor another shape in every round); the names of the
+    results off their wanted values bit for bit, and the frozen rounds
+    of the last round."""
+    from horovod_tpu_torch.common import metrics
+    bad = set()
+    for _ in range(rounds):
+        frozen0 = metrics.series_sum("fastpath_frozen_cycles_total")
+        todo = list(cases)
+        if change is not None:
+            name, x, op, pre, post, want = todo[0]
+            todo[0] = (name, x[:-1], op, pre, post, want[:-1])
+        handles = [hvd.allreduce_async(x, name=name, op=op,
+                                       prescale_factor=pre,
+                                       postscale_factor=post)
+                   for name, x, op, pre, post, _ in todo]
+        got = [h.wait() for h in handles]
+        bad.update(name for (name, _, _, _, _, want), g in zip(todo, got)
+                   if g.dtype != want.dtype or not torch.equal(g, want))
+    torch.cuda.synchronize()
+    return sorted(bad), metrics.series_sum(
+        "fastpath_frozen_cycles_total") - frozen0
+
+
+def check_fastpath_on_card(torch):
+    """The fast path on the one-rank NCCL world (warm in FP_WARM rounds):
+    (1) the d1024 L2 decoder's reduced gradients, frozen and with the fast
+    path off, bit for bit between the two and against the local ones, no
+    host synchronisation inside the step; (2) the engine phase's 64 named
+    tensors under a 1 MiB threshold frozen, then the first changing its
+    shape (a thaw, reason shape), frozen again and ``join()`` (a thaw,
+    reason membership), every result bit for bit."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fastpath
+
+    on, off_on, frozen_on, cycles_on = fastpath_decoder_grads(torch, True)
+    off, off_off, frozen_off, cycles_off = fastpath_decoder_grads(torch,
+                                                                  False)
+    differ = [n for n in on if not torch.equal(on[n], off[n])]
+    say("fast path on the card: decoder d1024 L2 step frozen (%d frozen "
+        "rounds, %d negotiated cycles) against HOROVOD_FAST_PATH=0 (%d, %d): "
+        "%d of %d reduced gradients differ bit for bit; against the local "
+        "ones %d frozen, %d negotiated; backward and synchronize() under "
+        "sync debug mode 'error'" % (frozen_on, cycles_on, frozen_off,
+                                     cycles_off, len(differ), len(on),
+                                     len(off_on), len(off_off)))
+    if differ or off_on or off_off or (frozen_on, cycles_on) != (1, 0) \
+            or frozen_off:
+        raise AssertionError("fast path on the card: decoder gradients "
+                             "%s, local %s / %s" % (differ[:4], off_on[:4],
+                                                    off_off[:4]))
+
+    with env_set(HVD_TPU_FUSION_THRESHOLD=str(ENGINE_THRESHOLD),
+                 HOROVOD_FAST_PATH_WARM_CYCLES=str(FP_WARM)):
+        hvd.init()
+    cases = engine_named_tensors(torch)
+    thaws0 = fastpath.describe()["thaws_by_reason"]
+    bad, frozen = fastpath_named_rounds(torch, hvd, cases, FP_WARM + 2)
+    plane = fastpath.describe()["planes"]["engine"]
+    bad_shape, frozen_shape = fastpath_named_rounds(torch, hvd, cases, 1,
+                                                    change=True)
+    bad_again, frozen_again = fastpath_named_rounds(torch, hvd, cases,
+                                                    FP_WARM + 2)
+    last = hvd.join()
+    after = fastpath.describe()
+    hvd.shutdown()
+    thaws = {r: n - thaws0.get(r, 0.0)
+             for r, n in after["thaws_by_reason"].items()
+             if n != thaws0.get(r, 0.0)}
+    say("fast path on the card: %d named tensors frozen in %d buckets "
+        "(last warm round frozen %d), results off bit for bit %s; a shape "
+        "change: frozen %d, off %s; frozen again %d, off %s; join() "
+        "returned %d; thaws by reason %s" % (
+            len(cases), plane["buckets"], frozen, bad, frozen_shape,
+            bad_shape, frozen_again, bad_again, last, json.dumps(thaws)))
+    if bad or bad_shape or bad_again or frozen != 1 or frozen_shape or \
+            frozen_again != 1 or last != 0 or \
+            thaws != {"shape": 1.0, "membership": 1.0}:
+        raise AssertionError("fast path on the card: named tensors off")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1793,6 +2016,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_collectives_on_card(torch)
     check_engine_on_card(torch)
+    check_fastpath_on_card(torch)
 
     # -- 5: results
     # (source, TPU kernel, wrapper, the phase-2 shape of its record, the

@@ -5,7 +5,9 @@ The synchronous data-parallel training step over ``torch.distributed``
 (allreduce with Adasum, allgather, reducescatter, alltoall, broadcast,
 barrier, join, process sets) behind a negotiating engine: named requests
 are negotiated across ranks by rank 0, fused by threshold and executed
-in one order on every rank by one cycle thread.  The attention,
+in one order on every rank by one cycle thread; once a round of
+allreduces repeats on every rank, its schedule freezes and goes out in
+overlap buckets without negotiation (the fast path).  The attention,
 BatchNorm and Adasum-combine kernels are written by hand in CUDA C++ for
 Hopper (``csrc/``).  Usage mirrors Horovod's::
 
@@ -43,7 +45,12 @@ for _mod, _names in (
       "grouped_reducescatter_async", "alltoall", "alltoall_async",
       "broadcast", "broadcast_async", "broadcast_", "broadcast_async_",
       "barrier", "join", "synchronize", "poll", "HorovodInternalError")),
-    (".optimizer", ("DistributedOptimizer",)),
+    (".optimizer", ("DistributedOptimizer", "allreduce_gradients")),
+    (".data_parallel", ("shard_batch", "metric_average")),
+    (".callbacks",
+     ("Callback", "BroadcastGlobalVariablesCallback",
+      "MetricAverageCallback", "LearningRateWarmupCallback",
+      "LearningRateScheduleCallback")),
     (".compression", ("Compression",)),
     (".functions",
      ("broadcast_parameters", "broadcast_optimizer_state",

@@ -8,7 +8,8 @@ more than one rank also gets a gloo group for the controller.  Then it
 starts the engine (``ops/engine.py``), whose cycle thread alone issues
 collectives from then on, configured from the environment
 (``common/config.py``).  ``shutdown`` asks the engine to stop (a
-negotiated stop: every rank must call it), joins its thread and destroys
+negotiated stop: every rank must call it; a frozen fast-path schedule
+thaws first, reason ``membership``), joins its thread and destroys
 the groups; ``init`` registers it with ``atexit``, and a later ``init``
 starts a new world.  Counterpart of ``horovod_tpu.common.basics``
 (``init``, ``shutdown``, the rank and size queries and the ``*_built``

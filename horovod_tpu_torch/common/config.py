@@ -20,7 +20,11 @@ knobs the engine reads.  Each knob is ``HVD_TPU_<NAME>``, or Horovod's
   ``STALL_SHUTDOWN_TIME_SECONDS`` (0: never): after this long the engine
   fails every outstanding collective on every rank and stops;
   ``STALL_CHECK_DISABLE`` turns both off;
-* ``LOG_LEVEL``: the ``horovod_tpu_torch`` logger's level (warning).
+* ``LOG_LEVEL``: the ``horovod_tpu_torch`` logger's level (warning);
+* ``FAST_PATH`` (on): freeze a schedule that repeats, after
+  ``FAST_PATH_WARM_CYCLES`` (10) identical rounds on every rank, and
+  dispatch its allreduces in ``OVERLAP_BUCKETS`` (4) buckets without
+  negotiating them (``ops/fastpath.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ DEFAULT_CYCLE_TIME_MS = 5.0
 DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECS = 60.0
 DEFAULT_STALL_SHUTDOWN_SECS = 0.0
+DEFAULT_FAST_PATH_WARM_CYCLES = 10
+DEFAULT_OVERLAP_BUCKETS = 4
 
 
 def _env(name: str) -> Optional[str]:
@@ -68,6 +74,9 @@ class Config:
     stall_shutdown_secs: float = DEFAULT_STALL_SHUTDOWN_SECS
     stall_check_disable: bool = False
     log_level: str = "warning"
+    fast_path: bool = True
+    fast_path_warm_cycles: int = DEFAULT_FAST_PATH_WARM_CYCLES
+    overlap_buckets: int = DEFAULT_OVERLAP_BUCKETS
 
     @staticmethod
     def from_env() -> "Config":
@@ -87,4 +96,9 @@ class Config:
                 "STALL_SHUTDOWN_TIME_SECONDS", DEFAULT_STALL_SHUTDOWN_SECS,
                 float),
             stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
-            log_level=(_env("LOG_LEVEL") or "warning").lower())
+            log_level=(_env("LOG_LEVEL") or "warning").lower(),
+            fast_path=_env_bool("FAST_PATH", True),
+            fast_path_warm_cycles=max(1, _env_number(
+                "FAST_PATH_WARM_CYCLES", DEFAULT_FAST_PATH_WARM_CYCLES, int)),
+            overlap_buckets=max(1, _env_number(
+                "OVERLAP_BUCKETS", DEFAULT_OVERLAP_BUCKETS, int)))

@@ -10,7 +10,9 @@ answers every rank with the same ``CycleResponse``
 (``ComputeResponseList``, ``:202``):
 
 * a tensor is ready once every member of its process set has submitted
-  it or joined; a grouped call's members only all at once;
+  it or joined; a grouped call's members only all at once; cache bits
+  and full requests of one name negotiate as one (a rank that changed a
+  cached tensor's shape alone meets the others' bits and fails them);
 * a joined member that did not submit a tensor contributes zeros to a
   Sum, turns an Average into a Sum divided by the live contributors, and
   makes every other op an error (``ApplyJoinPolicy``, ``:22-55``);
@@ -24,7 +26,16 @@ answers every rank with the same ``CycleResponse``
   shared buffer);
 * ``join`` completes when every rank has joined, with the last rank to
   join; ``shutdown`` when every rank has asked for it;
-* the stall inspector's abort message rides the response as ``abort``.
+* the stall inspector's abort message rides the response as ``abort``;
+* the fast path's verdicts (``ops/fastpath.py``): rank 0 freezes once
+  every rank reported the same freezable round signature for ``warm``
+  rounds in a row (a round index completes when every rank has reported
+  it) and no join is in progress, naming the round two after the one
+  that completed the streak; while frozen it answers go for the bucket
+  tokens every rank presented, not yet when some rank has not filled
+  its next bucket (the stall inspector watches such a bucket as it
+  watches a tensor), and thaw on a thaw request, a join, a shutdown,
+  tokens that disagree, or negotiated requests once any rank stages.
 
 In a one-rank world nothing is sent (``controller.cc:86-91``).  The wire
 is a gloo group: ``GlooTransport`` gathers the ranks' messages on rank 0
@@ -41,6 +52,23 @@ from .message import (ADASUM, ALLGATHER, ALLREDUCE, ALLTOALL, AVERAGE,
                       CycleRequest, CycleResponse, Request, Response)
 from .response_cache import ResponseCache
 from ..utils.stall_inspector import StallInspector
+
+
+def _bucket_name(token: tuple) -> str:
+    return "fastpath.round%d.bucket%d" % token[:2]
+
+
+class _FpCycle:
+    """What this cycle's messages said to the fast path."""
+
+    __slots__ = ("thaw", "joined", "shutdown", "negotiated", "staging",
+                 "tokens")
+
+    def __init__(self):
+        self.thaw = None
+        self.joined = self.shutdown = False
+        self.negotiated = self.staging = False
+        self.tokens: Dict[int, list] = {}
 
 
 class _Pending:
@@ -82,7 +110,7 @@ class Controller:
     def __init__(self, rank: int, size: int, cache: ResponseCache,
                  stall: StallInspector, fusion_threshold: int,
                  members_of: Callable[[int], Optional[Sequence[int]]],
-                 transport=None):
+                 transport=None, freezer=None):
         self.rank, self.size = rank, size
         self.cache = cache
         self.stall = stall
@@ -93,6 +121,14 @@ class Controller:
         self._cache_ready: Dict[int, set] = {}
         self._joined: List[int] = []
         self._shutdown = set()
+        # Fast path (rank 0): ``freezer`` counts the world's warm streak
+        # (``ops/fastpath.ScheduleFreezer``; None: no fast path).
+        self._fp = freezer
+        self._fp_reports: Dict[int, Dict[int, Optional[str]]] = {}
+        self._fp_world: Optional[tuple] = None  # (start, sig) in force
+        self._fp_staging = False  # a rank stages the frozen schedule
+        self._fp_watched = set()  # bucket names in the stall inspector
+        self._fp_cycle = _FpCycle()
 
     # -- one cycle ------------------------------------------------------------
 
@@ -119,6 +155,20 @@ class Controller:
 
     def absorb(self, req: CycleRequest):
         """Fold one rank's cycle message into the pending state."""
+        cyc = self._fp_cycle
+        if req.round_report is not None:
+            index, sig = req.round_report
+            mine = self._fp_reports.setdefault(req.rank, {})
+            mine[index] = sig
+            for old in [i for i in mine if i < index - 8]:
+                del mine[old]
+        if req.thaw is not None and cyc.thaw is None:
+            cyc.thaw = (req.thaw[0], "rank %d: %s" % (req.rank, req.thaw[1]))
+        cyc.joined |= req.joined
+        cyc.shutdown |= req.shutdown
+        cyc.negotiated |= bool(req.requests or req.cache_bits)
+        cyc.staging |= req.staging
+        cyc.tokens[req.rank] = req.buckets
         if req.shutdown:
             self._shutdown.add(req.rank)
         if req.joined and req.rank not in self._joined:
@@ -199,6 +249,18 @@ class Controller:
 
         for cid, ranks in list(self._cache_ready.items()):
             q = self.cache.get(cid)
+            p = self._pending.get(q.name)
+            if p is not None:
+                # Other ranks sent this name in full (another shape or
+                # signature): their requests and these bits negotiate as
+                # one, so the disagreement fails every rank's handle.
+                del self._cache_ready[cid]
+                for r in ranks:
+                    p.ranks.add(r)
+                    p.shapes[r] = q.shape
+                if p.error is None:
+                    p.error = _disagreement(q, p.request)
+                continue
             members = members_of(q.process_set_id)
             if members is None or not self._ready(ranks, members):
                 continue
@@ -256,7 +318,90 @@ class Controller:
             out.responses.append(r)
             self._joined = []
         out.abort = self.stall.check()
+        self._fp_verdict(out)
         return out
+
+    def _fp_verdict(self, out: CycleResponse):
+        """The fast path's part of this cycle's answer (rank 0)."""
+        cyc, self._fp_cycle = self._fp_cycle, _FpCycle()
+        thaw = cyc.thaw
+        if thaw is None and self._fp_world is not None:
+            self._fp_staging |= cyc.staging
+            if cyc.joined or self._joined:
+                thaw = ("membership", "a rank joined")
+            elif cyc.shutdown:
+                thaw = ("membership", "a rank shuts down")
+            elif self._fp_staging and (cyc.negotiated or self._pending
+                                       or self._cache_ready):
+                thaw = ("membership", "negotiated requests while frozen")
+            else:
+                thaw = self._fp_disagreement(cyc.tokens)
+        elif thaw is None and any(cyc.tokens.values()):
+            thaw = ("shape", "bucket tokens while not frozen")
+        if thaw is not None:
+            out.thaw = thaw
+            self._fp_world, self._fp_staging = None, False
+            self._fp_reports.clear()
+            for name in self._fp_watched:
+                self.stall.record_done(name)
+            self._fp_watched.clear()
+            if self._fp is not None:
+                self._fp.reset_streak()
+            return
+        if self._fp_world is not None:
+            lists = [cyc.tokens.get(r, []) for r in range(self.size)]
+            out.go = min(len(t) for t in lists)
+            # A bucket some ranks filled and others have not is watched
+            # as a tensor some ranks submitted: a rank that stops filling
+            # its buckets is named, and past the shutdown threshold the
+            # world aborts.
+            for tok in lists[0][:out.go]:
+                self._fp_watched.discard(_bucket_name(tok))
+                self.stall.record_done(_bucket_name(tok))
+            for r, t in enumerate(lists):
+                for tok in t[out.go:]:
+                    self._fp_watched.add(_bucket_name(tok))
+                    self.stall.record_ready(_bucket_name(tok), r,
+                                            range(self.size))
+            return
+        if self._fp is None:
+            return
+        # A round index completes when every rank has reported it; at
+        # most one completes a cycle (a rank's report of the next round
+        # follows the slowest rank's requests for it).
+        done = None
+        while self._fp_reports and len(self._fp_reports) == self.size:
+            common = set.intersection(*(set(m) for m in
+                                        self._fp_reports.values()))
+            if not common:
+                break
+            index = min(common)
+            sigs = {m.pop(index) for m in self._fp_reports.values()}
+            for m in self._fp_reports.values():
+                for old in [i for i in m if i < index]:
+                    del m[old]
+            sig = sigs.pop() if len(sigs) == 1 else None
+            done = (index, sig, self._fp.observe(sig))
+        if done is None or not done[2]:
+            return
+        if cyc.joined or self._joined or cyc.shutdown:
+            self._fp.reset_streak()  # a refused freeze re-warms
+            return
+        self._fp_world = (done[0] + 2, done[1])
+        self._fp_reports.clear()
+        out.freeze = self._fp_world
+
+    def _fp_disagreement(self, tokens: Dict[int, list]) -> Optional[tuple]:
+        """A thaw when the ranks' bucket tokens differ where every rank
+        has one."""
+        lists = [tokens.get(r, []) for r in range(self.size)]
+        for k in range(min(len(t) for t in lists)):
+            if any(t[k] != lists[0][k] for t in lists):
+                bad = next(r for r, t in enumerate(lists)
+                           if t[k] != lists[0][k])
+                return ("shape", "rank %d presented bucket %s, rank 0 %s"
+                        % (bad, lists[bad][k], lists[0][k]))
+        return None
 
     def fuse_responses(self, responses: List[Response]) -> List[Response]:
         """Pack ready allreduces of one key into fused responses, in

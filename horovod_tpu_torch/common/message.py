@@ -5,13 +5,16 @@ says "this tensor is ready on this rank"; a ``Response`` says "run this
 collective now" (several tensors for a fused allreduce); each cycle every
 rank sends one ``CycleRequest`` to the coordinator (rank 0), which
 answers every rank with one ``CycleResponse``.  They cross the
-controller's gloo group pickled (``ops/engine.py``).
+controller's gloo group pickled (``ops/engine.py``).  The fast path
+(``ops/fastpath.py``) rides the same messages: a rank's round report,
+thaw request and bucket tokens; rank 0's freeze verdict, go count and
+thaw.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 ALLREDUCE = "allreduce"
 ALLGATHER = "allgather"
@@ -110,30 +113,50 @@ class Response:
 class CycleRequest:
     """One rank's message of a cycle: the cache ids of its newly ready
     tensors that the cache knows (a bit each in ``cache_bits``), full
-    requests for the rest, and its join and shutdown flags."""
+    requests for the rest, and its join and shutdown flags.  The fast
+    path's fields: ``round_report``, (index, signature or None) of the
+    round that ended last; ``thaw``, (reason, detail) when this rank asks
+    for a thaw; ``staging``, whether it stages a frozen round;
+    ``buckets``, the tokens of its filled, undispatched buckets, oldest
+    first."""
 
-    __slots__ = ("rank", "shutdown", "joined", "cache_bits", "requests")
+    __slots__ = ("rank", "shutdown", "joined", "cache_bits", "requests",
+                 "round_report", "thaw", "staging", "buckets")
 
     def __init__(self, rank: int, shutdown: bool = False,
                  joined: bool = False, cache_bits: int = 0,
-                 requests: Optional[List[Request]] = None):
+                 requests: Optional[List[Request]] = None,
+                 round_report: Optional[Tuple[int, Optional[str]]] = None,
+                 thaw: Optional[Tuple[str, str]] = None,
+                 staging: bool = False,
+                 buckets: Optional[List[tuple]] = None):
         self.rank = rank
         self.shutdown = shutdown
         self.joined = joined
         self.cache_bits = cache_bits
         self.requests = requests if requests is not None else []
+        self.round_report = round_report
+        self.thaw = thaw
+        self.staging = staging
+        self.buckets = buckets if buckets is not None else []
 
 
 class CycleResponse:
     """The coordinator's answer of a cycle, the same on every rank:
     responses to execute in order; ``shutdown`` once every rank asked
     for it; ``abort`` (a message) when the engine must fail everything
-    outstanding and stop."""
+    outstanding and stop.  The fast path's verdicts: ``freeze``, (the
+    round every rank stages from, the schedule's signature); ``go``, how
+    many of the oldest frozen buckets every rank dispatches now (0: not
+    yet); ``thaw``, (reason, detail) when every rank thaws."""
 
-    __slots__ = ("responses", "shutdown", "abort")
+    __slots__ = ("responses", "shutdown", "abort", "freeze", "go", "thaw")
 
     def __init__(self, responses: Optional[List[Response]] = None,
                  shutdown: bool = False, abort: Optional[str] = None):
         self.responses = responses if responses is not None else []
         self.shutdown = shutdown
         self.abort = abort
+        self.freeze: Optional[Tuple[int, str]] = None
+        self.go = 0
+        self.thaw: Optional[Tuple[str, str]] = None

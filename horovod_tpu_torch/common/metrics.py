@@ -1,17 +1,24 @@
 """The process-local metrics registry: counters, gauges and log2-bucket
-histograms over one canonical table of series names.
+histograms over one canonical table of series names, with labels, and
+structured events.
 
 Counterpart of the registry of ``horovod_tpu.common.metrics`` (``NAMES``,
-``counter``, ``gauge``, ``histogram``, ``snapshot``, ``metrics_snapshot``)
-with the rows the engine writes.  A name missing from ``NAMES``, or used
-as another kind, raises, so a typo cannot fork a series.  Thread-safe:
-the caller's thread and the engine's cycle thread both write.
+``counter``, ``gauge``, ``histogram``, ``snapshot``, ``series_sum``,
+``event``, ``metrics_snapshot``) with the rows the engine and its fast
+path write.  A name missing from ``NAMES``, or used as another kind,
+raises, so a typo cannot fork a series.  ``event`` counts
+``events_total{kind}`` and keeps the newest ``EVENTS_KEPT`` events in
+memory (``events()``); the reference's on-disk journal is not ported.
+Thread-safe: the caller's thread and the engine's cycle thread both
+write.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
-from typing import Any, Dict, Tuple
+import time
+from typing import Any, Dict, List, Tuple
 
 NAMES: Dict[str, Tuple[str, str]] = {
     "engine_cycles_total": (
@@ -34,17 +41,36 @@ NAMES: Dict[str, Tuple[str, str]] = {
         "gauge", "monotonic id of the newest executed collective group; "
                  "the same id tags the group's timeline EXEC records "
                  "(args.group)"),
+    "fastpath_frozen_cycles_total": (
+        "counter", "rounds dispatched off a frozen schedule, their "
+                   "negotiation skipped; disjoint from "
+                   "engine_cycles_total"),
+    "fastpath_thaws_total": (
+        "counter", "frozen schedules thawed back to negotiation, "
+                   "labelled reason (shape|membership|staleness|route|"
+                   "deadline); the paired fastpath_thaw event carries "
+                   "the frozen schedule's group id"),
+    "engine_overlap_bucket_seconds": (
+        "histogram", "host time of one frozen bucket's dispatch on the "
+                     "cycle thread (HOROVOD_OVERLAP_BUCKETS buckets a "
+                     "round)"),
+    "events_total": (
+        "counter", "structured events recorded (metrics.event), labelled "
+                   "kind"),
 }
+
+EVENTS_KEPT = 256
 
 # Histogram buckets: powers of two from 2^-20 to 2^10 (seconds).
 _HIST_EXP_MIN, _HIST_EXP_MAX = -20, 10
 
 
 class _Series:
-    __slots__ = ("kind", "value", "buckets", "sum", "count")
+    __slots__ = ("kind", "labels", "value", "buckets", "sum", "count")
 
-    def __init__(self, kind: str):
+    def __init__(self, kind: str, labels: Tuple[Tuple[str, str], ...]):
         self.kind = kind
+        self.labels = labels
         self.value = 0.0
         self.buckets: Dict[int, int] = {}
         self.sum = 0.0
@@ -89,9 +115,9 @@ class _Handle:
 class Registry:
     def __init__(self):
         self._lock = threading.Lock()
-        self._series: Dict[str, _Series] = {}
+        self._series: Dict[Tuple[str, tuple], _Series] = {}
 
-    def _get(self, kind: str, name: str) -> _Handle:
+    def _get(self, kind: str, name: str, labels: Dict[str, Any]) -> _Handle:
         decl = NAMES.get(name)
         if decl is None:
             raise KeyError("metric %r is not declared in metrics.NAMES"
@@ -99,44 +125,90 @@ class Registry:
         if decl[0] != kind:
             raise ValueError("metric %r is declared as a %s but used as a %s"
                              % (name, decl[0], kind))
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
         with self._lock:
-            series = self._series.setdefault(name, _Series(kind))
+            series = self._series.get((name, key))
+            if series is None:
+                series = self._series[(name, key)] = _Series(kind, key)
         return _Handle(self._lock, series)
 
     def snapshot(self) -> Dict[str, Any]:
-        """``{name: {kind, help, value}}``; a histogram has ``buckets``
-        (upper bound exponent -> count), ``sum`` and ``count``."""
+        """``{name: {kind, help, value, series}}``: ``value`` sums the
+        family's series (a histogram has ``buckets``, upper bound
+        exponent -> count, ``sum`` and ``count`` instead), ``series``
+        lists each label set's ``{labels, value}`` (or its histogram
+        fields)."""
         out: Dict[str, Any] = {}
         with self._lock:
-            for name, s in self._series.items():
-                row: Dict[str, Any] = {"kind": s.kind, "help": NAMES[name][1]}
+            for (name, _), s in sorted(self._series.items()):
+                fam = out.setdefault(name, {"kind": s.kind,
+                                            "help": NAMES[name][1],
+                                            "series": []})
+                row: Dict[str, Any] = {"labels": dict(s.labels)}
                 if s.kind == "histogram":
                     row.update(buckets={str(e): n for e, n in
                                         sorted(s.buckets.items())},
                                sum=s.sum, count=s.count)
+                    merged = fam.setdefault("buckets", {})
+                    for e, n in row["buckets"].items():
+                        merged[e] = merged.get(e, 0) + n
+                    fam["sum"] = fam.get("sum", 0.0) + s.sum
+                    fam["count"] = fam.get("count", 0) + s.count
                 else:
                     row["value"] = s.value
-                out[name] = row
+                    fam["value"] = fam.get("value", 0.0) + s.value
+                fam["series"].append(row)
         return out
 
 
 _registry = Registry()
 
 
-def counter(name: str) -> _Handle:
-    return _registry._get("counter", name)
+_events_lock = threading.Lock()
+_events: collections.deque = collections.deque(maxlen=EVENTS_KEPT)
 
 
-def gauge(name: str) -> _Handle:
-    return _registry._get("gauge", name)
+def counter(name: str, **labels) -> _Handle:
+    return _registry._get("counter", name, labels)
 
 
-def histogram(name: str) -> _Handle:
-    return _registry._get("histogram", name)
+def gauge(name: str, **labels) -> _Handle:
+    return _registry._get("gauge", name, labels)
+
+
+def histogram(name: str, **labels) -> _Handle:
+    return _registry._get("histogram", name, labels)
 
 
 def snapshot() -> Dict[str, Any]:
     return _registry.snapshot()
+
+
+def series_sum(name: str, **labels) -> float:
+    """The sum of one family's series whose labels include ``labels``."""
+    fam = snapshot().get(name)
+    if not fam:
+        return 0.0
+    want = {k: str(v) for k, v in labels.items()}
+    return sum(row.get("value", 0.0) for row in fam["series"]
+               if all(row["labels"].get(k) == v for k, v in want.items()))
+
+
+def event(kind: str, **fields):
+    """Record one structured event: ``events_total{kind}`` and the
+    event itself, ``{"ts", "kind", **fields}``, among the newest
+    ``EVENTS_KEPT``."""
+    counter("events_total", kind=kind).inc()
+    record = {"ts": time.time(), "kind": kind}
+    record.update(fields)
+    with _events_lock:
+        _events.append(record)
+
+
+def events(kind: str = None) -> List[Dict[str, Any]]:
+    """The events kept, oldest first (of one ``kind`` if given)."""
+    with _events_lock:
+        return [e for e in _events if kind is None or e["kind"] == kind]
 
 
 def metrics_snapshot() -> Dict[str, Any]:

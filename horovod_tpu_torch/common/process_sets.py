@@ -7,6 +7,8 @@ of the world calls ``add_process_set`` with the same ranks in the same
 order (the reference's contract; ``new_group`` needs every rank of the
 world), so the ids agree across the world: every collective carries its
 set's id through the engine's negotiation (``process_set_by_id``).
+Adding or removing a set thaws a frozen fast-path schedule
+(``ops/fastpath.thaw_all``, reason ``membership``) on every rank.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ def add_process_set(process_set) -> ProcessSet:
     if process_set.ranks is None:
         raise ValueError("the global process set is always registered")
     world = basics.size()
+    fastpath.thaw_all("membership", "process set %s added"
+                      % process_set.ranks)
     with _lock:
         for existing in _registered.values():
             if existing == process_set:
@@ -101,6 +105,8 @@ def add_process_set(process_set) -> ProcessSet:
 
 def remove_process_set(process_set: ProcessSet) -> bool:
     """Deregister a set; False for the global set or one not registered."""
+    fastpath.thaw_all("membership", "process set %s removed"
+                      % process_set.ranks)
     with _lock:
         if _registered.get(process_set.process_set_id) is not process_set:
             return False
@@ -147,3 +153,4 @@ def reset():
 # Last: ``basics`` imports this module.  A set's rank and size queries
 # run per collective on the cycle thread, so not an import each call.
 from . import basics  # noqa: E402
+from ..ops import fastpath  # noqa: E402

@@ -24,6 +24,19 @@ otherwise every half second, so the coordinator's stall checks go on.  If the
 negotiation fails, the loop dies, a rank finds a negotiated tensor it
 never enqueued, or the stall inspector aborts, every outstanding handle
 fails with ``HorovodInternalError`` on every rank and the engine stops.
+
+The fast path (``ops/fastpath.py``, on unless ``HOROVOD_FAST_PATH=0``):
+a round ends when ``wait_all`` leaves this rank nothing in flight; its
+profile goes to rank 0 in the next cycle.  Once rank 0 freezes the
+schedule, every rank stages the entries of each round from the named
+one on, on the caller's thread (``_fp_stage``: matched against the
+next slot, no event per entry; one event, and an immediate wake, when a
+bucket fills), and the cycle thread dispatches the filled buckets on
+rank 0's go, each as one fused allreduce.  A rank asks for a thaw when
+an entry does not match its slot, a wait touches an entry of an
+unfilled bucket, or on ``join``, a process set change or ``shutdown``;
+rank 0's thaw sends every rank's staged entries back to negotiation in
+program order (``_fp_flush``).
 """
 
 from __future__ import annotations
@@ -45,12 +58,18 @@ from ..common.response_cache import CACHEABLE, ResponseCache
 from ..utils.stall_inspector import StallInspector
 from ..utils.timeline import Timeline
 from . import collectives as C
+from . import fastpath
 from .op_manager import OpManager
 
 LOG = logging.getLogger("horovod_tpu_torch")
 
 # Cycle pause of a multi-rank world with nothing outstanding on this rank.
 IDLE_SECS = 0.5
+
+# The fast path's states on one rank: negotiating; a freeze verdict
+# adopted, staging from its round on; staging frozen rounds; a thaw
+# asked for, not yet answered (nothing is staged meanwhile).
+NEGOTIATING, ARMED, STAGING, THAWING = range(4)
 
 
 class HorovodInternalError(RuntimeError):
@@ -61,7 +80,7 @@ class HorovodInternalError(RuntimeError):
 
 class _Entry:
     __slots__ = ("request", "tensor", "backend", "token", "done", "result",
-                 "error", "out_token")
+                 "error", "out_token", "bucket")
 
     def __init__(self, request: Request, tensor, backend, token):
         self.request = request
@@ -72,6 +91,7 @@ class _Entry:
         self.result = None
         self.error: Optional[str] = None
         self.out_token = None
+        self.bucket: Optional[_Bucket] = None  # staged in (frozen rounds)
 
     def complete(self, result=None, error: Optional[str] = None,
                  out_token=None):
@@ -79,6 +99,30 @@ class _Entry:
         (``Engine._notify_done``)."""
         self.result, self.error, self.out_token = result, error, out_token
         self.done = True
+
+
+class _Bucket:
+    """Entries staged for one bucket of a frozen round; ``token`` is the
+    event recorded on ``stream`` when it filled."""
+
+    __slots__ = ("round", "index", "last", "entries", "stream", "token",
+                 "filled")
+
+    def __init__(self, round_index: int, index: int, last: bool, stream):
+        self.round, self.index, self.last = round_index, index, last
+        self.entries: List[_Entry] = []
+        self.stream = stream
+        self.token = None
+        self.filled = False
+
+
+class _Schedule:
+    """The frozen schedule this rank stages against."""
+
+    __slots__ = ("sig", "slots", "ends", "start")
+
+    def __init__(self, sig: str, slots, ends, start: int):
+        self.sig, self.slots, self.ends, self.start = sig, slots, ends, start
 
 
 class Handle:
@@ -111,12 +155,17 @@ def wait_all(handles: Sequence[Handle]) -> list:
     ``DistributedOptimizer`` step waits on a handle per gradient)."""
     todo = [h for h in handles if not h._done]
     entries = [e for h in todo for e in h._entries]
+    if not todo:
+        return [h._result for h in handles]
+    engine = todo[0]._engine
     if not all(e.done for e in entries):
-        engine = todo[0]._engine
+        if engine._fp_state == STAGING:
+            engine._fp_check_wait(entries)
         engine.wake()
         with engine._done_cv:
             while not all(e.done for e in entries):
                 engine._done_cv.wait()
+    engine._round_end()
     for e in entries:
         if e.error is not None:
             raise HorovodInternalError(e.error)
@@ -146,10 +195,14 @@ class Engine:
         stall = StallInspector(config.stall_warning_secs,
                                config.stall_shutdown_secs,
                                not config.stall_check_disable and size > 1)
+        self._fp = fastpath.ScheduleFreezer(
+            config.fast_path_warm_cycles, config.fast_path,
+            on_thaw=self._fp_flush, on_request=self._fp_request)
         self.controller = Controller(
             rank, size, self.cache, stall, config.fusion_threshold_bytes,
             lambda psid: process_sets.members(psid, size),
-            GlooTransport(rank, size, control_group) if size > 1 else None)
+            GlooTransport(rank, size, control_group) if size > 1 else None,
+            self._fp)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         # Handles wait on this one; the cycle thread notifies it once a
@@ -166,6 +219,20 @@ class Engine:
         self._last_start = 0.0
         self._cycles = 0
         self._group_seq = 0
+        # -- fast path (under _cv) --
+        self._fp_state = NEGOTIATING
+        self._fp_sched: Optional[_Schedule] = None
+        self._fp_slot = 0  # next slot of the staged round
+        self._fp_open: Optional[_Bucket] = None  # the bucket being filled
+        self._fp_ready: List[_Bucket] = []  # filled, not yet dispatched
+        self._fp_thaw_req: Optional[tuple] = None  # (reason, detail)
+        self._round = 0  # rounds this rank has ended
+        self._round_n = 0  # entries enqueued in the round
+        self._round_sigs: List[tuple] = []  # its negotiated slots' sigs
+        self._round_ok = True  # the round can freeze
+        self._round_stream = None
+        self._fp_report: Optional[tuple] = None  # (round, sig) to send
+        self._fp_profiles = {}  # round -> (sig, slots), the last few
         self._m_cycles = metrics.counter("engine_cycles_total")
         self._m_cycle_seconds = metrics.histogram("engine_cycle_seconds")
         self._m_queue_depth = metrics.gauge("engine_queue_depth")
@@ -174,11 +241,14 @@ class Engine:
         self._m_fused_tensors = metrics.counter("engine_tensors_fused_total")
         self._m_last_group = metrics.gauge("engine_last_group_id")
         self._m_last_group.set(0)  # this engine's group ids start at 1
+        self._m_fp_frozen = metrics.counter("fastpath_frozen_cycles_total")
+        self._m_fp_bucket = metrics.histogram("engine_overlap_bucket_seconds")
         self._thread = threading.Thread(target=self._loop,
                                         name="hvd-torch-cycle", daemon=True)
 
     def start(self):
         """Start the cycle thread."""
+        fastpath.register(self._fp)
         self._thread.start()
 
     # -- caller side ----------------------------------------------------------
@@ -197,9 +267,16 @@ class Engine:
         call passes all its members at once."""
         present = [t for t in tensors if t is not None]
         backend = self.op_manager.backend_for(present) if present else None
-        token = backend.producer() if backend is not None else None
+        # Staged entries need no event of their own: one is recorded when
+        # their bucket fills.
+        staging = self._fp_state == STAGING
+        token = (backend.producer() if backend is not None and not staging
+                 else None)
+        stream = (backend.current_stream()
+                  if backend is not None and self.config.fast_path else None)
         entries = [_Entry(q, t, backend, token)
                    for q, t in zip(requests, tensors)]
+        grouped = bool(requests) and requests[0].group is not None
         with self._cv:
             if self._stopped is not None:
                 raise HorovodInternalError(
@@ -215,12 +292,25 @@ class Engine:
                         "must be unique among in-flight collectives" % name)
                 inflight[name] = e
                 self.timeline.negotiate_start(name, e.request.op_type)
-            self._new.extend(entries)
-            self._seq += 1
-            if self._idle:
-                # A pacing cycle thread wakes on its own timeout; waking
-                # it here would only trade the GIL with this thread.
-                self._cv.notify()
+            self._round_n += len(entries)
+            staged = (self._fp_stage(entries, grouped, backend, stream)
+                      if self._fp_state == STAGING else 0)
+            rest = entries[staged:]
+            if rest:
+                if rest[0].token is None and backend is not None:
+                    token = backend.producer()
+                    for e in rest:
+                        e.token = token
+                if self.config.fast_path:
+                    self._fp_record(rest, staged if grouped else None,
+                                    stream)
+                self._new.extend(rest)
+                self._seq += 1
+                if self._idle:
+                    # A pacing cycle thread wakes on its own timeout;
+                    # waking it here would only trade the GIL with this
+                    # thread.
+                    self._cv.notify()
         self._m_submitted.inc(sum(q.nbytes for q in requests))
         return Handle(self, entries, finish)
 
@@ -234,6 +324,8 @@ class Engine:
                     "the engine is stopped (%s)" % self._stopped)
             if self._join_entry is not None:
                 raise ValueError("join() is already in progress")
+            self._fp_request_locked("membership", "join()")
+            self._round_ok = False
             self._join_entry = e
             self._seq += 1
             self._urgent = True
@@ -243,7 +335,9 @@ class Engine:
     def shutdown(self):
         """Ask the coordinator to stop (every rank must), then wait for
         the cycle thread; outstanding handles fail."""
+        fastpath.unregister(self._fp)
         with self._cv:
+            self._fp_request_locked("membership", "shutdown()")
             self._shutdown_requested = True
             self._seq += 1
             self._urgent = True
@@ -252,6 +346,121 @@ class Engine:
         self.timeline.shutdown()
         # Handles outlive the engine: drop its hold on the world's groups.
         self.controller = None
+
+    # -- fast path, caller side (under _cv) -----------------------------------
+
+    def _fp_record(self, entries: Sequence[_Entry], member0: Optional[int],
+                   stream):
+        """Add negotiated entries to the round's profile; ``member0`` is
+        the first one's place in its grouped call (None: no group)."""
+        for k, e in enumerate(entries):
+            self._round_sigs.append(fastpath.slot_sig(
+                e.request, 0 if member0 is None else member0 + k))
+        if self._round_stream is None:
+            self._round_stream = stream
+        elif stream != self._round_stream:
+            self._round_ok = False  # one event per bucket needs one stream
+
+    def _fp_stage(self, entries: Sequence[_Entry], grouped: bool, backend,
+                  stream) -> int:
+        """Stage ``entries`` against the next slots of the frozen round;
+        the number staged (fewer than all after a mismatch, which asks
+        for a thaw).  A bucket that fills gets one event on the caller's
+        stream and wakes the cycle thread."""
+        sched = self._fp_sched
+        for k, e in enumerate(entries):
+            i = self._fp_slot
+            q = e.request
+            if i >= len(sched.slots) or fastpath.slot_sig(
+                    q, k if grouped else 0) != sched.slots[i]:
+                self._fp_request_locked(
+                    "shape", "%r does not match slot %d of the frozen "
+                    "round" % (q.name, i))
+                return k
+            b = self._fp_open
+            if b is None:
+                index = sum(1 for end in sched.ends if end <= i)
+                b = self._fp_open = _Bucket(
+                    self._round, index, index == len(sched.ends) - 1, stream)
+            elif stream != b.stream:
+                self._fp_request_locked(
+                    "shape", "%r was produced on another stream than its "
+                    "bucket" % q.name)
+                return k
+            b.entries.append(e)
+            e.bucket = b
+            self.timeline.negotiate_end(q.name)
+            self._fp_slot = i + 1
+            if self._fp_slot == sched.ends[b.index]:
+                b.token = backend.producer() if backend is not None else None
+                b.filled = True
+                self._fp_ready.append(b)
+                self._fp_open = None
+                self._seq += 1
+                self._urgent = True
+                self._cv.notify()
+        return len(entries)
+
+    def _fp_request(self, reason: str, detail: str = "") -> bool:
+        with self._cv:
+            return self._fp_request_locked(reason, detail)
+
+    def _fp_request_locked(self, reason: str, detail: str) -> bool:
+        """Ask rank 0 for a thaw in the next cycle; nothing is staged
+        until it answers.  False when this rank is not frozen."""
+        if self._fp_state == NEGOTIATING:
+            return False
+        if self._fp_state != THAWING:
+            self._fp_state = THAWING
+            self._fp_thaw_req = (reason, detail)
+        self._seq += 1
+        self._urgent = True
+        self._cv.notify()
+        return True
+
+    def _fp_check_wait(self, entries: Sequence[_Entry]):
+        """A wait on an entry of an unfilled bucket would never end: the
+        round staged fewer entries than its schedule, so thaw."""
+        with self._cv:
+            if any(e.bucket is not None and not e.bucket.filled
+                   for e in entries):
+                self._fp_request_locked(
+                    "shape", "a wait touches an entry of an unfilled "
+                    "bucket (slot %d of %d staged)"
+                    % (self._fp_slot, len(self._fp_sched.slots)))
+
+    def _round_end(self):
+        """After a wait: the round ends if this rank has nothing in
+        flight.  Every rank counts its rounds alike (a round is anything
+        enqueued between two such ends), so the indices agree; a
+        negotiated round is reported to rank 0, and an adopted schedule
+        starts staging at its round."""
+        if not self.config.fast_path:
+            return
+        with self._cv:
+            if self._round_n == 0 or self._inflight or self._new or \
+                    self._join_entry is not None:
+                return
+            sigs, ok = tuple(self._round_sigs), self._round_ok
+            self._round_n, self._round_sigs, self._round_ok = 0, [], True
+            self._round_stream = None
+            index = self._round
+            self._round += 1
+            if self._fp_state == STAGING:
+                self._fp_slot = 0
+            elif self._fp_state == NEGOTIATING:
+                sig = (fastpath.schedule_sig(sigs)
+                       if ok and fastpath.freezable(sigs) else None)
+                self._fp_report = (index, sig)
+                if sig is not None:
+                    self._fp_profiles[index] = (sig, sigs)
+                    for old in [i for i in self._fp_profiles
+                                if i < index - 4]:
+                        del self._fp_profiles[old]
+            elif self._fp_state == ARMED and \
+                    self._round == self._fp_sched.start:
+                self._fp_state = STAGING
+                self._fp_slot = 0
 
     # -- cycle thread ---------------------------------------------------------
 
@@ -269,9 +478,14 @@ class Engine:
                     self._urgent = False
                     self._last_start = time.monotonic()
                     new, self._new = self._new, []
-                    shutdown = self._shutdown_requested
-                    joined = self._join_entry is not None
-                if not self._cycle(new, shutdown, joined):
+                    msg = CycleRequest(self.rank, self._shutdown_requested,
+                                       self._join_entry is not None)
+                    msg.round_report, self._fp_report = self._fp_report, None
+                    msg.thaw, self._fp_thaw_req = self._fp_thaw_req, None
+                    msg.staging = self._fp_state == STAGING
+                    ready = (list(self._fp_ready)
+                             if self._fp_state == STAGING else [])
+                if not self._cycle(new, msg, ready):
                     return
         except Exception as exc:  # the loop's boundary: fail, never hang
             LOG.exception("horovod_tpu_torch engine: the cycle failed")
@@ -282,10 +496,11 @@ class Engine:
         """Under the lock: return when the next cycle should start.  New
         work starts one a cycle time after the last began, so the hooks
         of a backward pass batch into few cycles; a waiting caller, a
-        join or a shutdown starts one at once.  With nothing new, a rank
-        of a multi-rank world cycles every cycle time while it has work
-        outstanding and every ``IDLE_SECS`` otherwise (the coordinator's
-        stall checks need the cycles); a one-rank world sleeps."""
+        join, a shutdown, a filled frozen bucket or a thaw request starts
+        one at once.  With nothing new, a rank of a multi-rank world
+        cycles every cycle time while it has work outstanding and every
+        ``IDLE_SECS`` otherwise (the coordinator's stall checks need the
+        cycles); a one-rank world sleeps."""
         cycle_s = self.config.cycle_time_ms / 1e3
         while True:
             if self._seq != seen:
@@ -305,10 +520,21 @@ class Engine:
             finally:
                 self._idle = False
 
-    def _cycle(self, new: List[_Entry], shutdown: bool, joined: bool) -> bool:
+    def _cycle(self, new: List[_Entry], msg: CycleRequest,
+               ready: List[_Bucket]) -> bool:
+        backend = self.op_manager.backend
+        if self.size == 1 and ready and not new and not msg.shutdown and \
+                not msg.joined and msg.round_report is None and \
+                msg.thaw is None:
+            # A frozen one-rank world has no one to exchange tokens with.
+            with backend.stream():
+                self._fp_dispatch(ready)
+            return True
+        msg.buckets = [fastpath.bucket_token(
+            b.round, b.index, self._fp_sched.sig,
+            [e.request.name for e in b.entries]) for b in ready]
         self._cycles += 1
         self.timeline.mark_cycle(self._cycles)
-        msg = CycleRequest(self.rank, shutdown, joined)
         for e in new:
             q = e.request
             cid = None if q.group is not None else self.cache.lookup(q)
@@ -319,9 +545,22 @@ class Engine:
         self._m_queue_depth.set(len(new))
         t0 = time.monotonic()
         resp = self.controller.run_cycle(msg)
-        backend = self.op_manager.backend
         finished = []
         with backend.stream():
+            # The fast path's verdicts come first: a freeze is adopted
+            # before this cycle's entries complete (so before a round
+            # that ends with them does).
+            if resp.thaw is not None:
+                if not self._fp.thaw(*resp.thaw):
+                    self._fp_flush(None, resp.thaw[0])
+            elif resp.go:
+                self._fp_dispatch(ready[:resp.go])
+            elif ready:
+                with self._cv:  # not yet: present them again at once
+                    self._seq += 1
+                    self._urgent = True
+            if resp.freeze is not None:
+                self._fp_adopt(*resp.freeze)
             # Entries drained in an earlier cycle were covered then: the
             # executor stream runs in order.
             backend.consume({e.token: None for e in new
@@ -337,6 +576,11 @@ class Engine:
                                     self.controller.evicted(cid, evicted)
                     self._perform(r, finished)
             finally:
+                # Counted before any result is visible, so a waiter that
+                # reads the counters after its results sees this cycle.
+                if resp.responses:
+                    self._m_cycles.inc()
+                    self._m_cycle_seconds.observe(time.monotonic() - t0)
                 # One event after the cycle's collectives, for every
                 # result of the cycle.
                 if finished:
@@ -345,8 +589,6 @@ class Engine:
                         e.complete(out, out_token=token)
         if resp.responses:
             self._notify_done()
-            self._m_cycles.inc()
-            self._m_cycle_seconds.observe(time.monotonic() - t0)
         if resp.abort is not None:
             LOG.error("horovod_tpu_torch engine: %s", resp.abort)
             self._stop(resp.abort)
@@ -355,6 +597,111 @@ class Engine:
             self._stop("shutdown")
             return False
         return True
+
+    # -- fast path, cycle thread ----------------------------------------------
+
+    def _fp_adopt(self, start: int, sig: str):
+        """Rank 0's freeze verdict: stage from round ``start`` on, against
+        this rank's profile of the round two before it."""
+        with self._cv:
+            prof = self._fp_profiles.get(start - 2)
+            if self._fp_state != NEGOTIATING or prof is None or \
+                    prof[0] != sig or self._round >= start:
+                # Cannot happen when the ranks agree; thaw the world.
+                self._fp_state = THAWING
+                self._fp_thaw_req = ("shape", "rank %d cannot stage "
+                                     "schedule %s from round %d"
+                                     % (self.rank, sig, start))
+                self._seq += 1
+                self._urgent = True
+                return
+            slots = prof[1]
+            ends = fastpath.plan_buckets(slots, self.config.overlap_buckets,
+                                         self.config.fusion_threshold_bytes)
+            self._fp_sched = _Schedule(sig, slots, ends, start)
+            self._fp_state = ARMED
+            self._fp_profiles.clear()
+        self._fp.freeze({"sig": sig, "slots": slots, "ends": ends,
+                         "start": start}, self._group_seq + 1)
+
+    def _fp_flush(self, _payload, _reason: str):
+        """A thaw: every staged entry, dispatched or not, goes back to
+        negotiation in program order, ahead of what came after it; the
+        round in progress cannot freeze."""
+        backend = self.op_manager.backend
+        with self._cv:
+            buckets = self._fp_ready + ([self._fp_open]
+                                        if self._fp_open is not None else [])
+            staged = []
+            for b in buckets:
+                token = b.token
+                if token is None and b.entries and \
+                        b.entries[0].backend is not None:
+                    token = backend.producer(b.stream)
+                for e in b.entries:
+                    e.bucket, e.token = None, token
+                    self.timeline.negotiate_start(e.request.name,
+                                                  e.request.op_type)
+                    staged.append(e)
+            self._new[:0] = staged
+            self._fp_ready, self._fp_open = [], None
+            self._fp_sched, self._fp_slot = None, 0
+            self._fp_state = NEGOTIATING
+            self._fp_thaw_req = None
+            self._round_sigs, self._round_ok = [], False
+            self._fp_profiles.clear()
+            self._seq += 1
+            self._urgent = True
+
+    def _fp_dispatch(self, buckets: List[_Bucket]):
+        """Execute frozen buckets, in order, each as a negotiated fused
+        allreduce would be (inside the backend's stream)."""
+        backend = self.op_manager.backend
+        for b in buckets:
+            t0 = time.monotonic()
+            entries = b.entries
+            with self._cv:
+                self._fp_ready.remove(b)
+                for e in entries:
+                    self._inflight.pop(e.request.name, None)
+            q = entries[0].request
+            names = [e.request.name for e in entries]
+            self._group_seq += 1
+            self._m_last_group.set(self._group_seq)
+            fused = len(entries) > 1
+            if fused:
+                self._m_fused_bytes.inc(sum(e.request.nbytes
+                                            for e in entries))
+                self._m_fused_tensors.inc(len(entries))
+            self.timeline.activity_start_all(
+                names, "EXEC_FUSED_ALLREDUCE" if fused else "EXEC_ALLREDUCE",
+                args={"group": self._group_seq})
+            ps = process_sets.process_set_by_id(q.process_set_id)
+            try:
+                if ps is None:
+                    raise HorovodInternalError(
+                        "process set %d is not registered" % q.process_set_id)
+                if b.token is not None:
+                    backend.consume({b.token: None})
+                tensors = [e.tensor for e in entries]
+                backend.in_use(tensors)
+                outs = C.allreduce(tensors, q.red_op, q.prescale, q.postscale,
+                                   ps.size(), ps.group)
+                token = backend.produce()
+            except Exception as exc:  # noqa: BLE001 - reported on the handles
+                LOG.error("frozen allreduce %s failed: %s", names, exc)
+                for e in entries:
+                    e.complete(error="allreduce %s failed: %s: %s" % (
+                        names, type(exc).__name__, exc))
+                self._notify_done()
+                continue
+            self.timeline.activity_end_all(names)
+            self._m_fp_bucket.observe(time.monotonic() - t0)
+            if b.last:
+                self._m_fp_frozen.inc()
+            for e, out in zip(entries, outs):
+                e.complete(out, out_token=token)
+            self._notify_done()
 
     def _notify_done(self):
         with self._done_cv:
@@ -370,6 +717,8 @@ class Engine:
             self._inflight.clear()
             self._new.clear()
             self._join_entry = None
+            self._fp_ready, self._fp_open = [], None
+            self._fp_state = NEGOTIATING
         for e in entries:
             e.complete(error=reason)
         self._notify_done()
@@ -386,6 +735,8 @@ class Engine:
         with self._cv:
             entries = [self._inflight.pop(n, None) for n in r.names]
             joined = self._join_entry is not None
+            if r.error is not None:
+                self._round_ok = False
         for e in entries:
             if e is not None:
                 self.timeline.negotiate_end(e.request.name)

@@ -8,7 +8,8 @@ configure:
 
 * ``nccl`` takes the CUDA tensors of a world on CUDA.  An enqueue
   records an event on the caller's current stream, right after the
-  kernels that wrote its tensors; before a collective reads them, the
+  kernels that wrote its tensors (a frozen round's entries record one
+  per bucket, when the bucket fills: ``ops/fastpath.py``); before a collective reads them, the
   engine's executor stream waits on that event (and on nothing queued
   later on the caller's stream), and each tensor is marked in use on the
   executor stream, so the caching allocator does not hand its memory out
@@ -32,9 +33,16 @@ class Backend:
     name = "backend"
     device_type = ""
 
-    def producer(self):
+    def producer(self, stream=None):
         """At enqueue, on the caller's thread: a token for what produced
-        the call's tensors, which ``consume`` waits on before it reads
+        the call's tensors (the work queued so far on ``stream``, the
+        caller's current one if None), which ``consume`` waits on before
+        it reads them."""
+        return None
+
+    def current_stream(self):
+        """The caller's current stream (None where there is none); a
+        frozen bucket's entries must share one, since one token covers
         them."""
         return None
 
@@ -65,12 +73,15 @@ class NcclBackend(Backend):
     def __init__(self):
         self._stream = None
 
-    def producer(self):
+    def producer(self, stream=None):
         # The caller's stream at this point: the kernels that wrote the
         # tensors, and none that it queues after the enqueue.
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(stream)
         return ev
+
+    def current_stream(self):
+        return torch.cuda.current_stream()
 
     def stream(self):
         if self._stream is None:

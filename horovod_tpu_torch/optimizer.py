@@ -27,6 +27,10 @@ the numerics of ``horovod_tpu/jax/optimizer.py``:
   gradient alone (``collectives.adasum_allreduce``), never fused;
 * ``step()`` waits for the reductions, writes the results into ``.grad``
   and runs the wrapped optimizer.
+
+``allreduce_gradients`` is the functional form
+(``horovod_tpu/jax/optimizer.py:41 allreduce_gradients``, its eager
+path): one named allreduce per tensor, then one wait.
 """
 
 from __future__ import annotations
@@ -40,11 +44,39 @@ import torch
 from .common import basics
 from .common.process_sets import ProcessSet, global_process_set
 from .compression import Compression, check_reduce_safe
-from .ops.api import allreduce_requests
+from .ops.api import allreduce_async, allreduce_requests
 from .ops.engine import wait_all
 from .ops.collectives import AVERAGE, SUM
 
 _instances = itertools.count()
+
+
+def allreduce_gradients(grads, op: str = AVERAGE,
+                        compression=Compression.none,
+                        process_set: ProcessSet = global_process_set):
+    """Reduce gradients across the process set: a tensor, a list or
+    tuple of tensors, or a dict of them (taken in sorted key order, as a
+    JAX tree flattens one), each enqueued as the named async allreduce
+    ``DistributedOptimizer.gradient/<i>`` after ``compression``, then
+    all waited for at once and decompressed; returns the same
+    structure."""
+    check_reduce_safe(compression, "allreduce_gradients")
+    if isinstance(grads, torch.Tensor):
+        return allreduce_gradients([grads], op, compression, process_set)[0]
+    keys = sorted(grads) if isinstance(grads, dict) else None
+    leaves = [grads[k] for k in keys] if keys is not None else list(grads)
+    handles, ctxs = [], []
+    for i, g in enumerate(leaves):
+        wire, ctx = compression.compress(g)
+        handles.append(allreduce_async(
+            wire, op=op, name="DistributedOptimizer.gradient/%d" % i,
+            process_set=process_set))
+        ctxs.append(ctx)
+    outs = [compression.decompress(out, ctx)
+            for out, ctx in zip(wait_all(handles), ctxs)]
+    if keys is not None:
+        return dict(zip(keys, outs))
+    return type(grads)(outs) if isinstance(grads, tuple) else outs
 
 
 class _DistributedOptimizer:

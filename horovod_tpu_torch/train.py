@@ -19,6 +19,7 @@ import torch
 
 from .common import basics
 from .compression import Compression
+from .data_parallel import shard_batch as _shard
 from .functions import broadcast_optimizer_state, broadcast_parameters
 from .models import bert
 from .models.convert import params_from_jax
@@ -71,15 +72,7 @@ def make_train_step(cfg: TransformerConfig,
         return step, model, opt
 
     def shard_batch(batch):
-        rank, size = basics.rank(), basics.size()
-        rows = batch["tokens"].shape[0]
-        if rows % size:
-            raise ValueError("global batch %d does not split over %d ranks"
-                             % (rows, size))
-        per = rows // size
-        return {k: torch.as_tensor(np.asarray(v)[rank * per:(rank + 1) * per],
-                                   dtype=torch.long, device=dev)
-                for k, v in batch.items()}
+        return _shard(batch, dev, torch.long)
 
     return build, shard_batch
 
@@ -132,16 +125,9 @@ def make_resnet_train_step(cfg: ResNetConfig,
         return step, model, opt
 
     def shard_batch(batch):
-        rank, size = basics.rank(), basics.size()
-        rows = batch["x"].shape[0]
-        if rows % size:
-            raise ValueError("global batch %d does not split over %d ranks"
-                             % (rows, size))
-        per = slice(rank * rows // size, (rank + 1) * rows // size)
-        x = torch.as_tensor(np.asarray(batch["x"])[per], device=dev)
-        return {"x": x.to(cfg.act_dtype).permute(0, 3, 1, 2),
-                "y": torch.as_tensor(np.asarray(batch["y"])[per],
-                                     dtype=torch.long, device=dev)}
+        mine = _shard(batch, dev)
+        return {"x": mine["x"].to(cfg.act_dtype).permute(0, 3, 1, 2),
+                "y": mine["y"].long()}
 
     return build, shard_batch
 
@@ -209,14 +195,6 @@ def make_bert_train_step(cfg: bert.BertConfig,
         return step, model, opt
 
     def shard_batch(batch):
-        rank, size = basics.rank(), basics.size()
-        rows = batch["tokens"].shape[0]
-        if rows % size:
-            raise ValueError("global batch %d does not split over %d ranks"
-                             % (rows, size))
-        per = slice(rank * rows // size, (rank + 1) * rows // size)
-        return {k: torch.as_tensor(np.asarray(v)[per], dtype=torch.long,
-                                   device=dev)
-                for k, v in batch.items()}
+        return _shard(batch, dev, torch.long)
 
     return build, shard_batch

@@ -6,7 +6,10 @@ Counterpart of ``horovod_tpu.utils.timeline.Timeline`` (the reference's
 name): ``NEGOTIATE_<OP>`` from its enqueue to its negotiated response,
 then ``EXEC_<OP>`` (``EXEC_FUSED_ALLREDUCE`` for a multi-tensor fused
 allreduce) while the cycle thread issues its collective, with
-``args.group``, the ``engine_last_group_id`` of that execution.
+``args.group``, the ``engine_last_group_id`` of that execution.  A
+frozen round's tensor (``ops/fastpath.py``) ends its ``NEGOTIATE`` row
+when it is staged, and its bucket's ``EXEC`` row carries the bucket's
+group id as a negotiated execution does.
 ``HOROVOD_TIMELINE_MARK_CYCLES`` adds an instant event per cycle.  The
 array is closed by ``shutdown()``.
 """

@@ -4,16 +4,17 @@
     python3 tools/chip_ab_steps.py BEFORE_DIR AFTER_DIR
 
 Runs ``chip_smoke.py``'s phase-4 paths (the decoder, ResNet-50,
-BERT-Large and BERT-Large Adasum training, each 5 steps with one more
+BERT-Large and BERT-Large Adasum training, each 5 timed steps, after
+the fast path's warm-up steps where the tree has them, with one more
 profiled) from each directory in its own process, in the order before,
 after, after, before, so that a drift of the card or its host over the
 call shows as a difference between the two runs of one tree.  Each
 directory is a checkout of the repository (for example a ``git
 archive`` of the parent commit unpacked under ``build/``); each builds
 its own kernels.  Prints the card's name and power limit, then each
-run's step lines (median step_ms, idle share, the engine's counts a step
-where the tree has the engine), and exits non-zero if a run failed.
-Needs one CUDA card.
+run's step lines (median step_ms, idle share, the engine's counts a
+step and the fast path's line where the tree has them), and exits
+non-zero if a run failed.  Needs one CUDA card.
 """
 
 import subprocess
@@ -40,8 +41,8 @@ torch.cuda.empty_cache()
 with cs.flash_bwd_env("pallas_onepass"):
     cs.train_bert_adasum(torch)
 '''
-KEEP = ("median step", "idle share", "engine per step", "step 1:",
-        "step 2:", "step 3:", "step 4:")
+KEEP = ("median step", "idle share", "engine per step", "fast path over",
+        "step 1:", "step 2:", "step 3:", "step 4:")
 
 
 def main() -> int:

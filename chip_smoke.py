@@ -77,6 +77,23 @@
    frozen, then one of them changing its shape (a thaw, reason shape)
    and the schedule frozen again before ``join()`` (a thaw, reason
    membership), every result bit for bit.
+   Then the cross-node wire codecs and the hierarchical legs
+   (``ops/multihost.py``), which one card can run only on one-member
+   groups: the codec phase takes the decoder's 10 frozen gradient
+   buckets of one step (171,992,064 f32 gradients, recorded from a
+   frozen flagship step) through every codec and ``ErrorFeedback`` over
+   3 steps under ``set_sync_debug_mode("error")``, bit for bit against
+   the same functions on the CPU copies, holds the plain fp8 cast's
+   bytes at e4m3's overflow edge to the reference's (NaN past +-464,
+   where torch's cast saturates) and times each codec against its byte
+   bound; the leg phase calls each of the five legs directly with
+   one-member NCCL local and cross groups under every codec (none, fp16,
+   bf16, int8, fp8) on those buckets, with no host synchronisation,
+   bit for bit against one-member gloo groups on the CPU, each timed
+   with CUDA events; the gate phase reruns the fast-path phase's decoder
+   steps under ``HOROVOD_CROSS_HOST_COMPRESSION=int8``: one local rank,
+   so every collective flat, none compressed, one warning, and the
+   reduced gradients bit for bit against the same step without it.
 5. Prints one JSON line of kernel records (nine kernels), then as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -216,12 +233,23 @@ def time_ms(fn, reps=10, warmup=3):
     between one CUDA event pair, over ``reps``.  A sleep kernel ahead of
     the pair holds the device while the host queues the calls, so the
     pair reads the device's work, not the host's time to launch it (which
-    exceeds a small kernel's); the sleep doubles until the host's queueing
-    ends inside it."""
+    exceeds a small kernel's); the sleep starts near the host time of the
+    fastest warm-up call (at about 2e6 cycles a ms) and doubles until the
+    host's queueing ends inside it.  A call that waits on the device
+    never does: the error then gives the caching allocator's retries in
+    the attempts (under memory pressure it frees cached blocks, and
+    cudaFree waits for the device)."""
     import torch
+    fastest = math.inf
     for _ in range(warmup):
+        t = time.perf_counter()
         fn()
+        fastest = min(fastest, time.perf_counter() - t)
+    torch.cuda.synchronize()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     cycles = 1 << 21
+    while cycles < min(fastest * 1e3 * reps * 2e6, 1 << 30):
+        cycles *= 2
     while cycles < 1 << 34:
         torch.cuda.synchronize()
         s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
@@ -237,8 +265,11 @@ def time_ms(fn, reps=10, warmup=3):
         if host_ms < s.elapsed_time(a):
             return a.elapsed_time(b) / reps
         cycles *= 2
-    raise RuntimeError("time_ms: the host did not queue %d calls within a "
-                       "sleep of 2^34 cycles" % reps)
+    raise RuntimeError(
+        "time_ms: the host did not queue %d calls within a sleep of 2^34 "
+        "cycles (%d allocator retries meanwhile)" % (
+            reps, torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            - retries))
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -981,9 +1012,42 @@ def train_flagship(torch):
                           "flash_bwd_dkv_kernel": L * n,
                           "flash_bwd_onepass_kernel": 0,
                           "scale_sum_kernel": 0})
+    buckets = capture_buckets(torch, step, data)
     profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
-    return counts
+    return counts, buckets
+
+
+def capture_buckets(torch, step, data):
+    """One more frozen step of the flagship, recording the buffers its
+    fused allreduces reduce: the gradient buckets of a real step (at size 1
+    the buffer holds the gradients, prescale 1, nothing to divide)."""
+    import torch.distributed as dist
+    seen, all_reduce = [], dist.all_reduce
+
+    def record(tensor, *args, **kwargs):
+        seen.append(tensor.detach().clone())
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = record
+    try:
+        step(data)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    # Cloned on the caller's stream, after the executor's work is done.
+    buckets = [b.clone() for b in seen]
+    torch.cuda.synchronize()
+    say("flagship: %d frozen gradient buckets of one step, %d f32 elements "
+        "(%s)" % (len(buckets), sum(b.numel() for b in buckets),
+                  [b.numel() for b in buckets]))
+    if len(buckets) != DECODER_BUCKETS or any(
+            b.dtype != torch.float32 for b in buckets) or sum(
+            b.numel() for b in buckets) != DECODER_GRADS:
+        raise AssertionError("the flagship's buckets are not its %d f32 "
+                             "buckets of %d gradients" % (DECODER_BUCKETS,
+                                                          DECODER_GRADS))
+    return buckets
 
 
 def check_counts(counts, expected):
@@ -1941,6 +2005,269 @@ def check_fastpath_on_card(torch):
             frozen_again != 1 or last != 0 or \
             thaws != {"shape": 1.0, "membership": 1.0}:
         raise AssertionError("fast path on the card: named tensors off")
+    return on
+
+
+# The codec, leg and gate phases: the cross-node wire codecs, the five
+# hierarchical legs on one-member groups, and the gate on one card.
+DECODER_BUCKETS, DECODER_GRADS = 10, 171992064
+CODEC_STEPS = 3
+LEG_CODECS = ("none", "fp16", "bf16", "int8", "fp8")
+LEGS = ("allreduce", "reducescatter", "allgather", "broadcast", "alltoall")
+# e4m3's overflow edge and what the reference's cast gives each value:
+# NaN (0x7F, with the sign 0xFF) past +-464 and for infinities, where
+# torch's vectorised CPU cast saturates at +-448 (0x7E, 0xFE).
+FP8_EDGE = (464.0, 464.01, 465.0, 1e6, -464.0, -464.01, -465.0, -1e6,
+            math.inf, -math.inf, math.nan, 448.0, -448.0, 0.0, -0.0, 1e-10,
+            2.0 ** -10, 240.0, 1.0 / 3)
+FP8_EDGE_BYTES = (0x7E, 0x7F, 0x7F, 0x7F, 0xFE, 0xFF, 0xFF, 0xFF, 0x7F, 0xFF,
+                  0x7F, 0x7E, 0xFE, 0x00, 0x80, 0x00, 0x00, 0x77, 0x2B)
+
+
+def codec_edge_mismatches(device="cuda"):
+    """The fp8 edge values whose plain-cast byte on ``device`` is not the
+    reference's: [(value, byte got, byte wanted)]."""
+    import torch
+    from horovod_tpu_torch import compression as pc
+    x = torch.tensor(FP8_EDGE, dtype=torch.float32, device=device)
+    got = pc.FP8Compressor.compress(x)[0].view(torch.uint8).tolist()
+    return [(v, g, w) for v, g, w in zip(FP8_EDGE, got, FP8_EDGE_BYTES)
+            if g != w]
+
+
+def bytes_equal(a, b) -> bool:
+    """Bit for bit (a NaN matches only the same NaN bits)."""
+    import torch
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def run_codecs(buckets):
+    """Every codec on every bucket, and ErrorFeedback over CODEC_STEPS
+    steps: {name: [tensors]} (wires, scales, dequantized values, the
+    residuals after the last step)."""
+    from horovod_tpu_torch import compression as pc
+    out = {}
+    for name, codec in (("int8", pc.Int8Quantizer),
+                        ("fp8", pc.ScaledFP8Quantizer)):
+        enc = [codec.compress(b) for b in buckets]
+        out[name + " wire"] = [w for w, _ in enc]
+        out[name + " scale"] = [c[0] for _, c in enc]
+        out[name + " back"] = [codec.decompress(w, c) for w, c in enc]
+        ef = pc.ErrorFeedback(codec, max_buckets=len(buckets))
+        for step in range(CODEC_STEPS):
+            enc = [ef.compress(b, bucket=i) for i, b in enumerate(buckets)]
+            out["ef %s wire %d" % (name, step)] = [w for w, _ in enc]
+            out["ef %s scale %d" % (name, step)] = [c[0] for _, c in enc]
+        out["ef %s residual" % name] = [ef._residuals[i]
+                                        for i in range(len(buckets))]
+    out["fp8 cast"] = [pc.FP8Compressor.compress(b)[0] for b in buckets]
+    for name in ("fp16", "bf16"):
+        out[name] = [getattr(pc.Compression, name).compress(b)[0]
+                     for b in buckets]
+    return out
+
+
+def check_codecs_on_card(torch, buckets):
+    """The codec phase: every codec, and ErrorFeedback over CODEC_STEPS
+    steps, on the decoder's frozen gradient buckets on the card under
+    ``set_sync_debug_mode("error")``, bit for bit against the same
+    functions on their CPU copies; the fp8 edge values on the card against
+    the reference's bytes; each codec's time against its byte bound."""
+    from horovod_tpu_torch import compression as pc
+    n = sum(b.numel() for b in buckets)
+    cpu = [b.cpu() for b in buckets]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run_codecs(buckets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t = time.perf_counter()
+    want = run_codecs(cpu)
+    cpu_s = time.perf_counter() - t
+    n_out = len(want)
+    off = [name for name in want
+           if not all(bytes_equal(g.cpu(), w)
+                      for g, w in zip(got[name], want[name]))]
+    del got, want
+    edge = codec_edge_mismatches()
+    saturated = torch.tensor(FP8_EDGE, device="cuda").to(
+        torch.float8_e4m3fn).view(torch.uint8)[1].item()
+    # Time: each codec on every bucket, one time_ms call a bucket, summed
+    # (the calls on all ten buckets would queue more launches behind the
+    # sleep than the device's launch queue holds).
+    ef = {name: pc.ErrorFeedback(codec, max_buckets=len(buckets))
+          for name, codec in (("int8", pc.Int8Quantizer),
+                              ("fp8", pc.ScaledFP8Quantizer))}
+    enc = [pc.Int8Quantizer.compress(b) for b in buckets]
+    # (label, call on bucket i, bytes read and written per element)
+    cases = (
+        ("int8 encode", lambda i: pc.Int8Quantizer.compress(buckets[i]), 5),
+        ("int8 decode", lambda i: pc.Int8Quantizer.decompress(*enc[i]), 5),
+        ("fp8 (scaled) encode",
+         lambda i: pc.ScaledFP8Quantizer.compress(buckets[i]), 5),
+        ("fp8 plain cast", lambda i: pc.FP8Compressor.compress(buckets[i]),
+         5),
+        ("error feedback int8 encode",
+         lambda i: ef["int8"].compress(buckets[i], bucket=i), 13),
+        ("error feedback fp8 encode",
+         lambda i: ef["fp8"].compress(buckets[i], bucket=i), 13))
+    times = {}
+    for label, fn, per_elem in cases:
+        times[label] = (sum(time_ms(lambda: fn(i), reps=5, warmup=2)
+                            for i in range(len(buckets))),
+                        bound(0, per_elem * n)[0], per_elem)
+    del enc, ef
+    torch.cuda.empty_cache()
+    say("codecs on the card: %d buckets, %d f32 elements; %d outputs "
+        "(wires, scales, dequantized, error feedback over %d steps and its "
+        "residuals) bit for bit against the CPU (%.1f s there), off: %s; "
+        "fp8 edge values off the reference's bytes: %s (torch's own cast "
+        "on the card gives 0x%02X for 464.01); run under sync debug mode "
+        "'error'"
+        % (len(buckets), n, n_out, CODEC_STEPS, cpu_s, off, edge,
+           saturated))
+    for label, (ms, bound_ms, per_elem) in times.items():
+        say("codec time: %s, %d f32 elements in %d buckets: %.6g ms "
+            "(time_ms a bucket, summed), byte bound %.6g ms (%d bytes an element read and "
+            "written, at %.3g B/s), %.1f%% of it"
+            % (label, n, len(buckets), ms, bound_ms, per_elem, PEAK_BYTES,
+               100 * bound_ms / ms))
+    if off or edge:
+        raise AssertionError("codecs on the card: off the CPU %s, fp8 edge "
+                             "%s" % (off, edge))
+
+
+def run_leg(h, leg, tensors, first=0):
+    """One leg of ``h`` on each tensor, the i-th's residuals named
+    ``bucket<first + i>`` (an allreduce twice, so that both residuals
+    count): the outputs."""
+    c = h.wire_codec(tensors[0].dtype, "Sum")
+    out = []
+    for i, t in enumerate(tensors, first):
+        if leg == "allreduce":
+            for _ in range(2):
+                r = h.allreduce(t, "Sum", 1.0, 1.0, c, "bucket%d" % i)
+        elif leg == "reducescatter":
+            r = h.reducescatter(t, "Sum", c, "bucket%d" % i)
+        elif leg == "allgather":
+            r = h.allgather(t, [t.shape[0]], c)
+        elif leg == "broadcast":
+            r = h.broadcast(t, 0, c)
+        else:
+            r = h.alltoall(t, [t.shape[0]], c)
+        out.append(r)
+    return out
+
+
+def check_legs_on_card(torch, buckets):
+    """The leg phase: each of the five hierarchical legs called directly
+    with one-member NCCL local and cross groups, under every codec, on the
+    decoder's buckets, under ``set_sync_debug_mode("error")``; against the
+    same calls with one-member gloo groups on the buckets' CPU copies, bit
+    for bit (after a first run that starts the communicators); each leg's
+    device time by ``time_ms``, whose sleep kernel a leg that waited on
+    the device would not finish queueing behind."""
+    import horovod_tpu_torch as hvd
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import multihost as mh
+
+    hvd.init()
+    nccl = (dist.new_group([0]), dist.new_group([0]))
+    gloo = (dist.new_group([0], backend="gloo"),
+            dist.new_group([0], backend="gloo"))
+    cpu = [b.cpu() for b in buckets]
+    n = sum(b.numel() for b in buckets)
+    off, times = [], {}
+    for name in LEG_CODECS:
+        codec = mh._resolve_codec(name)
+
+        def fresh(groups=nccl):
+            # A new plane: no residual carried from another run.
+            return mh.Hierarchy(*groups, [[0]], 0, 0, codec=codec,
+                                mode="on")
+
+        card, host = fresh(), fresh(gloo)
+        for leg in LEGS:
+            run_leg(fresh(), leg, buckets)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = run_leg(card, leg, buckets)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = run_leg(host, leg, cpu)
+            if not all(bytes_equal(g.cpu(), w) for g, w in zip(got, want)):
+                off.append("%s %s" % (name, leg))
+            del got, want
+            timer = fresh()
+            times[(name, leg)] = sum(
+                time_ms(lambda: run_leg(timer, leg, [b], i), reps=2,
+                        warmup=2) for i, b in enumerate(buckets))
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    say("legs on the card: 5 legs x %d codecs on one-member NCCL groups "
+        "against one-member gloo groups on the CPU, %d buckets of %d f32 "
+        "elements, bit for bit; off: %s; run under sync debug mode 'error'"
+        % (len(LEG_CODECS), len(buckets), n, off))
+    for (name, leg), ms in times.items():
+        twice = ", allreduce twice" if leg == "allreduce" else ""
+        say("leg time: %s under %s, %d f32 elements in %d buckets: %.6g ms "
+            "(time_ms a bucket, summed%s)"
+            % (leg, name, n, len(buckets), ms, twice))
+    if off:
+        raise AssertionError("legs on the card: %s differ from the CPU"
+                             % off)
+
+
+def check_gate_on_card(torch, frozen_grads):
+    """The gate phase: the fast-path phase's decoder steps again with
+    ``HOROVOD_CROSS_HOST_COMPRESSION=int8`` on the one-rank world (one
+    local rank: no hierarchy): every collective flat, none compressed,
+    the one warning logged, and the step's reduced gradients bit for bit
+    against the same step without the setting."""
+    import logging
+    from horovod_tpu_torch.common import metrics
+    caught = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            caught.append(record.getMessage())
+
+    handler = Catch(level=logging.WARNING)
+    log = logging.getLogger("horovod_tpu_torch")
+    log.addHandler(handler)
+    def counts():
+        return {"hier": metrics.series_sum("mh_collective_path_total",
+                                           path="hier"),
+                "flat": metrics.series_sum("mh_collective_path_total",
+                                           path="flat"),
+                "compressed": metrics.series_sum(
+                    "mh_compressed_collectives_total")}
+
+    before = counts()
+    try:
+        with env_set(HOROVOD_CROSS_HOST_COMPRESSION="int8"):
+            grads, off_local, frozen, cycles = fastpath_decoder_grads(
+                torch, True)
+    finally:
+        log.removeHandler(handler)
+    moved = {k: v - before[k] for k, v in counts().items()}
+    warned = [w for w in caught if "HOROVOD_CROSS_HOST_COMPRESSION=int8" in w]
+    differ = [k for k in frozen_grads
+              if not bytes_equal(grads[k], frozen_grads[k])]
+    say("gate on the card: decoder d1024 L2 steps under "
+        "HOROVOD_CROSS_HOST_COMPRESSION=int8 on one rank: %s; warnings %s; "
+        "%d of %d reduced gradients differ bit for bit from the step without "
+        "the setting (%d frozen rounds, %d negotiated cycles)"
+        % (json.dumps(moved), warned, len(differ), len(grads), frozen,
+           cycles))
+    if (differ or off_local or len(warned) != 1 or moved["hier"]
+            or not moved["flat"] or moved["compressed"]):
+        raise AssertionError("gate on the card: %s, warnings %s, differ %s"
+                             % (moved, warned, differ[:4]))
 
 
 def main() -> int:
@@ -1985,7 +2312,7 @@ def main() -> int:
 
     # -- 4: the main paths, each with every count set to 0 just before
     with flash_bwd_env("pallas"):
-        counts = train_flagship(torch)
+        counts, buckets = train_flagship(torch)
     torch.cuda.empty_cache()
     bn_counts, shapes, prof = train_resnet_flagship(torch)
     for name in BN_KERNELS:
@@ -2016,7 +2343,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_collectives_on_card(torch)
     check_engine_on_card(torch)
-    check_fastpath_on_card(torch)
+    frozen_grads = check_fastpath_on_card(torch)
+    check_codecs_on_card(torch, buckets)
+    check_legs_on_card(torch, buckets)
+    del buckets
+    torch.cuda.empty_cache()
+    check_gate_on_card(torch, frozen_grads)
 
     # -- 5: results
     # (source, TPU kernel, wrapper, the phase-2 shape of its record, the

@@ -11,7 +11,10 @@ collectives from then on, configured from the environment
 negotiated stop: every rank must call it; a frozen fast-path schedule
 thaws first, reason ``membership``), joins its thread and destroys
 the groups; ``init`` registers it with ``atexit``, and a later ``init``
-starts a new world.  Counterpart of ``horovod_tpu.common.basics``
+starts a new world.  ``init`` also learns every rank's node (its rank
+less its ``LOCAL_RANK``: a launcher numbers a node's ranks together) and
+gives the global set its hierarchical plane when the layout has one
+(``ops/multihost.py``).  Counterpart of ``horovod_tpu.common.basics``
 (``init``, ``shutdown``, the rank and size queries and the ``*_built``
 probes).
 """
@@ -38,6 +41,7 @@ class _State:
         self.device: Optional[torch.device] = None
         self.engine = None
         self.control = None  # the controller's gloo group
+        self.nodes = None  # world rank -> its node's first rank
         self.worlds = 0  # worlds started in this process
         self.atexit_registered = False
 
@@ -94,15 +98,22 @@ def init(device=None, comm=None):
         logging.getLogger("horovod_tpu_torch").setLevel(
             config.log_level.upper())
         control = dist.new_group(backend="gloo") if topo.size > 1 else None
+        from ..ops import multihost
         from ..ops.engine import Engine
         try:
+            nodes = _nodes(topo, control)
+            process_sets.global_process_set.hierarchy = multihost.build(
+                range(topo.size), nodes, topo.rank, config,
+                "the global process set")
             engine = Engine(config, topo.rank, topo.size, dev, control)
         except BaseException:
+            process_sets.global_process_set.hierarchy = None
             dist.destroy_process_group()
             raise
         _state.worlds += 1
         _state.topology, _state.device = topo, dev
         _state.control, _state.engine = control, engine
+        _state.nodes = nodes
         engine.start()
         if not _state.atexit_registered:
             atexit.register(shutdown)
@@ -122,7 +133,18 @@ def shutdown():
         process_sets.reset()
         dist.destroy_process_group()
         _state.topology = _state.device = _state.engine = None
-        _state.control = None
+        _state.control = _state.nodes = None
+
+
+def _nodes(topo: Topology, control) -> list:
+    """Every world rank's node, named by the node's first rank (its rank
+    less its local rank), gathered over the controller's group."""
+    mine = torch.tensor([topo.rank - topo.local_rank], dtype=torch.int64)
+    if control is None:
+        return mine.tolist()
+    out = torch.empty(topo.size, dtype=torch.int64)
+    dist.all_gather_into_tensor(out, mine, group=control)
+    return out.tolist()
 
 
 def is_initialized() -> bool:
@@ -145,6 +167,12 @@ def engine():
 
 def topology() -> Topology:
     return _require_init()
+
+
+def nodes() -> list:
+    """Every world rank's node (the node's first rank), by world rank."""
+    _require_init()
+    return _state.nodes
 
 
 def device() -> torch.device:

@@ -24,7 +24,20 @@ knobs the engine reads.  Each knob is ``HVD_TPU_<NAME>``, or Horovod's
 * ``FAST_PATH`` (on): freeze a schedule that repeats, after
   ``FAST_PATH_WARM_CYCLES`` (10) identical rounds on every rank, and
   dispatch its allreduces in ``OVERLAP_BUCKETS`` (4) buckets without
-  negotiating them (``ops/fastpath.py``).
+  negotiating them (``ops/fastpath.py``);
+* ``HIERARCHICAL_ALLREDUCE`` (auto, on or off) and
+  ``HIERARCHICAL_ALLREDUCE_THRESHOLD`` (64 KiB): a collective of a set
+  that spans more than one rank on each of its nodes runs as a local
+  reduce-scatter, a cross-node leg and a local all-gather
+  (``ops/multihost.py``) when the mode is on, or auto and its payload
+  reaches the threshold; off keeps every collective flat;
+* ``CROSS_HOST_COMPRESSION`` (none, fp16, bf16, int8 or fp8): the wire
+  codec of the hierarchical cross-node leg, with error-feedback residuals
+  for Sum and Average kept in an LRU of ``COMPRESSION_RESIDUAL_BUCKETS``
+  (64) buckets.
+
+A value that does not parse raises, naming the variable: a typo must not
+silently pin a collective flat or ship full precision.
 """
 
 from __future__ import annotations
@@ -40,6 +53,9 @@ DEFAULT_STALL_WARNING_SECS = 60.0
 DEFAULT_STALL_SHUTDOWN_SECS = 0.0
 DEFAULT_FAST_PATH_WARM_CYCLES = 10
 DEFAULT_OVERLAP_BUCKETS = 4
+DEFAULT_HIERARCHICAL_THRESHOLD = 64 * 1024
+DEFAULT_RESIDUAL_BUCKETS = 64
+COMPRESSION_CODECS = ("none", "fp16", "bf16", "int8", "fp8")
 
 
 def _env(name: str) -> Optional[str]:
@@ -63,6 +79,37 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.strip().lower() in ("1", "true", "yes", "on")
 
 
+def _parse_hier_mode(v: Optional[str]) -> str:
+    """auto | on | off (``horovod_tpu.common.config._parse_hier_mode``)."""
+    s = (v or "").strip().lower()
+    if s in ("", "auto"):
+        return "auto"
+    if s in ("1", "true", "yes", "on"):
+        return "on"
+    if s in ("0", "false", "no", "off"):
+        return "off"
+    raise ValueError(
+        "HOROVOD_HIERARCHICAL_ALLREDUCE=%r: expected auto, on/1, or "
+        "off/0" % v)
+
+
+def _parse_compression(v: Optional[str]) -> str:
+    """none | fp16 | bf16 | int8 | fp8
+    (``horovod_tpu.common.config._parse_compression``)."""
+    s = (v or "").strip().lower()
+    if s in ("", "none", "off", "0", "false", "no"):
+        return "none"
+    if s in ("fp16", "float16"):
+        return "fp16"
+    if s in ("bf16", "bfloat16"):
+        return "bf16"
+    if s in ("int8", "fp8"):
+        return s
+    raise ValueError(
+        "HOROVOD_CROSS_HOST_COMPRESSION=%r: expected one of %s"
+        % (v, "|".join(COMPRESSION_CODECS)))
+
+
 @dataclasses.dataclass
 class Config:
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
@@ -77,6 +124,10 @@ class Config:
     fast_path: bool = True
     fast_path_warm_cycles: int = DEFAULT_FAST_PATH_WARM_CYCLES
     overlap_buckets: int = DEFAULT_OVERLAP_BUCKETS
+    hierarchical_allreduce: str = "auto"
+    hierarchical_allreduce_threshold: int = DEFAULT_HIERARCHICAL_THRESHOLD
+    cross_host_compression: str = "none"
+    compression_residual_buckets: int = DEFAULT_RESIDUAL_BUCKETS
 
     @staticmethod
     def from_env() -> "Config":
@@ -101,4 +152,14 @@ class Config:
             fast_path_warm_cycles=max(1, _env_number(
                 "FAST_PATH_WARM_CYCLES", DEFAULT_FAST_PATH_WARM_CYCLES, int)),
             overlap_buckets=max(1, _env_number(
-                "OVERLAP_BUCKETS", DEFAULT_OVERLAP_BUCKETS, int)))
+                "OVERLAP_BUCKETS", DEFAULT_OVERLAP_BUCKETS, int)),
+            hierarchical_allreduce=_parse_hier_mode(
+                _env("HIERARCHICAL_ALLREDUCE")),
+            hierarchical_allreduce_threshold=_env_number(
+                "HIERARCHICAL_ALLREDUCE_THRESHOLD",
+                DEFAULT_HIERARCHICAL_THRESHOLD, int),
+            cross_host_compression=_parse_compression(
+                _env("CROSS_HOST_COMPRESSION")),
+            compression_residual_buckets=max(1, _env_number(
+                "COMPRESSION_RESIDUAL_BUCKETS", DEFAULT_RESIDUAL_BUCKETS,
+                int)))

@@ -4,11 +4,12 @@ structured events.
 
 Counterpart of the registry of ``horovod_tpu.common.metrics`` (``NAMES``,
 ``counter``, ``gauge``, ``histogram``, ``snapshot``, ``series_sum``,
-``event``, ``metrics_snapshot``) with the rows the engine and its fast
-path write.  A name missing from ``NAMES``, or used as another kind,
-raises, so a typo cannot fork a series.  ``event`` counts
-``events_total{kind}`` and keeps the newest ``EVENTS_KEPT`` events in
-memory (``events()``); the reference's on-disk journal is not ported.
+``event``, ``metrics_snapshot``) with the rows the engine, its fast
+path and the hierarchical legs (``mh_*``) write.  A name missing from
+``NAMES``, or used as another kind, raises, so a typo cannot fork a
+series.  ``event`` counts ``events_total{kind}`` and keeps the newest
+``EVENTS_KEPT`` events in memory (``events()``); the reference's on-disk
+journal is not ported.
 Thread-safe: the caller's thread and the engine's cycle thread both
 write.
 """
@@ -54,6 +55,21 @@ NAMES: Dict[str, Tuple[str, str]] = {
         "histogram", "host time of one frozen bucket's dispatch on the "
                      "cycle thread (HOROVOD_OVERLAP_BUCKETS buckets a "
                      "round)"),
+    "mh_collective_path_total": (
+        "counter", "executed collectives by the path that moved them, "
+                   "labelled op and path (hier: local reduce-scatter, "
+                   "cross-node leg, local all-gather; flat: one "
+                   "collective over the set)"),
+    "mh_bus_bytes_total": (
+        "counter", "bytes a collective put on the wire, labelled op and "
+                   "path: the payload's, or with a cross-node codec its "
+                   "elements at the wire width plus the scales"),
+    "mh_compressed_collectives_total": (
+        "counter", "hierarchical collectives whose cross-node leg ran a "
+                   "wire codec, labelled op and codec"),
+    "mh_compression_ratio": (
+        "gauge", "payload bytes over wire bytes of the latest compressed "
+                 "collective, labelled op and codec"),
     "events_total": (
         "counter", "structured events recorded (metrics.event), labelled "
                    "kind"),

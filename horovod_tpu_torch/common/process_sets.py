@@ -8,7 +8,11 @@ order (the reference's contract; ``new_group`` needs every rank of the
 world), so the ids agree across the world: every collective carries its
 set's id through the engine's negotiation (``process_set_by_id``).
 Adding or removing a set thaws a frozen fast-path schedule
-(``ops/fastpath.thaw_all``, reason ``membership``) on every rank.
+(``ops/fastpath.thaw_all``, reason ``membership``) on every rank.  A set
+whose ranks span the same number k >= 2 on every node it touches also
+gets its hierarchical plane (``hierarchy``: a local group per node and a
+cross group per local index, ``ops/multihost.build``), created in the
+same order on every rank; any other set stays flat.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ class ProcessSet:
             sorted(set(int(r) for r in ranks)) if ranks is not None else None)
         self.process_set_id: Optional[int] = None
         self._group = None
+        # ops/multihost.Hierarchy, or None: every collective flat.
+        self.hierarchy = None
 
     @property
     def group(self):
@@ -97,6 +103,9 @@ def add_process_set(process_set) -> ProcessSet:
             raise ValueError("Process set ranks %s out of range for world "
                              "size %d" % (bad, world))
         process_set._group = dist.new_group(process_set.ranks)
+        process_set.hierarchy = multihost.build(
+            process_set.ranks, basics.nodes(), basics.rank(),
+            basics.engine().config, "process set %s" % process_set.ranks)
         process_set.process_set_id = _next_id[0]
         _registered[process_set.process_set_id] = process_set
         _next_id[0] += 1
@@ -112,9 +121,12 @@ def remove_process_set(process_set: ProcessSet) -> bool:
             return False
         del _registered[process_set.process_set_id]
         group, process_set._group = process_set._group, None
+        hier, process_set.hierarchy = process_set.hierarchy, None
         process_set.process_set_id = None
-    if group is not dist.GroupMember.NON_GROUP_MEMBER:
-        dist.destroy_process_group(group)
+    for g in [group] + ([hier.local_group, hier.cross_group]
+                        if hier is not None else []):
+        if g is not dist.GroupMember.NON_GROUP_MEMBER:
+            dist.destroy_process_group(g)
     return True
 
 
@@ -145,12 +157,13 @@ def reset():
     """Forget every registered set (the world they belong to is gone)."""
     with _lock:
         for ps in _registered.values():
-            ps.process_set_id, ps._group = None, None
+            ps.process_set_id, ps._group, ps.hierarchy = None, None, None
         _registered.clear()
         _next_id[0] = 1
+        global_process_set.hierarchy = None
 
 
 # Last: ``basics`` imports this module.  A set's rank and size queries
 # run per collective on the cycle thread, so not an import each call.
 from . import basics  # noqa: E402
-from ..ops import fastpath  # noqa: E402
+from ..ops import fastpath, multihost  # noqa: E402

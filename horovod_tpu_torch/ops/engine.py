@@ -12,7 +12,9 @@ A caller enqueues named requests and gets a ``Handle``.  One cycle
 thread per rank drains what was enqueued since its last cycle, sends it
 to the controller (a cache bit for a tensor the response cache knows,
 the full request otherwise), and executes the coordinator's response
-list, in order, through ``ops/collectives.py``.  No other thread issues
+list, in order, through ``ops/multihost.py``: its hierarchical legs
+when the set has them and the payload passes the gate, the flat
+collectives of ``ops/collectives.py`` otherwise.  No other thread issues
 collectives on the data group while the engine runs, so every rank
 issues them in the broadcast order.  The cycle thread sleeps on a
 condition variable.  New work goes out in the first cycle that starts
@@ -59,6 +61,7 @@ from ..utils.stall_inspector import StallInspector
 from ..utils.timeline import Timeline
 from . import collectives as C
 from . import fastpath
+from . import multihost as mh
 from .op_manager import OpManager
 
 LOG = logging.getLogger("horovod_tpu_torch")
@@ -685,8 +688,9 @@ class Engine:
                     backend.consume({b.token: None})
                 tensors = [e.tensor for e in entries]
                 backend.in_use(tensors)
-                outs = C.allreduce(tensors, q.red_op, q.prescale, q.postscale,
-                                   ps.size(), ps.group)
+                outs = mh.allreduce(tensors, q.red_op, q.prescale,
+                                    q.postscale, ps,
+                                    None if fused else names[0])
                 token = backend.produce()
             except Exception as exc:  # noqa: BLE001 - reported on the handles
                 LOG.error("frozen allreduce %s failed: %s", names, exc)
@@ -788,24 +792,28 @@ class Engine:
                         if e is not None)
 
     def _execute(self, r: Response, tensors, ps) -> list:
+        """Run ``r`` through ``ops/multihost.py``, which takes the
+        hierarchical legs when the set has them and the payload passes
+        the gate, and the flat collectives of ``ops/collectives.py``
+        otherwise; Adasum is always flat.  A one-entry group's name keys
+        its error-feedback residuals."""
         q = r.requests[0]
-        group, n = ps.group, ps.size()
+        name = r.names[0] if len(r.names) == 1 else None
         if r.op_type == ALLREDUCE:
             if r.red_op == ADASUM:
+                mh.count_flat("allreduce", sum(t.numel() * t.element_size()
+                                               for t in tensors))
                 return [C.adasum_allreduce(t, q.prescale, r.postscale, ps)
                         for t in tensors]
-            return C.allreduce(tensors, r.red_op, q.prescale, r.postscale, n,
-                               group)
+            return mh.allreduce(tensors, r.red_op, q.prescale, r.postscale,
+                                ps, name)
         if r.op_type == ALLGATHER:
-            return [C.allgather(tensors[0], r.aux, group)]
+            return [mh.allgather(tensors[0], r.aux, ps)]
         if r.op_type == BROADCAST:
-            return [C.broadcast_(tensors[0], q.root_rank, group)]
+            return [mh.broadcast_(tensors[0], q.root_rank, ps)]
         if r.op_type == REDUCESCATTER:
-            return [C.reducescatter(tensors[0], r.red_op, n, ps.rank(),
-                                    group)]
+            return [mh.reducescatter(tensors[0], r.red_op, ps, name)]
         if r.op_type == ALLTOALL:
-            me = ps.rank()
-            send = r.aux[me * n:(me + 1) * n]
-            recv = r.aux[me::n]
-            return [(C.alltoall(tensors[0], send, recv, group), recv)]
+            n, me = ps.size(), ps.rank()
+            return [(mh.alltoall(tensors[0], r.aux, ps), r.aux[me::n])]
         raise HorovodInternalError("unknown op %r" % r.op_type)

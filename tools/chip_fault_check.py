@@ -28,8 +28,12 @@ scale-sum kernel at every case of its bit check (its outputs in a
 NaN-poisoned block), and the Adasum reduction of the small BERT's
 gradients over four 2-row shards against the same reduction with the
 plain version, bit for bit (the BERT-Large path's check at a size that
-builds in seconds).  The first case, ``none``, applies no edit; names
-on the command line run ``none`` and those faults only.
+builds in seconds), then the codec phase's check of the fp8 edge values
+(``codec_edge_mismatches``: the plain e4m3 cast's bytes on the card
+against the reference's).  One fault is a codec's, planted in
+``compression.py``: an fp8 cast that saturates instead of giving NaN;
+its case runs the codec check alone.  The first case, ``none``, applies
+no edit; names on the command line run ``none`` and those faults only.
 
 A check process that dies is recorded at the shape (or at the model
 checks) it was in, and a fresh process runs the rest, so that every
@@ -68,6 +72,12 @@ _DQ_STORE = ("tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, "
 _DQ_MAP = "panel_map<D, 4>(&mdq, dq, s, bh, 64)"
 FAULTS = {
     "none": None,
+    "fp8_cast_saturates": (
+        "../compression.py",
+        "    return torch.where(overflow, nan, wire).view(FP8_WIRE_DTYPE)",
+        "    return x.clamp(-E4M3_MAX, E4M3_MAX).to(FP8_WIRE_DTYPE)",
+        "codec: the plain e4m3 cast saturates at +-448 past its range and "
+        "for infinities, where the reference gives NaN"),
     "fwd_diagonal_tile": (
         "flash_fwd.cu",
         "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
@@ -262,6 +272,8 @@ CUDA_FAULT = re.compile(
     r"hardware stack error|operation not supported on global/shared address "
     r"space|invalid program counter)")
 MODELS = "the model checks"
+CODECS = "the codec check"
+CODEC_FAULTS = {"fp8_cast_saturates"}
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs
@@ -283,6 +295,8 @@ for unit in json.loads(sys.argv[1]):
         x, dy, r, g, b = cs.bn_inputs(m, c, residual)
         res = {"errs": cs.bn_errors(bn, x, dy, r, g, b, relu)[0]}
         del x, dy, r
+    elif unit == nf + nb + 1:
+        res = {"edge": cs.codec_edge_mismatches()}
     else:
         loss, leaves = cs.model_errors()
         rn_loss, rn_leaves, rn_bf16 = cs.resnet_model_errors()
@@ -299,17 +313,19 @@ for unit in json.loads(sys.argv[1]):
 
 def unit_labels(cs):
     """The check units of a case, in the order a check process runs them:
-    each attention shape, each BN shape, then the model checks."""
+    each attention shape, each BN shape, the model checks, then the codec
+    check."""
     return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
-            + [shape[0] for shape in cs.BN_SHAPES] + [MODELS])
+            + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS])
 
 
-def run_case(name, fault, labels):
+def run_case(name, fault, labels, units=None):
     """Copy the package, plant ``fault`` (and the mbarrier watchdog, so a
-    lost arrival traps instead of hanging) and run every check unit.
-    A process that dies is recorded at the unit it was in, and a fresh
-    one runs the units after it.  -> ({label: readings}, {label: the
-    dead process's stderr})."""
+    lost arrival traps instead of hanging) and run the check units
+    ``units`` (indices into ``labels``; every one if None).  A process
+    that dies is recorded at the unit it was in, and a fresh one runs the
+    units after it.  -> ({label: readings}, {label: the dead process's
+    stderr})."""
     work = WORK / name
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(REPO / "horovod_tpu_torch", work / "horovod_tpu_torch",
@@ -332,7 +348,7 @@ def run_case(name, fault, labels):
                                    % (name, s))
             path.write_text(text.replace(o, n))
     readings, died = {}, {}
-    todo = list(range(len(labels)))
+    todo = list(range(len(labels))) if units is None else list(units)
     while todo:
         try:
             proc = subprocess.run(
@@ -429,10 +445,20 @@ def main(argv) -> int:
     print(cs.card_line(), flush=True)
     labels = unit_labels(cs)
     nf = len(cs.FLASH_SHAPES)
-    flash_labels, bn_labels = labels[:nf], labels[nf:-1]
+    flash_labels, bn_labels = labels[:nf], labels[nf:-2]
     ok = True
     for name, fault in FAULTS.items():
         if argv and name != "none" and name not in argv:
+            continue
+        if name in CODEC_FAULTS:
+            readings, died = run_case(name, fault, labels,
+                                      [labels.index(CODECS)])
+            edge = readings.get(CODECS, {}).get("edge")
+            print("%s: %s\n  fp8 edge values off the reference's bytes: %s"
+                  "\n  verdict: codec check %s" % (
+                      name, fault[3], edge,
+                      "fails" if edge or died else "passes"), flush=True)
+            ok &= bool(edge) and not died
             continue
         readings, died = run_case(name, fault, labels)
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
@@ -466,7 +492,11 @@ def main(argv) -> int:
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
-            ok &= not (died or failed_at or any(models))
+            edge = readings.get(CODECS, {}).get("edge")
+            print("  codec check: fp8 edge values off the reference's "
+                  "bytes: %s" % edge)
+            ok &= not (died or failed_at or any(models) or edge
+                       or CODECS not in readings)
         elif fault[0] == "scale_sum.cu":
             ok &= models[3] and models[4]
         else:

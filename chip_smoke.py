@@ -19,6 +19,11 @@
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
    ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
+   four flash kernels' CUDA-core twins (``csrc/flash_simt.cu``) in f32
+   and f16 at the same attention shapes and a ragged causal one (BH 2, S
+   130, D 64), and untimed at BH 65,600, against SDPA in the same dtype
+   (f16 outputs also by the share of elements off the plain version's);
+   the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
    word-embedding gradient, three coefficient pairs and three dtypes,
    aligned and offset by one element, with an inf and a NaN and with
@@ -28,7 +33,10 @@
    on the CPU (plain versions): the decoder (bf16; at head_dim 128 and at
    96, which ``flash_attention`` zero-pads to the kernels' 128),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
-   loss) and BERT (bf16, under both backward choices).
+   loss) and BERT (bf16, under both backward choices).  Then the small
+   decoder at dtype float32 (the CUDA-core kernels) trained 3 Adam steps
+   through ``make_train_step`` on a one-rank world under each backward
+   choice, against the same steps in f32 on the CPU.
 4. The main paths, each run with every launch count set to 0 just
    before it and read just after, from numpy seeds at full width and
    depth.  Through ``hvd.init()`` (a one-rank NCCL world),
@@ -48,7 +56,13 @@
    then BERT-Large fine-tuning (batch 32, seq 384, AdamW with 8 groups
    and the fp16 wire, ``HVD_TPU_FLASH_BWD=pallas_onepass``; flash
    forward and one-pass backward 24 launches a step each, every
-   allreduce fp16).  Then BERT-Large Adasum fine-tuning, the in-process
+   allreduce fp16).  Between the decoder and ResNet-50, the main path
+   of the CUDA-core kernels: the decoder at the same width and depth at
+   dtype float32, one step through ``make_train_step`` under each
+   backward choice from the same weights (flash forward 2 x 12 launches,
+   dq, dk/dv and one-pass 12 each), each step's loss and gradients
+   against the same model's on the plain attention path on the card.
+   Then BERT-Large Adasum fine-tuning, the in-process
    form of Adasum allreduce: the gradients of four 8-row shards of the
    same batch 32, one after another, stacked and reduced by
    ``adasum_reduce_stacked`` (the scale-sum kernel 3 times per gradient
@@ -94,8 +108,17 @@
    steps under ``HOROVOD_CROSS_HOST_COMPRESSION=int8``: one local rank,
    so every collective flat, none compressed, one warning, and the
    reduced gradients bit for bit against the same step without it.
-5. Prints one JSON line of kernel records (nine kernels), then as the
-   last line ``{"ok": true, "device": {...}}``.
+   The guard phase runs the decoder's buckets through ``mh.allreduce``
+   with the global set's hierarchy on one-member NCCL groups under int8:
+   one dropped leg attempt bit for bit the unarmed call (outputs and
+   residuals), an unbounded drop the flat result, demotion after the
+   threshold through ``check_degraded_routes()`` and the re-probe.  Last,
+   the deadline phase: a one-rank engine under
+   ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
+   must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
+   enqueue and shut down.
+5. Prints one JSON line of kernel records (thirteen kernels), then as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
@@ -143,12 +166,42 @@ FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE,
 WIDE_BH_SHAPE = (65600, 64, 32, True)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_bwd_onepass")
+# The CUDA-core flash kernels (csrc/flash_simt.cu) in f32 and f16 against
+# their plain versions on the same inputs, by compare's rule, every output
+# under one (rtol, atol) per dtype.  Both cast P and dS at the same values
+# (the forward takes the row max first), so they differ by the order of
+# f32 sums alone.  Held at FLASH_SHAPES and a ragged causal D 64 shape,
+# and untimed at WIDE_BH_SHAPE.
+# f16 outputs (o, dk, dv) are also held to the share of their elements
+# that differ at all from the plain version's, F16_OFF_SHARE at most: a
+# sum whose f32 value moved by its summation order rounds to another f16
+# value about once in thousands of elements, while a cast left out moves
+# it by about half an f16 ulp and so flips a large share of them, below
+# what one ulp of tolerance on each element can see.
+SIMT_DTYPES = ("float32", "float16")
+SIMT_TOL = {"float32": (2 ** -16, 2 ** -16), "float16": (2 ** -10, 2 ** -10)}
+F16_OFF_SHARE = 2 ** -6
+SIMT_SHAPES = FLASH_SHAPES + ((2, 130, 64, True),)
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
 # Held at head_dim 128 and at 96, which the kernels take zero-padded.
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96)
+# The small decoder at dtype float32 (the CUDA-core flash kernels) trained
+# on the card through make_train_step (Adam, a one-rank world) against
+# the same steps in f32 on the CPU (plain versions, torch.optim.Adam):
+# each step's loss and the last step's gradients, relative, under each
+# backward choice.  f32 on both sides: summation order only.
+F32_STEPS = 3
+F32_LOSS_TOL, F32_LEAF_TOL = 1e-5, 1e-4
+# The decoder flagship's width and depth at dtype float32: one step under
+# each backward choice from the same weights, through make_train_step,
+# each held against the same model's loss and gradients on the plain
+# attention path (HOROVOD_FLASH_ATTENTION=0) on the card.  Only attention
+# differs and both are f32, so summation order only: the small decoder's
+# tolerances.
+F32_FLAGSHIP = dict(d=1024, layers=12, seq=2048, batch=4)
 STEPS = 5
 # Untimed steps before a flagship's timed ones: its rounds (a step each,
 # after the broadcast rounds of its set-up) warm the fast path for
@@ -278,14 +331,15 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_inputs(bh, s, d):
-    """q (pre-scaled), k, v and the output gradient, bf16, from a seed."""
+def kernel_inputs(bh, s, d, dtype="bfloat16"):
+    """q (pre-scaled), k, v and the output gradient in ``dtype``, from a
+    seed."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(bh * 100003 + s)
 
     def rnd(scale=1.0):
         return (torch.randn(bh, s, d, generator=g, device="cuda")
-                * scale).to(torch.bfloat16)
+                * scale).to(getattr(torch, dtype))
 
     return rnd(1 / math.sqrt(d)), rnd(), rnd(), rnd()
 
@@ -308,21 +362,41 @@ def compare(got, want, rtol, atol):
             "max_abs_plain": want.abs().max().item()}
 
 
+def flash_kernels(fa, dtype):
+    """FLASH_KERNELS' wrappers for inputs of ``dtype``: the Hopper
+    kernels for bf16, the CUDA-core ones for f32 and f16."""
+    return dict(zip(FLASH_KERNELS, fa.HOPPER_KERNELS if dtype == "bfloat16"
+                    else fa.SIMT_KERNELS))
+
+
+def flash_tol(dtype):
+    """(rtol, atol) per output for kernels on inputs of ``dtype``."""
+    if dtype == "bfloat16":
+        return KERNEL_TOL
+    return dict.fromkeys(KERNEL_TOL, SIMT_TOL[dtype])
+
+
+def dtype_name(t) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
 def kernel_errors(fa, q, k, v, do, causal):
     """Every kernel's outputs against its plain version on the same
-    inputs: ({kernel: {output: compare(...)}}, whether the one-pass
-    partials landed in a NaN-poisoned block), plus lse and delta for the
-    timings."""
+    inputs (the kernels of the inputs' dtype): ({kernel: {output:
+    compare(...)}}, whether the one-pass partials landed in a
+    NaN-poisoned block), plus lse and delta for the timings."""
     import torch
+    kern = flash_kernels(fa, dtype_name(q))
+    tol = flash_tol(dtype_name(q))
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
     dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref,
                                                     delta, causal)
     dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(
         q, k, v, do, lse_ref, delta, causal)
-    o, lse = fa.flash_fwd_kernel(q, k, v, causal)
-    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse_ref, delta, causal)
-    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse_ref, delta, causal)
+    o, lse = kern["flash_fwd"](q, k, v, causal)
+    dq = kern["flash_bwd_dq"](q, k, v, do, lse_ref, delta, causal)
+    dk, dv = kern["flash_bwd_dkv"](q, k, v, do, lse_ref, delta, causal)
     # Poison the allocator: the partials' block comes back full of NaN, so
     # a slot the kernel leaves unwritten reads NaN, not a stale zero.
     torch.cuda.synchronize()
@@ -330,17 +404,23 @@ def kernel_errors(fa, q, k, v, do, causal):
     poison = torch.full(dqp_ref.shape, float("nan"), device=q.device)
     poisoned_ptr = poison.data_ptr()
     del poison
-    dqp, dk1, dv1 = fa.flash_bwd_onepass_kernel(q, k, v, do, lse_ref, delta,
-                                                causal)
+    dqp, dk1, dv1 = kern["flash_bwd_onepass"](q, k, v, do, lse_ref, delta,
+                                              causal)
     torch.cuda.synchronize()
     outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)},
                "flash_bwd_dq": {"dq": (dq, dq_ref)},
                "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
                "flash_bwd_onepass": {"dqp": (dqp, dqp_ref), "dk": (dk1, dk1_ref),
                                      "dv": (dv1, dv1_ref)}}
-    errs = {name: {out: compare(got, want, *KERNEL_TOL[out])
+    errs = {name: {out: compare(got, want, *tol[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
+    for name, outs in outputs.items():
+        for out, (got, want) in outs.items():
+            if got.dtype == torch.float16:
+                e = errs[name][out]
+                e["off_share"] = (got != want).float().mean().item()
+                e["worst"] = max(e["worst"], e["off_share"] / F16_OFF_SHARE)
     return errs, dqp.data_ptr() == poisoned_ptr, lse_ref, delta
 
 
@@ -363,12 +443,13 @@ def held_errors(fa, q, k, v, do, causal, label):
     """``kernel_errors``, printed; raises if any output is past its
     limit."""
     errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
+    tol = flash_tol(dtype_name(q))
     for name, outs in errs.items():
         for out, e in outs.items():
             say("  %s %s at %s: %s (rtol %.3g, atol %.3g x row scale)" % (
                 name, out, label, json.dumps({k: float("%.4g" % x)
                                               for k, x in e.items()}),
-                *KERNEL_TOL[out]))
+                *tol[out]))
     say("  flash_bwd_onepass partials in a NaN-poisoned block: %s" % poisoned)
     bad = ["%s %s" % (name, out) for name, outs in errs.items()
            for out, e in outs.items() if not e["worst"] <= 1.0]
@@ -382,20 +463,25 @@ def shape_label(bh, s, d, causal):
     return "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
 
 
-def check_kernels(fa, bh, s, d, causal):
-    """One shape: every kernel against its plain version, timed beside
-    the plain version and SDPA, and both whole backward variants timed
-    (dq + dk/dv kernels; one-pass kernel + the partials' sum); returns
-    one record per kernel, whose ``launches`` counts this check's
-    launches (not the main path's), and the variants' times."""
+def check_kernels(fa, bh, s, d, causal, dtype="bfloat16"):
+    """One shape: every kernel for inputs of ``dtype`` against its plain
+    version, timed beside the plain version and SDPA, and both whole
+    backward variants timed (dq + dk/dv kernels; one-pass kernel + the
+    partials' sum); returns one record per kernel, whose ``launches``
+    counts this check's launches (not the main path's), and the
+    variants' times.  Bounds: bf16 and f16 at the tensor cores' 989
+    TFLOP/s, f32 at the CUDA cores' 67 (exact f32 products are not
+    tensor-core work)."""
     import torch
     import torch.nn.functional as F
-    q, k, v, do = kernel_inputs(bh, s, d)
+    q, k, v, do = kernel_inputs(bh, s, d, dtype)
+    wrappers = flash_kernels(fa, dtype)
+    peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     fa.reset_launch_counts()
     errs, lse_ref, delta = held_errors(fa, q, k, v, do, causal,
                                        shape_label(bh, s, d, causal))
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
-    io, rows = bh * s * d * 2, bh * s * 4
+    io, rows = bh * s * d * q.element_size(), bh * s * 4
     partials = bh * -(-s // fa.BLOCK_K) * s * d * 4
     work = {  # (FLOP, bytes): each input read once, each output written once
         "flash_fwd": (4 * d * pairs, 4 * io + rows),
@@ -407,18 +493,18 @@ def check_kernels(fa, bh, s, d, causal):
     for name, outs in errs.items():
         rec = {"max_abs_err": max(e["max_abs_err"] for e in outs.values()),
                "worst": max(e["worst"] for e in outs.values())}
-        rec["bound_ms"], rec["bound_by"] = bound(*work[name])
+        rec["bound_ms"], rec["bound_by"] = bound(*work[name], peak=peak)
         records[name] = rec
 
     bwd = (q, k, v, do, lse_ref, delta, causal)
     runs = {
-        "flash_fwd": (lambda: fa.flash_fwd_kernel(q, k, v, causal),
+        "flash_fwd": (lambda: wrappers["flash_fwd"](q, k, v, causal),
                       lambda: fa.flash_fwd_reference(q, k, v, causal)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq_kernel(*bwd),
+        "flash_bwd_dq": (lambda: wrappers["flash_bwd_dq"](*bwd),
                          lambda: fa.flash_bwd_reference(*bwd)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_kernel(*bwd),
+        "flash_bwd_dkv": (lambda: wrappers["flash_bwd_dkv"](*bwd),
                           lambda: fa.flash_bwd_reference(*bwd)),
-        "flash_bwd_onepass": (lambda: fa.flash_bwd_onepass_kernel(*bwd),
+        "flash_bwd_onepass": (lambda: wrappers["flash_bwd_onepass"](*bwd),
                               lambda: fa.flash_bwd_onepass_reference(*bwd)),
     }
     # The yardstick, never called by the port: SDPA at the same shape
@@ -444,18 +530,20 @@ def check_kernels(fa, bh, s, d, causal):
     variants["sdpa"] = lib_bwd
     counts = fa.launch_counts()
     for name in FLASH_KERNELS:
-        records[name]["launches"] = counts[name + "_kernel"]
+        records[name]["launches"] = counts[wrappers[name].__name__]
     return records, variants
 
 
-def check_flash_kernels(fa):
-    """The four flash kernels at FLASH_SHAPES -> {shape: records}, then
-    held at WIDE_BH_SHAPE."""
+def check_flash_kernels(fa, dtype="bfloat16"):
+    """The four flash kernels for ``dtype`` at their shapes (FLASH_SHAPES,
+    or SIMT_SHAPES for f32 and f16) -> {shape: records}, then held at
+    WIDE_BH_SHAPE."""
     import torch
     out = {}
-    for bh, s, d, causal in FLASH_SHAPES:
-        label = shape_label(bh, s, d, causal)
-        records, variants = check_kernels(fa, bh, s, d, causal)
+    shapes = FLASH_SHAPES if dtype == "bfloat16" else SIMT_SHAPES
+    for bh, s, d, causal in shapes:
+        label = "%s %s" % (shape_label(bh, s, d, causal), dtype)
+        records, variants = check_kernels(fa, bh, s, d, causal, dtype)
         for name, rec in records.items():
             say("kernel %s %s: %s" % (name, label, json.dumps(
                 {k: (round(v, 6) if isinstance(v, float) else v)
@@ -466,8 +554,8 @@ def check_flash_kernels(fa):
                variants["sdpa"]))
         out[(bh, s, d, causal)] = records
     *wide, causal = WIDE_BH_SHAPE
-    held_errors(fa, *kernel_inputs(*wide), causal,
-                shape_label(*WIDE_BH_SHAPE) + " (untimed)")
+    held_errors(fa, *kernel_inputs(*wide, dtype), causal,
+                "%s %s (untimed)" % (shape_label(*WIDE_BH_SHAPE), dtype))
     torch.cuda.empty_cache()
     return out
 
@@ -499,6 +587,142 @@ def model_errors(head_dim=128):
     leaves = {n: ((g_gpu[n] - g).norm() / g.norm()).item()
               for n, g in g_cpu.items()}
     return abs(l_gpu - l_cpu) / abs(l_cpu), leaves
+
+
+def train_f32_decoder(torch):
+    """The CUDA-core kernels' main path: the small decoder (2 heads of 128,
+    2 layers) at dtype float32 takes F32_STEPS Adam steps through
+    ``make_train_step`` on a one-rank world on the card, under each
+    backward choice, and the same steps run in f32 on the CPU; every
+    launch count set to 0 just before, read just after -> the counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import init_params, params_from_jax
+    from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import make_train_step, synthetic_batch
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=2, n_kv_heads=1, d_ff=512, max_seq=256,
+                            dtype="float32", logits_dtype="f32")
+    params, batch = init_params(cfg, seed=1), synthetic_batch(cfg, 2, seed=1)
+    adam = lambda ps: torch.optim.Adam(ps, 1e-3)  # noqa: E731
+    hvd.init()
+    fa.reset_launch_counts()
+    bad = []
+    for choice in ("pallas", "pallas_onepass"):
+        with flash_bwd_env(choice):
+            build, shard_batch = make_train_step(cfg, adam)
+            step, model, _ = build(params)
+            data = shard_batch(batch)
+            card = [step(data).item() for _ in range(F32_STEPS)]
+            ref = params_from_jax(params, cfg, "cpu")
+            opt = adam(ref.parameters())
+            b = {k: torch.as_tensor(v) for k, v in batch.items()}
+            cpu = []
+            for _ in range(F32_STEPS):
+                opt.zero_grad()
+                loss = loss_fn(ref, b)
+                loss.backward()
+                opt.step()
+                cpu.append(loss.item())
+        losses = [abs(a - c) / abs(c) for a, c in zip(card, cpu)]
+        got = dict(model.named_parameters())
+        leaves = {n: ((got[n].grad.cpu() - p.grad).norm() / p.grad.norm())
+                  .item() for n, p in ref.named_parameters()}
+        worst = max(leaves, key=leaves.get)
+        say("f32 decoder training (%s): %d Adam steps on the card against the "
+            "CPU, loss relative errors %s (tol %.3g); last step's gradients' "
+            "relative norm error: worst %s %.3g (tol %.3g)"
+            % (choice, F32_STEPS, ["%.3g" % e for e in losses], F32_LOSS_TOL,
+               worst, leaves[worst], F32_LEAF_TOL))
+        if max(losses) > F32_LOSS_TOL or leaves[worst] > F32_LEAF_TOL:
+            bad.append(choice)
+    counts = fa.launch_counts()
+    hvd.shutdown()
+    say("launches on the f32 decoder path: %s" % counts)
+    n = cfg.n_layers * F32_STEPS
+    check_counts(counts, {"flash_fwd_simt_kernel": 2 * n,
+                          "flash_bwd_dq_simt_kernel": n,
+                          "flash_bwd_dkv_simt_kernel": n,
+                          "flash_bwd_onepass_simt_kernel": n})
+    if bad:
+        raise AssertionError("the f32 decoder on the card disagrees with the "
+                             "CPU under %s" % bad)
+    return counts
+
+
+def train_f32_flagship(torch):
+    """The CUDA-core kernels' main path at the decoder flagship's width
+    (bench.py:86-91, as ``train_flagship``) in float32: every launch count
+    set to 0 just before its two steps, read just after -> the counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import init_params, params_from_jax
+    from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import make_train_step, synthetic_batch
+
+    hvd.init()
+    d, L = F32_FLAGSHIP["d"], F32_FLAGSHIP["layers"]
+    seq, batch = F32_FLAGSHIP["seq"], F32_FLAGSHIP["batch"]
+    cfg = TransformerConfig(vocab_size=8192, d_model=d, n_layers=L,
+                            n_heads=d // 128, n_kv_heads=d // 128,
+                            d_ff=d * 3, max_seq=seq, dtype="float32",
+                            logits_dtype="f32")
+    t0 = time.perf_counter()
+    build, shard_batch = make_train_step(
+        cfg, lambda params: torch.optim.Adam(params, 1e-3))
+    params = init_params(cfg, seed=0)
+    step, model, _ = build(params)
+    data = shard_batch(synthetic_batch(cfg, batch, seed=0))
+    start = [p.detach().clone() for p in model.parameters()]
+    # The plain path on a copy of the weights with no gradient hooks.
+    ref = params_from_jax(params, cfg, start[0].device)
+    fa.reset_launch_counts()
+    with env_set(HOROVOD_FLASH_ATTENTION="0"):
+        loss = loss_fn(ref, data)
+        loss.backward()
+    want = loss.item()
+    plain = {n: p.grad for n, p in ref.named_parameters()}
+    del ref, loss
+    if any(fa.launch_counts().values()):
+        raise AssertionError("the plain attention path launched flash "
+                             "kernels: %s" % fa.launch_counts())
+    say("f32 flagship: d%d L%d hd%d seq %d batch %d, %d parameters; set-up "
+        "and the plain path's loss and gradients %.1f s"
+        % (d, L, cfg.head_dim, seq, batch, sum(p.numel() for p in start),
+           time.perf_counter() - t0))
+    fa.reset_launch_counts()
+    bad = []
+    for choice in ("pallas", "pallas_onepass"):
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), start):
+                p.copy_(p0)
+        with flash_bwd_env(choice):
+            t = time.perf_counter()
+            got = step(data).item()
+            took = time.perf_counter() - t
+        loss_err = abs(got - want) / abs(want)
+        leaves = {n: ((p.grad - plain[n]).norm() / plain[n].norm()).item()
+                  for n, p in model.named_parameters()}
+        worst = max(leaves, key=leaves.get)
+        say("f32 flagship step (%s): %.2f ms (its first step, negotiation "
+            "included); loss relative error against the plain path %.3g "
+            "(tol %.3g); gradients' relative norm error: worst %s %.3g "
+            "(tol %.3g)" % (choice, took * 1e3, loss_err, F32_LOSS_TOL,
+                            worst, leaves[worst], F32_LEAF_TOL))
+        if not (loss_err <= F32_LOSS_TOL and leaves[worst] <= F32_LEAF_TOL):
+            bad.append(choice)
+    counts = fa.launch_counts()
+    hvd.shutdown()
+    say("launches on the f32 flagship path (2 steps): %s" % counts)
+    check_counts(counts, {"flash_fwd_simt_kernel": 2 * L,
+                          "flash_bwd_dq_simt_kernel": L,
+                          "flash_bwd_dkv_simt_kernel": L,
+                          "flash_bwd_onepass_simt_kernel": L})
+    if bad:
+        raise AssertionError("the f32 flagship on the card disagrees with "
+                             "its plain attention path under %s" % bad)
+    return counts
 
 
 def check_model():
@@ -840,6 +1064,8 @@ def print_ptxas(text: str):
         elif name and "registers" in line:
             # _ZN8hvdflash16flash_fwd_kernelILi128ELb1EEEv... -> kernel<128, 1>
             k = re.search(r"hvdflash\d+(\w+?)ILi(\d+)ELb(\d)E", name)
+            t = re.search(r"hvdsimt\d+(\w+?)I(f|6__half)Li(\d+)ELb(\d)E",
+                          name)
             b = re.search(r"hvdbn\d+(bn_\w+?_kernel)", name)
             if b:
                 regs = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -847,7 +1073,10 @@ def print_ptxas(text: str):
                             .group(1)) if spills else 0
                 bn_regs.setdefault(b.group(1), []).append((regs, spill))
             else:
-                label = "%s<%s, %s>" % k.groups() if k else name
+                label = ("%s<%s, %s>" % k.groups() if k else
+                         "simt %s<%s, %s, %s>" % (
+                             t.group(1), "half" if "half" in t.group(2)
+                             else "float", *t.groups()[2:]) if t else name)
                 say("  ptxas %-26s %s; %s" % (
                     label, line.split(":", 1)[-1].strip(), spills))
             name = None
@@ -1051,10 +1280,12 @@ def capture_buckets(torch, step, data):
 
 
 def check_counts(counts, expected):
+    """Every count as ``expected`` says; a kernel it does not name must
+    not have launched."""
     for name, n in counts.items():
-        if n != expected[name]:
+        if n != expected.get(name, 0):
             raise AssertionError("%s launched %d times, expected %d"
-                                 % (name, n, expected[name]))
+                                 % (name, n, expected.get(name, 0)))
 
 
 ENGINE_SERIES = {"cycles": "engine_cycles_total",
@@ -2270,6 +2501,164 @@ def check_gate_on_card(torch, frozen_grads):
                              % (moved, warned, differ[:4]))
 
 
+GUARD_DEMOTE_THRESHOLD = 2
+
+
+def check_guard_on_card(torch, buckets):
+    """The leg guard on the card: the decoder's frozen gradient buckets
+    through ``mh.allreduce`` (the engine's entry) with the global set's
+    hierarchy on one-member NCCL groups under int8 and error feedback
+    (``HOROVOD_LEG_RETRY_BACKOFF=0``): one dropped attempt gives outputs
+    and residuals bit for bit the unarmed call's; an unbounded drop the
+    flat result, bit for bit, every residual untouched;
+    ``GUARD_DEMOTE_THRESHOLD`` exhaustions of one size class and
+    ``check_degraded_routes()`` (a one-rank world decides locally) route
+    its next call flat with no leg attempt, and a re-probe routes it back.
+    Host ms of each run (10 buckets, synchronised) are printed."""
+    import horovod_tpu_torch as hvd
+    import torch.distributed as dist
+    from horovod_tpu_torch.common import faultline, metrics, resilience
+    from horovod_tpu_torch.common.process_sets import global_process_set as ps
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import multihost as mh
+
+    hvd.init()
+    groups = (dist.new_group([0]), dist.new_group([0]))
+    codec = mh._resolve_codec("int8")
+
+    def counts():
+        return [metrics.series_sum("mh_collective_path_total", op="allreduce",
+                                   path=p) for p in ("hier", "flat")] + [
+            metrics.series_sum("fault_injections_total"),
+            metrics.series_sum("mh_leg_retries_total")]
+
+    def run(fault, which=None):
+        """Each bucket (or bucket ``which``) once through mh.allreduce on
+        a fresh plane -> (outputs, residuals, ms, count deltas)."""
+        h = ps.hierarchy = mh.Hierarchy(*groups, [[0]], 0, 0, codec=codec,
+                                        mode="on")
+        pick = (list(enumerate(buckets)) if which is None
+                else [(which, buckets[which])])
+        with env_set(HVD_TPU_FAULT=fault) if fault else \
+                contextlib.nullcontext():
+            faultline.reset()
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = [mh.allreduce([b], "Sum", 1.0, 1.0, ps, "bucket%d" % i)[0]
+                    for i, b in pick]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        faultline.reset()
+        res = [v for lru in (h._res2, h.ef._residuals) for v in lru.values()]
+        return outs, res, ms, [a - b for a, b in zip(counts(), before)]
+
+    off = []
+    with env_set(HOROVOD_LEG_RETRY_BACKOFF="0",
+                 HOROVOD_LEG_DEMOTE_THRESHOLD=str(GUARD_DEMOTE_THRESHOLD),
+                 HOROVOD_LEG_REPROBE_SECS="1000"):
+        run(None)  # the groups' communicators start on first use
+        clean, clean_res, clean_ms, clean_n = run(None)
+        got, got_res, retry_ms, retry_n = run("mh.leg.drop:drop@times=1")
+        if not (all(bytes_equal(a, b) for a, b in zip(got, clean))
+                and len(got_res) == len(clean_res)
+                and all(bytes_equal(a, b) for a, b in zip(got_res, clean_res))
+                and retry_n == [len(buckets), 0, 1, 1]):
+            off.append("one dropped attempt: %s" % retry_n)
+        del got, got_res, clean_res
+        flat = [C.allreduce([b], "Sum", 1.0, 1.0, 1, ps.group)[0]
+                for b in buckets]
+        got, got_res, degraded_ms, degraded_n = run("mh.leg.drop:drop")
+        if not (all(bytes_equal(a, b) for a, b in zip(got, flat))
+                and not got_res
+                and degraded_n == [0, len(buckets), 3 * len(buckets),
+                                   2 * len(buckets)]):
+            off.append("unbounded drop: %s" % degraded_n)
+        del got
+        resilience.reset()
+        for _ in range(GUARD_DEMOTE_THRESHOLD):
+            run("mh.leg.drop:drop", 0)
+        verdict = resilience.check_degraded_routes()
+        got, _, demoted_ms, demoted_n = run("mh.leg.drop:drop", 0)
+        cls = mh._size_class(buckets[0].numel() * 4)
+        if not (verdict and verdict["action"] == "demote"
+                and verdict["size_class"] == cls
+                and bytes_equal(got[0], flat[0])
+                and demoted_n == [0, 1, 0, 0]):
+            off.append("demotion: %s, %s" % (verdict, demoted_n))
+        os.environ["HOROVOD_LEG_REPROBE_SECS"] = "0.1"
+        time.sleep(0.2)
+        promoted = resilience.check_degraded_routes()
+        got, _, _, promoted_n = run(None, 0)
+        if not (promoted and promoted["action"] == "promote"
+                and bytes_equal(got[0], clean[0])
+                and promoted_n == [1, 0, 0, 0]):
+            off.append("re-probe: %s, %s" % (promoted, promoted_n))
+        del got, flat, clean
+    ps.hierarchy = None
+    hvd.shutdown()
+    say("guard on the card: %d decoder buckets (%d f32) through mh.allreduce, "
+        "int8 with error feedback on one-member NCCL groups: unarmed %.6g ms, "
+        "one dropped attempt %.6g ms (bit for bit), unbounded drop %.6g ms "
+        "(3 attempts and the flat call a bucket; the flat result bit for "
+        "bit); bucket 0 (class %s) demoted after %d exhaustions: %s, then "
+        "flat in %.6g ms with %s, re-probe %s: %s; host ms, synchronised, "
+        "HOROVOD_LEG_RETRY_BACKOFF=0; off: %s"
+        % (len(buckets), sum(b.numel() for b in buckets), clean_ms, retry_ms,
+           degraded_ms, cls, GUARD_DEMOTE_THRESHOLD, json.dumps(verdict),
+           demoted_ms, demoted_n, json.dumps(promoted), promoted_n, off))
+    if off:
+        raise AssertionError("guard on the card: %s" % off)
+
+
+DEADLINE_RAISE_S = 5.0
+
+
+def check_deadline_on_card(torch):
+    """The deadline on the card, last (its world is poisoned): a one-rank
+    engine under ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` and
+    ``mh.deadline.wedge:drop``; an allreduce of a CUDA tensor must raise
+    ``CollectiveDeadlineExceeded`` within DEADLINE_RAISE_S, the next
+    enqueue must raise, and ``shutdown()`` must return."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics, faultline
+
+    with env_set(HOROVOD_COLLECTIVE_TIMEOUT_SECS="1",
+                 HVD_TPU_FAULT="mh.deadline.wedge:drop"):
+        faultline.reset()
+        hvd.init()
+        eng = basics.engine()
+        x = torch.ones(1 << 20, device="cuda")
+        t0 = time.monotonic()
+        raised = nxt = None
+        try:
+            hvd.allreduce(x, name="wedged")
+        except hvd.HorovodInternalError as exc:
+            raised = exc
+        t_raise = time.monotonic()
+        rec = next(iter(eng._watched.values()), None)
+        try:
+            hvd.allreduce(x, name="after")
+        except hvd.HorovodInternalError as exc:
+            nxt = exc
+        t1 = time.monotonic()
+        hvd.shutdown()
+        shutdown_s = time.monotonic() - t1
+    faultline.reset()
+    expiry = (t_raise - rec["start"] - rec["deadline_secs"]
+              if rec is not None else float("nan"))
+    say("deadline on the card: allreduce of %d f32 withheld; raised %s after "
+        "%.3f s (%.3f s after its deadline expired; the watchdog ticks "
+        "every second), next enqueue raised %s, shutdown() returned in %.3f s"
+        % (x.numel(), type(raised).__name__, t_raise - t0, expiry,
+           type(nxt).__name__, shutdown_s))
+    if not (isinstance(raised, hvd.CollectiveDeadlineExceeded)
+            and t_raise - t0 <= DEADLINE_RAISE_S
+            and isinstance(nxt, hvd.CollectiveDeadlineExceeded)
+            and shutdown_s <= DEADLINE_RAISE_S):
+        raise AssertionError("deadline on the card: %r, %r" % (raised, nxt))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2302,6 +2691,7 @@ def main() -> int:
 
     # -- 2: kernels against their plain versions
     flash = check_flash_kernels(fa)
+    simt = {dtype: check_flash_kernels(fa, dtype) for dtype in SIMT_DTYPES}
     bn_err, bn_shape_times = check_bn_kernels(bn)
     ss_records = check_scale_sum_kernel(ss)
 
@@ -2309,10 +2699,13 @@ def main() -> int:
     check_model()
     check_resnet_model()
     check_bert_model()
+    train_f32_decoder(torch)
 
     # -- 4: the main paths, each with every count set to 0 just before
     with flash_bwd_env("pallas"):
         counts, buckets = train_flagship(torch)
+    torch.cuda.empty_cache()
+    simt_counts = train_f32_flagship(torch)
     torch.cuda.empty_cache()
     bn_counts, shapes, prof = train_resnet_flagship(torch)
     for name in BN_KERNELS:
@@ -2346,9 +2739,11 @@ def main() -> int:
     frozen_grads = check_fastpath_on_card(torch)
     check_codecs_on_card(torch, buckets)
     check_legs_on_card(torch, buckets)
+    check_guard_on_card(torch, buckets)
     del buckets
     torch.cuda.empty_cache()
     check_gate_on_card(torch, frozen_grads)
+    check_deadline_on_card(torch)
 
     # -- 5: results
     # (source, TPU kernel, wrapper, the phase-2 shape of its record, the
@@ -2398,7 +2793,14 @@ def main() -> int:
         "torch.add(a.mul(alpha), b, alpha=beta) took %.6g ms)" % (
             len(SS_LENGTHS) * len(SS_DTYPES) * (2 * len(SS_COEFS) + 1),
             adasum_counts["scale_sum_kernel"], SS_LENGTHS[-1],
-            ss_records["float32"]["aten_two_call_ms"]))
+            ss_records["float32"]["aten_two_call_ms"]) + "; " + "; ".join(
+        "%s_simt (f32 and f16) held at %s and %s (phase 2; its record: f32 "
+        "at %s, SDPA in f32 its library_ms), launched %d times in the f32 "
+        "decoder flagship's two steps (phase 4)" % (
+            name, ", ".join(shape_label(*s) for s in SIMT_SHAPES),
+            shape_label(*WIDE_BH_SHAPE), shape_label(*shape),
+            simt_counts[name + "_simt_kernel"])
+        for name, (_, _, _, shape, _) in sources.items()))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -2415,6 +2817,16 @@ def main() -> int:
                     "source": "horovod_tpu_torch/csrc/batch_norm.cu",
                     "replaces": replaces, "launches": bn_counts[wrapper],
                     "max_abs_err": bn_err[name], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"]})
+    for name, (_, replaces, _, shape, _) in sources.items():
+        rec = simt["float32"][shape][name]
+        wrapper = name + "_simt_kernel"
+        out.append({"name": name + "_simt", "route": "cuda",
+                    "source": "horovod_tpu_torch/csrc/flash_simt.cu",
+                    "replaces": replaces, "launches": simt_counts[wrapper],
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})

@@ -36,6 +36,8 @@ for _mod, _names in (
      ("ProcessSet", "global_process_set", "add_process_set",
       "remove_process_set", "process_set_by_id", "process_set_ids")),
     (".common.metrics", ("metrics_snapshot",)),
+    (".common.resilience", ("check_degraded_routes",)),
+    (".ops.engine", ("CollectiveDeadlineExceeded",)),
     (".ops.api",
      ("SUM", "AVERAGE", "MIN", "MAX", "PRODUCT", "ADASUM", "Handle",
       "allreduce", "allreduce_async", "grouped_allreduce",

@@ -29,9 +29,14 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from . import process_sets
+from . import faultline, process_sets, resilience
 from .config import Config
 from .topology import Topology, launched, topology_from_env
+
+
+# How long shutdown() of a poisoned world waits for the cycle thread, once
+# the groups it may be blocked in are gone.
+POISONED_JOIN_SECS = 10.0
 
 
 class _State:
@@ -95,8 +100,14 @@ def init(device=None, comm=None):
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
         config = Config.from_env()
+        resilience.reset()  # a new world starts with no demoted route
         logging.getLogger("horovod_tpu_torch").setLevel(
             config.log_level.upper())
+        if resilience.check_every_commits():
+            logging.getLogger("horovod_tpu_torch").warning(
+                "HOROVOD_DATA_PLANE_CHECK_EVERY has no effect yet: the "
+                "port has no elastic commit hook; call "
+                "hvd.check_degraded_routes() at a point every rank reaches")
         control = dist.new_group(backend="gloo") if topo.size > 1 else None
         from ..ops import multihost
         from ..ops.engine import Engine
@@ -121,17 +132,24 @@ def init(device=None, comm=None):
 
 
 def shutdown():
-    """Tear the world down (``hvd.shutdown``): every rank calls it."""
+    """Tear the world down (``hvd.shutdown``): every rank calls it.  After
+    the engine was poisoned (a collective's deadline expired) it waits
+    for no peer: no teardown barrier, and destroying the groups fails any
+    collective the cycle thread is still blocked in."""
     with _state.lock:
         if _state.topology is None:
             return
-        _state.engine.shutdown()
-        if _state.control is not None:
+        negotiated = _state.engine.shutdown()
+        faultline.site("hvd.shutdown.pre_barrier")
+        if _state.control is not None and negotiated:
             # Every rank is past its last use of this world before any
             # destroys it.
             dist.barrier(group=_state.control)
+        faultline.site("hvd.shutdown.post_barrier")
         process_sets.reset()
         dist.destroy_process_group()
+        if not negotiated:
+            _state.engine.join_thread(POISONED_JOIN_SECS)
         _state.topology = _state.device = _state.engine = None
         _state.control = _state.nodes = None
 

@@ -20,6 +20,12 @@ knobs the engine reads.  Each knob is ``HVD_TPU_<NAME>``, or Horovod's
   ``STALL_SHUTDOWN_TIME_SECONDS`` (0: never): after this long the engine
   fails every outstanding collective on every rank and stops;
   ``STALL_CHECK_DISABLE`` turns both off;
+* ``DEVICE_EXEC_TIMEOUT_SECONDS`` (0: never): the engine's watchdog fails
+  every outstanding collective and takes no more work once an executing
+  one is older than this and nothing completed for as long, on two ticks
+  in a row.  The watchdog also warns about an executing collective older
+  than the stall warning, and enforces the per-collective deadlines of
+  ``HOROVOD_COLLECTIVE_TIMEOUT_SECS`` (``common/resilience.py``);
 * ``LOG_LEVEL``: the ``horovod_tpu_torch`` logger's level (warning);
 * ``FAST_PATH`` (on): freeze a schedule that repeats, after
   ``FAST_PATH_WARM_CYCLES`` (10) identical rounds on every rank, and
@@ -37,14 +43,21 @@ knobs the engine reads.  Each knob is ``HVD_TPU_<NAME>``, or Horovod's
   (64) buckets.
 
 A value that does not parse raises, naming the variable: a typo must not
-silently pin a collective flat or ship full precision.
+silently pin a collective flat or ship full precision.  The resilience
+knobs (``common/resilience.py``) are read apart, under their full names,
+through ``env_float`` / ``env_int``, as the JAX package's
+``common/envutil.py`` reads them: a value that does not parse falls back
+to the default with a warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Optional
+
+LOG = logging.getLogger("horovod_tpu_torch")
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 5.0
@@ -77,6 +90,31 @@ def _env_bool(name: str, default: bool) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_or_default(name: str, default, cast):
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        LOG.warning("ignoring malformed %s=%r; using default %s",
+                    name, raw, default)
+        return default
+
+
+def env_float(name: str, default: float,
+              minimum: Optional[float] = None) -> float:
+    """``name`` as a float, read now; ``minimum`` clamps it."""
+    value = _env_or_default(name, float(default), float)
+    return value if minimum is None else max(minimum, value)
+
+
+def env_int(name: str, default: int, minimum: Optional[int] = None) -> int:
+    """``name`` as an int, read now; ``minimum`` clamps it."""
+    value = _env_or_default(name, int(default), int)
+    return value if minimum is None else max(minimum, value)
 
 
 def _parse_hier_mode(v: Optional[str]) -> str:
@@ -120,6 +158,7 @@ class Config:
     stall_warning_secs: float = DEFAULT_STALL_WARNING_SECS
     stall_shutdown_secs: float = DEFAULT_STALL_SHUTDOWN_SECS
     stall_check_disable: bool = False
+    device_exec_timeout_secs: float = 0.0
     log_level: str = "warning"
     fast_path: bool = True
     fast_path_warm_cycles: int = DEFAULT_FAST_PATH_WARM_CYCLES
@@ -147,6 +186,8 @@ class Config:
                 "STALL_SHUTDOWN_TIME_SECONDS", DEFAULT_STALL_SHUTDOWN_SECS,
                 float),
             stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
+            device_exec_timeout_secs=max(0.0, _env_number(
+                "DEVICE_EXEC_TIMEOUT_SECONDS", 0.0, float)),
             log_level=(_env("LOG_LEVEL") or "warning").lower(),
             fast_path=_env_bool("FAST_PATH", True),
             fast_path_warm_cycles=max(1, _env_number(

@@ -27,6 +27,9 @@ answers every rank with the same ``CycleResponse``
 * ``join`` completes when every rank has joined, with the last rank to
   join; ``shutdown`` when every rank has asked for it;
 * the stall inspector's abort message rides the response as ``abort``;
+* the degraded-route check (``hvd.check_degraded_routes``) completes when
+  every rank has asked for it: rank 0's verdicts ride the response as
+  ``routes`` (the reference publishes them through its rendezvous KV);
 * the fast path's verdicts (``ops/fastpath.py``): rank 0 freezes once
   every rank reported the same freezable round signature for ``warm``
   rounds in a row (a round index completes when every rank has reported
@@ -50,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 from .message import (ADASUM, ALLGATHER, ALLREDUCE, ALLTOALL, AVERAGE,
                       BARRIER, BROADCAST, JOIN, REDUCESCATTER, SUM,
                       CycleRequest, CycleResponse, Request, Response)
+from . import resilience
 from .response_cache import ResponseCache
 from ..utils.stall_inspector import StallInspector
 
@@ -121,6 +125,7 @@ class Controller:
         self._cache_ready: Dict[int, set] = {}
         self._joined: List[int] = []
         self._shutdown = set()
+        self._route_checks = set()  # ranks waiting for a route check
         # Fast path (rank 0): ``freezer`` counts the world's warm streak
         # (``ops/fastpath.ScheduleFreezer``; None: no fast path).
         self._fp = freezer
@@ -173,6 +178,8 @@ class Controller:
             self._shutdown.add(req.rank)
         if req.joined and req.rank not in self._joined:
             self._joined.append(req.rank)
+        if req.route_check:
+            self._route_checks.add(req.rank)
         bits = req.cache_bits
         while bits:
             low = bits & -bits
@@ -318,6 +325,10 @@ class Controller:
             out.responses.append(r)
             self._joined = []
         out.abort = self.stall.check()
+        if len(self._route_checks) == self.size:
+            # Rank 0's own streaks and re-probe clock decide for the world.
+            out.routes = resilience.decide_routes()
+            self._route_checks.clear()
         self._fp_verdict(out)
         return out
 

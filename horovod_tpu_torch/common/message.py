@@ -118,10 +118,11 @@ class CycleRequest:
     round that ended last; ``thaw``, (reason, detail) when this rank asks
     for a thaw; ``staging``, whether it stages a frozen round;
     ``buckets``, the tokens of its filled, undispatched buckets, oldest
-    first."""
+    first.  ``route_check``: this rank waits in
+    ``hvd.check_degraded_routes()``."""
 
     __slots__ = ("rank", "shutdown", "joined", "cache_bits", "requests",
-                 "round_report", "thaw", "staging", "buckets")
+                 "round_report", "thaw", "staging", "buckets", "route_check")
 
     def __init__(self, rank: int, shutdown: bool = False,
                  joined: bool = False, cache_bits: int = 0,
@@ -139,6 +140,7 @@ class CycleRequest:
         self.thaw = thaw
         self.staging = staging
         self.buckets = buckets if buckets is not None else []
+        self.route_check = False
 
 
 class CycleResponse:
@@ -148,9 +150,13 @@ class CycleResponse:
     outstanding and stop.  The fast path's verdicts: ``freeze``, (the
     round every rank stages from, the schedule's signature); ``go``, how
     many of the oldest frozen buckets every rank dispatches now (0: not
-    yet); ``thaw``, (reason, detail) when every rank thaws."""
+    yet); ``thaw``, (reason, detail) when every rank thaws.  ``routes``:
+    once every rank asked for a degraded-route check, rank 0's verdicts
+    (``common/resilience.py``; a list, maybe empty), which every rank
+    applies before anything else in the cycle; None otherwise."""
 
-    __slots__ = ("responses", "shutdown", "abort", "freeze", "go", "thaw")
+    __slots__ = ("responses", "shutdown", "abort", "freeze", "go", "thaw",
+                 "routes")
 
     def __init__(self, responses: Optional[List[Response]] = None,
                  shutdown: bool = False, abort: Optional[str] = None):
@@ -160,3 +166,4 @@ class CycleResponse:
         self.freeze: Optional[Tuple[int, str]] = None
         self.go = 0
         self.thaw: Optional[Tuple[str, str]] = None
+        self.routes: Optional[List[dict]] = None

@@ -5,7 +5,8 @@ structured events.
 Counterpart of the registry of ``horovod_tpu.common.metrics`` (``NAMES``,
 ``counter``, ``gauge``, ``histogram``, ``snapshot``, ``series_sum``,
 ``event``, ``metrics_snapshot``) with the rows the engine, its fast
-path and the hierarchical legs (``mh_*``) write.  A name missing from
+path, the hierarchical legs and their guard (``mh_*``), the deadline
+watchdog and the fault plane write.  A name missing from
 ``NAMES``, or used as another kind, raises, so a typo cannot fork a
 series.  ``event`` counts ``events_total{kind}`` and keeps the newest
 ``EVENTS_KEPT`` events in memory (``events()``); the reference's on-disk
@@ -70,6 +71,25 @@ NAMES: Dict[str, Tuple[str, str]] = {
     "mh_compression_ratio": (
         "gauge", "payload bytes over wire bytes of the latest compressed "
                  "collective, labelled op and codec"),
+    "mh_collective_failures_total": (
+        "counter", "collectives whose handles were error-completed, "
+                   "labelled op and reason (deadline|transport|corrupt|"
+                   "error; resilience.failure_reason)"),
+    "mh_leg_retries_total": (
+        "counter", "hierarchical leg attempts repeated by the leg guard "
+                   "(a transient fault, or the one re-run after a wire "
+                   "checksum mismatch), labelled op and size_class"),
+    "mh_degraded_routes": (
+        "gauge", "1 while an (op, size_class) hierarchical route is "
+                 "demoted to the flat path by rank 0's verdict, 0 once "
+                 "the re-probe promotes it again"),
+    "collective_deadline_expired_total": (
+        "counter", "collectives error-completed because they outlived "
+                   "their per-collective deadline (HOROVOD_COLLECTIVE_"
+                   "TIMEOUT_SECS, scaled per GiB), labelled op; each "
+                   "expiry poisons the engine"),
+    "fault_injections_total": (
+        "counter", "faultline site fires, labelled site and action"),
     "events_total": (
         "counter", "structured events recorded (metrics.event), labelled "
                    "kind"),
@@ -148,6 +168,10 @@ class Registry:
                 series = self._series[(name, key)] = _Series(kind, key)
         return _Handle(self._lock, series)
 
+    def reset(self):
+        with self._lock:
+            self._series.clear()
+
     def snapshot(self) -> Dict[str, Any]:
         """``{name: {kind, help, value, series}}``: ``value`` sums the
         family's series (a histogram has ``buckets``, upper bound
@@ -225,6 +249,13 @@ def events(kind: str = None) -> List[Dict[str, Any]]:
     """The events kept, oldest first (of one ``kind`` if given)."""
     with _events_lock:
         return [e for e in _events if kind is None or e["kind"] == kind]
+
+
+def reset():
+    """Drop every series and the events kept (tests)."""
+    _registry.reset()
+    with _events_lock:
+        _events.clear()
 
 
 def metrics_snapshot() -> Dict[str, Any]:

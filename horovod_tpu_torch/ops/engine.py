@@ -39,6 +39,25 @@ an entry does not match its slot, a wait touches an entry of an
 unfilled bucket, or on ``join``, a process set change or ``shutdown``;
 rank 0's thaw sends every rank's staged entries back to negotiation in
 program order (``_fp_flush``).
+
+The execution watchdog (``multihost.py:2100-2290`` of the reference): a
+thread that wakes every second while the stall warning,
+``HOROVOD_DEVICE_EXEC_TIMEOUT_SECONDS`` or ``HOROVOD_COLLECTIVE_TIMEOUT_SECS``
+is on.  Every executed collective is watched from just before it runs
+until it is done (on the CPU when its call returns; on CUDA when its
+cycle's result event reports done, polled by the watchdog, never
+synchronised on the cycle thread).  It warns about one older than the
+stall warning; it fails everything when one is older than the exec
+timeout and nothing completed for as long, on two ticks in a row; and
+when one outlives its per-collective deadline (``resilience.
+collective_deadline``, no idle gate) it counts
+``collective_deadline_expired_total{op}``, thaws a frozen schedule
+(reason ``deadline``), error-completes every outstanding handle with
+``CollectiveDeadlineExceeded`` from its own thread and poisons the
+engine: every later enqueue raises, and ``shutdown()`` returns without
+waiting for peers.  The leg guard bounds its retries by the deadline of
+the collective the cycle thread executes (``resilience.
+set_group_deadline``).
 """
 
 from __future__ import annotations
@@ -50,7 +69,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from ..common import metrics, process_sets
+from ..common import faultline, metrics, process_sets, resilience
 from ..common.config import Config
 from ..common.controller import Controller, GlooTransport
 from ..common.message import (ADASUM, ALLGATHER, ALLREDUCE, ALLTOALL,
@@ -81,6 +100,18 @@ class HorovodInternalError(RuntimeError):
     engine stopped."""
 
 
+class CollectiveDeadlineExceeded(HorovodInternalError):
+    """A collective outlived its per-collective deadline
+    (``HOROVOD_COLLECTIVE_TIMEOUT_SECS``) and was error-completed; the
+    engine takes no more work.  Its message never holds the stall
+    inspector's abort text, which names another recovery."""
+
+
+# First completion wins: the watchdog may fail an entry from its thread
+# while the cycle thread still executes it.
+_COMPLETE_LOCK = threading.Lock()
+
+
 class _Entry:
     __slots__ = ("request", "tensor", "backend", "token", "done", "result",
                  "error", "out_token", "bucket")
@@ -92,16 +123,19 @@ class _Entry:
         self.token = token
         self.done = False
         self.result = None
-        self.error: Optional[str] = None
+        self.error = None  # a message, or an exception to raise
         self.out_token = None
         self.bucket: Optional[_Bucket] = None  # staged in (frozen rounds)
 
-    def complete(self, result=None, error: Optional[str] = None,
-                 out_token=None):
-        """Set the outcome; the engine then wakes the waiters
-        (``Engine._notify_done``)."""
-        self.result, self.error, self.out_token = result, error, out_token
-        self.done = True
+    def complete(self, result=None, error=None, out_token=None):
+        """Set the outcome, unless it is set already; the engine then wakes
+        the waiters (``Engine._notify_done``).  ``error``: a message, or
+        the exception the waiters raise."""
+        with _COMPLETE_LOCK:
+            if self.done:
+                return
+            self.result, self.error, self.out_token = result, error, out_token
+            self.done = True
 
 
 class _Bucket:
@@ -170,6 +204,8 @@ def wait_all(handles: Sequence[Handle]) -> list:
                 engine._done_cv.wait()
     engine._round_end()
     for e in entries:
+        if isinstance(e.error, BaseException):
+            raise type(e.error)(str(e.error))
         if e.error is not None:
             raise HorovodInternalError(e.error)
     backend = next((e.backend for e in entries if e.backend is not None),
@@ -214,8 +250,12 @@ class Engine:
         self._new: List[_Entry] = []
         self._inflight = {}
         self._join_entry: Optional[_Entry] = None
+        self._route_entry: Optional[_Entry] = None  # a route check waits
         self._shutdown_requested = False
         self._stopped: Optional[str] = None
+        # The watchdog's verdict (a deadline, a starved execution): set
+        # once, with _stopped; every later enqueue raises it.
+        self._failure: Optional[HorovodInternalError] = None
         self._seq = 0
         self._urgent = False
         self._idle = False
@@ -248,11 +288,29 @@ class Engine:
         self._m_fp_bucket = metrics.histogram("engine_overlap_bucket_seconds")
         self._thread = threading.Thread(target=self._loop,
                                         name="hvd-torch-cycle", daemon=True)
+        # -- the execution watchdog --
+        self._watch_lock = threading.Lock()
+        self._watched = {}  # record id -> record, under _watch_lock
+        self._killed = set()  # records the watchdog failed
+        self._watch_seq = 0
+        self._last_progress = time.monotonic()
+        self._exec_warn = (0.0 if config.stall_check_disable
+                           else max(float(config.stall_warning_secs), 0.0))
+        self._exec_timeout = float(config.device_exec_timeout_secs)
+        self._watch_stop = threading.Event()
+        self._watchdog = None
+        if (self._exec_warn > 0 or self._exec_timeout > 0
+                or resilience.collective_timeout_secs() > 0):
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, name="hvd-torch-watchdog",
+                daemon=True)
 
     def start(self):
-        """Start the cycle thread."""
+        """Start the cycle thread (and the watchdog)."""
         fastpath.register(self._fp)
         self._thread.start()
+        if self._watchdog is not None:
+            self._watchdog.start()
 
     # -- caller side ----------------------------------------------------------
 
@@ -282,8 +340,8 @@ class Engine:
         grouped = bool(requests) and requests[0].group is not None
         with self._cv:
             if self._stopped is not None:
-                raise HorovodInternalError(
-                    "the engine is stopped (%s)" % self._stopped)
+                raise self._stopped_error()
+            faultline.site("mh.enqueue.pre_register")
             inflight = self._inflight
             for k, e in enumerate(entries):
                 name = e.request.name
@@ -323,8 +381,7 @@ class Engine:
         e = _Entry(Request("__join__", JOIN), None, None, None)
         with self._cv:
             if self._stopped is not None:
-                raise HorovodInternalError(
-                    "the engine is stopped (%s)" % self._stopped)
+                raise self._stopped_error()
             if self._join_entry is not None:
                 raise ValueError("join() is already in progress")
             self._fp_request_locked("membership", "join()")
@@ -335,20 +392,57 @@ class Engine:
             self._cv.notify()
         return Handle(self, [e], lambda results: results[0])
 
-    def shutdown(self):
-        """Ask the coordinator to stop (every rank must), then wait for
-        the cycle thread; outstanding handles fail."""
-        fastpath.unregister(self._fp)
+    def check_routes(self) -> Optional[dict]:
+        """The degraded-route check of a multi-rank world
+        (``resilience.check_degraded_routes``): a request in this rank's
+        next cycles until rank 0 answers it, once every rank has asked;
+        the last verdict applied, or None."""
+        e = _Entry(Request("__route_check__", "route_check"), None, None,
+                   None)
         with self._cv:
-            self._fp_request_locked("membership", "shutdown()")
-            self._shutdown_requested = True
+            if self._stopped is not None:
+                raise self._stopped_error()
+            if self._route_entry is not None:
+                raise ValueError("check_degraded_routes() is already in "
+                                 "progress")
+            self._route_entry = e
             self._seq += 1
             self._urgent = True
             self._cv.notify()
-        self._thread.join()
+        return Handle(self, [e], lambda results: results[0]).wait()
+
+    def shutdown(self) -> bool:
+        """Ask the coordinator to stop (every rank must), then wait for
+        the cycle thread; outstanding handles fail.  A poisoned engine
+        waits for no one (its cycle thread may be blocked in a collective
+        that a wedged peer never joins): False then."""
+        fastpath.unregister(self._fp)
+        self._watch_stop.set()
+        with self._cv:
+            poisoned = self._failure is not None
+            if not poisoned:
+                self._fp_request_locked("membership", "shutdown()")
+                self._shutdown_requested = True
+            self._seq += 1
+            self._urgent = True
+            self._cv.notify()
+        if not poisoned:
+            self._thread.join()
         self.timeline.shutdown()
         # Handles outlive the engine: drop its hold on the world's groups.
         self.controller = None
+        return not poisoned
+
+    def join_thread(self, timeout: float):
+        """Wait up to ``timeout`` seconds for the cycle thread to end."""
+        self._thread.join(timeout)
+
+    def _stopped_error(self) -> HorovodInternalError:
+        """What an enqueue into a stopped engine raises (under _cv)."""
+        if self._failure is not None:
+            return type(self._failure)(str(self._failure))
+        return HorovodInternalError("the engine is stopped (%s)"
+                                    % self._stopped)
 
     # -- fast path, caller side (under _cv) -----------------------------------
 
@@ -477,12 +571,15 @@ class Engine:
             while True:
                 with self._cv:
                     self._wait_for_cycle(seen)
+                    if self._failure is not None:
+                        return  # poisoned: no more cycles
                     seen = self._seq
                     self._urgent = False
                     self._last_start = time.monotonic()
                     new, self._new = self._new, []
                     msg = CycleRequest(self.rank, self._shutdown_requested,
                                        self._join_entry is not None)
+                    msg.route_check = self._route_entry is not None
                     msg.round_report, self._fp_report = self._fp_report, None
                     msg.thaw, self._fp_thaw_req = self._fp_thaw_req, None
                     msg.staging = self._fp_state == STAGING
@@ -513,6 +610,7 @@ class Engine:
                 self._cv.wait(delay)
                 continue
             busy = (self._inflight or self._join_entry is not None
+                    or self._route_entry is not None
                     or self._shutdown_requested)
             timeout = (cycle_s if busy
                        else None if self.size == 1 else IDLE_SECS)
@@ -525,6 +623,7 @@ class Engine:
 
     def _cycle(self, new: List[_Entry], msg: CycleRequest,
                ready: List[_Bucket]) -> bool:
+        faultline.site("engine.cycle.pre")
         backend = self.op_manager.backend
         if self.size == 1 and ready and not new and not msg.shutdown and \
                 not msg.joined and msg.round_report is None and \
@@ -548,7 +647,11 @@ class Engine:
         self._m_queue_depth.set(len(new))
         t0 = time.monotonic()
         resp = self.controller.run_cycle(msg)
-        finished = []
+        if resp.routes is not None:
+            # Rank 0's route verdicts, on every rank before anything else
+            # of this cycle executes.
+            self._apply_routes(resp.routes)
+        finished, watched = [], []
         with backend.stream():
             # The fast path's verdicts come first: a freeze is adopted
             # before this cycle's entries complete (so before a round
@@ -577,7 +680,7 @@ class Engine:
                                 cid, evicted = self.cache.put(q)
                                 if evicted is not None:
                                     self.controller.evicted(cid, evicted)
-                    self._perform(r, finished)
+                    self._perform(r, finished, watched)
             finally:
                 # Counted before any result is visible, so a waiter that
                 # reads the counters after its results sees this cycle.
@@ -586,10 +689,11 @@ class Engine:
                     self._m_cycle_seconds.observe(time.monotonic() - t0)
                 # One event after the cycle's collectives, for every
                 # result of the cycle.
-                if finished:
+                if finished or watched:
                     token = backend.produce()
                     for e, out in finished:
                         e.complete(out, out_token=token)
+                    self._watch_until(watched, token)
         if resp.responses:
             self._notify_done()
         if resp.abort is not None:
@@ -663,7 +767,16 @@ class Engine:
         for b in buckets:
             t0 = time.monotonic()
             entries = b.entries
+            if faultline.site("engine.fastpath.stale_dispatch"):
+                # The frozen schedule is treated as stale at dispatch: the
+                # bucket stays staged, and rank 0's thaw (reason
+                # staleness) sends it and the rest back to negotiation.
+                self._fp_request("staleness", "injected stale dispatch "
+                                 "(engine.fastpath.stale_dispatch)")
+                return
             with self._cv:
+                if self._failure is not None:
+                    return
                 self._fp_ready.remove(b)
                 for e in entries:
                     self._inflight.pop(e.request.name, None)
@@ -680,6 +793,11 @@ class Engine:
                 names, "EXEC_FUSED_ALLREDUCE" if fused else "EXEC_ALLREDUCE",
                 args={"group": self._group_seq})
             ps = process_sets.process_set_by_id(q.process_set_id)
+            deadline = resilience.collective_deadline(
+                sum(e.request.nbytes for e in entries))
+            wid = self._watch_register(ALLREDUCE, names, entries, deadline)
+            resilience.set_group_deadline(
+                time.monotonic() + deadline if deadline > 0 else None)
             try:
                 if ps is None:
                     raise HorovodInternalError(
@@ -693,43 +811,227 @@ class Engine:
                                     None if fused else names[0])
                 token = backend.produce()
             except Exception as exc:  # noqa: BLE001 - reported on the handles
-                LOG.error("frozen allreduce %s failed: %s", names, exc)
-                for e in entries:
-                    e.complete(error="allreduce %s failed: %s: %s" % (
-                        names, type(exc).__name__, exc))
+                if not self._watch_failed(wid):
+                    self._fail(entries, "allreduce", names, exc)
                 self._notify_done()
                 continue
+            finally:
+                resilience.set_group_deadline(None)
             self.timeline.activity_end_all(names)
             self._m_fp_bucket.observe(time.monotonic() - t0)
             if b.last:
                 self._m_fp_frozen.inc()
             for e, out in zip(entries, outs):
                 e.complete(out, out_token=token)
+            self._watch_until([wid], token)
             self._notify_done()
 
     def _notify_done(self):
         with self._done_cv:
             self._done_cv.notify_all()
 
-    def _stop(self, reason: str):
+    def _stop(self, reason, failure=None):
+        """Stop taking work and fail every outstanding entry with
+        ``reason`` (a message, or the exception to raise); ``failure``
+        also poisons (every later enqueue raises it)."""
         with self._cv:
             if self._stopped is None:
-                self._stopped = reason
+                self._stopped = str(reason)
+            if failure is not None and self._failure is None:
+                self._failure = failure
             entries = list(self._inflight.values())
-            if self._join_entry is not None:
-                entries.append(self._join_entry)
+            entries += [e for e in (self._join_entry, self._route_entry)
+                        if e is not None]
             self._inflight.clear()
             self._new.clear()
-            self._join_entry = None
+            self._join_entry = self._route_entry = None
             self._fp_ready, self._fp_open = [], None
             self._fp_state = NEGOTIATING
+            self._seq += 1
+            self._urgent = True
+            self._cv.notify()
         for e in entries:
             e.complete(error=reason)
         self._notify_done()
 
-    def _perform(self, r: Response, finished: list):
+    def _fail(self, entries, op: str, names, exc: BaseException):
+        """Error-complete ``entries`` of a collective that raised."""
+        LOG.error("%s %s failed: %s", op, names, exc)
+        metrics.counter("mh_collective_failures_total", op=op,
+                        reason=resilience.failure_reason(exc)).inc()
+        for e in entries:
+            e.complete(error="%s %s failed: %s: %s" % (
+                op, names, type(exc).__name__, exc))
+
+    def _apply_routes(self, routes):
+        """Apply rank 0's route verdicts and answer this rank's check."""
+        verdict = resilience.apply_routes(routes)
+        with self._cv:
+            e, self._route_entry = self._route_entry, None
+        if e is not None:
+            e.complete(verdict)
+            self._notify_done()
+
+    # -- the execution watchdog -----------------------------------------------
+
+    def _watch_register(self, op: str, names, entries,
+                        deadline_secs: float) -> Optional[int]:
+        """Watch a collective from just before it runs (None when no
+        watchdog runs)."""
+        if self._watchdog is None:
+            return None
+        with self._watch_lock:
+            wid = self._watch_seq
+            self._watch_seq += 1
+            self._watched[wid] = {
+                "op": op, "names": list(names),
+                "entries": [e for e in entries if e is not None],
+                "start": time.monotonic(), "warned": False,
+                "deadline_secs": max(float(deadline_secs), 0.0),
+                "event": None}
+        return wid
+
+    def _watch_clear(self, wid: Optional[int]) -> bool:
+        """Stop watching; True when the watchdog already failed its
+        entries."""
+        if wid is None:
+            return False
+        with self._watch_lock:
+            self._watched.pop(wid, None)
+            killed = wid in self._killed
+            self._killed.discard(wid)
+            self._last_progress = time.monotonic()
+        return killed
+
+    def _watch_failed(self, wid: Optional[int]) -> bool:
+        """A watched collective raised.  True when its entries are failed
+        already: by the watchdog, or here as a deadline expiry when it
+        had outlived its deadline (a peer that expired first and tore its
+        groups down makes this rank's collective raise a transport error,
+        which is not what failed)."""
+        if wid is None:
+            return False
+        with self._watch_lock:
+            rec = self._watched.get(wid)
+            expired = (rec is not None and wid not in self._killed
+                       and 0 < rec["deadline_secs"]
+                       < time.monotonic() - rec["start"])
+        if expired:
+            self._deadline_fire([rec])
+            return True
+        return self._watch_clear(wid)
+
+    def _watch_until(self, wids, token):
+        """The collectives of ``wids`` ran: on the CPU they are done; on
+        CUDA they are once ``token``, their result event, reports done,
+        which the watchdog polls.  Their entries are complete by now, so
+        the record lets them go: it must not keep a step's gradients and
+        results alive until the next tick."""
+        wids = [w for w in wids if w is not None]
+        if token is None:
+            for w in wids:
+                self._watch_clear(w)
+            return
+        with self._watch_lock:
+            for w in wids:
+                rec = self._watched.get(w)
+                if rec is not None:
+                    rec["event"] = token
+                    rec["entries"] = []
+
+    def _watchdog_loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        strikes = 0
+        while not self._watch_stop.wait(1.0):
+            now = time.monotonic()
+            with self._watch_lock:
+                for wid, rec in list(self._watched.items()):
+                    if rec["event"] is not None and rec["event"].query():
+                        del self._watched[wid]
+                        self._killed.discard(wid)
+                        self._last_progress = now
+                items = [r for w, r in self._watched.items()
+                         if w not in self._killed]
+                idle = now - self._last_progress
+            fired, expired = False, []
+            for rec in items:
+                age = now - rec["start"]
+                if self._exec_warn and age > self._exec_warn and \
+                        not rec["warned"]:
+                    rec["warned"] = True
+                    LOG.warning("%s %s executing for %.0fs: a rank may have "
+                                "died after negotiation", rec["op"],
+                                rec["names"], age)
+                # Only when nothing else completes either: a busy engine
+                # is slow, not dead.
+                if self._exec_timeout and age > self._exec_timeout and \
+                        idle > self._exec_timeout:
+                    fired = True
+                # The deadline is this collective's own bound: no idle
+                # gate, no second tick.
+                if 0 < rec["deadline_secs"] < age:
+                    expired.append(rec)
+            if expired:
+                strikes = 0
+                self._deadline_fire(expired)
+                continue
+            # Poisoning cannot be undone: two starved ticks in a row.
+            strikes = strikes + 1 if fired else 0
+            if strikes >= 2:
+                strikes = 0
+                self._poison(lambda records: HorovodInternalError(
+                    "device execution watchdog: %s did not complete within "
+                    "%.1fs (HOROVOD_DEVICE_EXEC_TIMEOUT_SECONDS); a rank "
+                    "likely died between negotiation and execution" % (
+                        sorted(r["op"] + str(r["names"])
+                               for r in records.values()),
+                        self._exec_timeout)))
+
+    def _deadline_fire(self, expired):
+        """Per-collective deadline expiry: count it, thaw a frozen
+        schedule (here, not through rank 0: no cycle will carry the
+        request), then fail everything and poison."""
+        self._fp.thaw("deadline", "per-collective deadline expired")
+        killed = self._poison(lambda records: CollectiveDeadlineExceeded(
+            "collective deadline exceeded: %s outlived their per-collective "
+            "deadline (HOROVOD_COLLECTIVE_TIMEOUT_SECS, scaled per GiB); "
+            "every outstanding handle fails and the engine takes no more "
+            "work" % sorted(r["op"] + str(r["names"])
+                            for r in records.values())))
+        # Counted once: the watchdog and the cycle thread may both see one.
+        for rec in expired:
+            if any(rec is r for r in killed.values()):
+                metrics.counter("collective_deadline_expired_total",
+                                op=rec["op"]).inc()
+                metrics.event("collective_deadline_expired", op=rec["op"],
+                              names=rec["names"],
+                              deadline_secs=rec["deadline_secs"])
+
+    def _poison(self, make_error):
+        """Fail every watched collective and everything outstanding, from
+        the watchdog's thread (the cycle thread may be blocked inside a
+        collective: it is never joined), and reject new work.
+        ``make_error`` gets the records this sweep fails; they are
+        returned."""
+        with self._watch_lock:
+            records = {w: r for w, r in self._watched.items()
+                       if w not in self._killed}
+            self._killed.update(records)
+        exc = make_error(records)
+        LOG.error("%s", exc)
+        for rec in records.values():
+            metrics.counter("mh_collective_failures_total", op=rec["op"],
+                            reason=resilience.failure_reason(exc)).inc()
+            for e in rec["entries"]:
+                e.complete(error=exc)
+        self._stop(exc, failure=exc)
+        return records
+
+    def _perform(self, r: Response, finished: list, watched: list):
         """Execute ``r``: errors complete their entries at once, results
-        go to ``finished`` as (entry, output)."""
+        go to ``finished`` as (entry, output), and its watch record's id
+        to ``watched``."""
         if r.op_type == JOIN:
             with self._cv:
                 e, self._join_entry = self._join_entry, None
@@ -761,6 +1063,10 @@ class Engine:
             for e in entries:
                 e.complete()
             return
+        if faultline.site("mh.drain.record"):
+            LOG.error("faultline: dropping negotiated %s %s (mh.drain.record):"
+                      " it is never executed here", r.op_type, r.names)
+            return
         self._group_seq += 1
         self._m_last_group.set(self._group_seq)
         # Adasum shares no buffer: its multi-tensor responses are not
@@ -774,6 +1080,16 @@ class Engine:
             [e.request.name for e in mine],
             "EXEC_FUSED_ALLREDUCE" if fused else "EXEC_" + r.op_type.upper(),
             args={"group": self._group_seq})
+        deadline = resilience.collective_deadline(
+            sum(q.nbytes for q in r.requests))
+        wid = self._watch_register(r.op_type, r.names, mine, deadline)
+        if faultline.site("mh.deadline.wedge"):
+            LOG.error("faultline: withholding negotiated %s %s "
+                      "(mh.deadline.wedge); it stays watched until its "
+                      "deadline expires", r.op_type, r.names)
+            return
+        resilience.set_group_deadline(
+            time.monotonic() + deadline if deadline > 0 else None)
         backend = self.op_manager.backend
         try:
             backend.in_use([e.tensor for e in mine])
@@ -782,12 +1098,13 @@ class Engine:
                        for e, q in zip(entries, r.requests)]
             outs = self._execute(r, tensors, ps)
         except Exception as exc:  # noqa: BLE001 - reported on the handles
-            LOG.error("%s %s failed: %s", r.op_type, r.names, exc)
-            for e in mine:
-                e.complete(error="%s %s failed: %s: %s" % (
-                    r.op_type, r.names, type(exc).__name__, exc))
+            if not self._watch_failed(wid):
+                self._fail(mine, r.op_type, r.names, exc)
             return
+        finally:
+            resilience.set_group_deadline(None)
         self.timeline.activity_end_all([e.request.name for e in mine])
+        watched.append(wid)
         finished.extend((e, out) for e, out in zip(entries, outs)
                         if e is not None)
 

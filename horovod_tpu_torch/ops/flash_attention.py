@@ -19,8 +19,11 @@ kernel, whose f32 dq partials (one per 128-row k tile) are summed here
 Each kernel has a wrapper (``*_kernel``) that launches it and counts its
 launches in ``.launches``, and a plain PyTorch version (``*_reference``)
 of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
-version only for tensors on the CPU; on CUDA they launch the kernels,
-which raise on anything they do not take.
+version only for tensors on the CPU; on CUDA they launch the kernels of
+the inputs' dtype, which raise on anything they do not take: bf16 goes
+to the Hopper kernels (``csrc/flash_fwd.cu``, ``flash_bwd.cu``,
+``flash_bwd_onepass.cu``), f32 and f16 to their CUDA-core twins
+(``csrc/flash_simt.cu``, ``*_simt_kernel``), any other dtype raises.
 """
 
 from __future__ import annotations
@@ -46,7 +49,16 @@ _SIGNATURES = {
     "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
     "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 5 + [_P]},
+    "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
+                   "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+                   "hvd_simt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+                   "hvd_simt_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
 }
+# The dtypes of the Hopper kernels (flash_fwd.cu, flash_bwd.cu,
+# flash_bwd_onepass.cu) and of the CUDA-core ones (flash_simt.cu), with the
+# code the latter take for each.
+HOPPER_DTYPES = (torch.bfloat16,)
+SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
 
 
 def _lib(name: str):
@@ -116,12 +128,12 @@ def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_kernel_args(name: str, flat, rows=()):
+def _check_kernel_args(name: str, flat, rows=(), dtypes=HOPPER_DTYPES):
     """Raise on inputs the kernels do not take: they run on CUDA, on
-    contiguous bf16 (BH, S, D) tensors with D in 32/64/128 (what
-    ``flash_attention`` pads a head dim up to 128 to), and f32 (BH, S)
-    row statistics, each starting on a 16-byte boundary (TMA reads and
-    writes tiles only from there)."""
+    contiguous (BH, S, D) tensors of one of ``dtypes`` with D in
+    32/64/128 (what ``flash_attention`` pads a head dim up to 128 to), and
+    f32 (BH, S) row statistics, each starting on a 16-byte boundary (TMA
+    reads and writes tiles only from there)."""
     bh, s, d = flat[0].shape
     for t in list(flat) + list(rows):
         if not t.is_cuda:
@@ -135,9 +147,12 @@ def _check_kernel_args(name: str, flat, rows=()):
             raise ValueError("%s takes tensors that start on a 16-byte "
                              "boundary" % name)
     for t in flat:
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != (bh, s, d):
-            raise ValueError("%s takes bf16 (BH, S, D) tensors of one shape, "
-                             "got %s %s" % (name, t.dtype, tuple(t.shape)))
+        if t.dtype != flat[0].dtype or t.dtype not in dtypes or \
+                tuple(t.shape) != (bh, s, d):
+            raise ValueError("%s takes (BH, S, D) tensors of one shape and "
+                             "one dtype of %s, got %s %s"
+                             % (name, [str(x) for x in dtypes], t.dtype,
+                                tuple(t.shape)))
     for t in rows:
         if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
             raise ValueError("%s takes f32 (BH, S) row statistics" % name)
@@ -208,8 +223,75 @@ def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     return partials, dk, dv
 
 
-KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
-           flash_bwd_onepass_kernel)
+def _simt_args(name, flat, rows=()):
+    bh, s, d = _check_kernel_args(name, flat, rows, tuple(SIMT_DTYPES))
+    return bh, s, d, SIMT_DTYPES[flat[0].dtype]
+
+
+def flash_fwd_simt_kernel(q, k, v, causal: bool):
+    """CUDA-core forward (``csrc/flash_simt.cu``), f32 or f16 -> (o in
+    q's dtype, lse f32)."""
+    bh, s, d, code = _simt_args("flash_fwd_simt_kernel", (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    _build.check(_lib("flash_simt").hvd_simt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, s, d, int(causal), code, _stream(q)),
+        "flash_fwd_simt_kernel")
+    flash_fwd_simt_kernel.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_simt_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA-core dq (``csrc/flash_simt.cu``) -> dq f32, pre-scaled units."""
+    bh, s, d, code = _simt_args("flash_bwd_dq_simt_kernel", (q, k, v, g),
+                                (lse, delta))
+    dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
+    _build.check(_lib("flash_simt").hvd_simt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+        int(causal), code, _stream(q)), "flash_bwd_dq_simt_kernel")
+    flash_bwd_dq_simt_kernel.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_simt_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA-core dk/dv (``csrc/flash_simt.cu``) -> (dk, dv) in k's dtype."""
+    bh, s, d, code = _simt_args("flash_bwd_dkv_simt_kernel", (q, k, v, g),
+                                (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(_lib("flash_simt").hvd_simt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, s, d, int(causal), code, _stream(q)), "flash_bwd_dkv_simt_kernel")
+    flash_bwd_dkv_simt_kernel.launches += 1
+    return dk, dv
+
+
+def flash_bwd_onepass_simt_kernel(q, k, v, g, lse, delta, causal: bool):
+    """CUDA-core one-pass backward (``csrc/flash_simt.cu``) -> (dq
+    partials f32 (BH, nk, S, D), dk, dv)."""
+    bh, s, d, code = _simt_args("flash_bwd_onepass_simt_kernel",
+                                (q, k, v, g), (lse, delta))
+    partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
+                           device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(_lib("flash_simt").hvd_simt_flash_bwd_onepass(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, code, _stream(q)),
+        "flash_bwd_onepass_simt_kernel")
+    flash_bwd_onepass_simt_kernel.launches += 1
+    return partials, dk, dv
+
+
+# The kernels by dtype: the Hopper ones take bf16, the CUDA-core ones f32
+# and f16 (fwd, dq, dk/dv, one-pass).
+HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
+                  flash_bwd_onepass_kernel)
+SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
+                flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
+KERNELS = HOPPER_KERNELS + SIMT_KERNELS
 for _k in KERNELS:
     _k.launches = 0
 
@@ -223,10 +305,22 @@ def launch_counts() -> dict:
     return {kern.__name__: kern.launches for kern in KERNELS}
 
 
+def _kernels_for(dtype):
+    """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype``:
+    chosen by the dtype alone, never as a retry after a failure."""
+    if dtype in HOPPER_DTYPES:
+        return HOPPER_KERNELS
+    if dtype in SIMT_DTYPES:
+        return SIMT_KERNELS
+    raise ValueError(
+        "flash attention on CUDA takes bf16 (Hopper kernels), f32 or f16 "
+        "(CUDA-core kernels), got %s" % dtype)
+
+
 def flash_fwd(q, k, v, causal: bool):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
-    return flash_fwd_kernel(q, k, v, causal)
+    return _kernels_for(q.dtype)[0](q, k, v, causal)
 
 
 def bwd_choice() -> str:
@@ -245,15 +339,17 @@ def bwd_choice() -> str:
 
 
 def flash_bwd(q, k, v, g, lse, delta, causal: bool):
+    cpu = q.device.type == "cpu"
+    _, dq_kernel, dkv_kernel, onepass_kernel = (
+        (None,) * 4 if cpu else _kernels_for(q.dtype))
     if bwd_choice() == "pallas_onepass":
-        run = (flash_bwd_onepass_reference if q.device.type == "cpu"
-               else flash_bwd_onepass_kernel)
+        run = flash_bwd_onepass_reference if cpu else onepass_kernel
         partials, dk, dv = run(q, k, v, g, lse, delta, causal)
         return partials.sum(1), dk, dv
-    if q.device.type == "cpu":
+    if cpu:
         return flash_bwd_reference(q, k, v, g, lse, delta, causal)
-    dq = flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal)
-    dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal)
+    dq = dq_kernel(q, k, v, g, lse, delta, causal)
+    dk, dv = dkv_kernel(q, k, v, g, lse, delta, causal)
     return dq, dk, dv
 
 
@@ -316,7 +412,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True):
     """Fused attention on ``(batch, seq, heads, head_dim)`` tensors; GQA
     (fewer KV heads) repeats each KV head over its group of q heads.  On
-    CUDA the kernels take bf16 and a head dim up to 128."""
+    CUDA, bf16 runs the Hopper kernels and f32 and f16 the CUDA-core ones,
+    each at a head dim up to 128; another dtype raises."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)

@@ -48,6 +48,16 @@ it.  Every member computes it from negotiated sizes, so every member
 takes the same path.  The legs take their groups, sizes and ranks from a
 ``Hierarchy``, which a caller may also build by hand (on one-member
 groups, say).
+
+Each hierarchical call runs under the leg guard (``_guarded``, the
+reference's ``multihost.py:492``, around its five dispatches):
+``common/resilience.py``'s ``run_hier_leg`` retries a transient fault
+and checks the wire CRC of a CPU payload under a quant codec; every
+attempt starts from the caller's payload (the legs only read it;
+``broadcast_`` writes the caller's tensor once the call succeeded) and
+from the residuals as the call found them; a spent budget runs the call
+flat.  A size class that rank 0 demoted (``resilience.demoted``) is flat
+on every rank, ahead of the gate.
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from .. import compression as comp
-from ..common import metrics
+from ..common import metrics, resilience
 from . import collectives as C
 from .collectives import AVERAGE, MAX, MIN, PRODUCT, SUM
 
@@ -111,6 +121,13 @@ def _axis0_reduce(deq: torch.Tensor, red_op: str, size: int) -> torch.Tensor:
         raise NotImplementedError(red_op)
     r = deq[0] if deq.shape[0] == 1 else _REDUCERS[red_op](deq)
     return r * (1.0 / size) if red_op == AVERAGE else r
+
+
+def _size_class(nbytes: int) -> str:
+    """The power-of-two class of a payload of ``nbytes``: what the leg
+    guard's streaks and the demoted routes are keyed by (the reference's
+    ``_pow2_class``)."""
+    return str(1 << (max(int(nbytes), 1) - 1).bit_length())
 
 
 def _count_path(op: str, nbytes: int, hier: bool,
@@ -228,6 +245,20 @@ class Hierarchy:
                               else comp.ScaledFP8Quantizer)
             self.ef = comp.ErrorFeedback(self.quantizer, residual_buckets)
         self._res2 = comp.ResidualLRU(residual_buckets)
+
+    def residuals(self) -> list:
+        """The residual stores as they stand: (store, its entries).  A
+        leg replaces an entry and never writes one in place, so the
+        entries' tensors stay as they were."""
+        stores = [self._res2] + ([self.ef._residuals] if self.ef else [])
+        return [(lru, collections.OrderedDict(lru)) for lru in stores]
+
+    @staticmethod
+    def restore(saved: list):
+        """Put the residual stores back as ``residuals()`` found them."""
+        for lru, entries in saved:
+            lru.clear()
+            lru.update(entries)
 
     # -- the gate -------------------------------------------------------------
 
@@ -510,9 +541,52 @@ class Hierarchy:
 
 # -- routing: what the engine executes -----------------------------------------
 
-def _hierarchy(ps, nbytes: int) -> Optional[Hierarchy]:
+def _hierarchy(ps, op: str, nbytes: int) -> Optional[Hierarchy]:
+    """The set's hierarchy when ``op`` on a payload of ``nbytes`` (a
+    negotiated size, the same on every member) takes it: it passes the
+    gate and rank 0 has not demoted its size class to the flat path."""
     h = ps.hierarchy
-    return h if h is not None and h.eligible(nbytes) else None
+    if h is None or not h.eligible(nbytes):
+        return None
+    if resilience.demoted(op, _size_class(nbytes)):
+        return None
+    return h
+
+
+def _guarded(h: Hierarchy, op: str, nbytes: int, payload_bytes: int,
+             run_hier, run_flat, codec=None, payloads=(), wire_bytes=None):
+    """Run a hierarchical call under the leg guard
+    (``resilience.run_hier_leg``: the fault sites, the wire checksum of
+    ``payloads`` under a quant codec, transient retry under the group
+    deadline) and count the path that moved it.  Each attempt starts from
+    the residuals as they were before the call, so that a retry or a
+    fallback applies error feedback once at most.  On ``LegDegraded``
+    this call runs flat; routing changes only by rank 0's verdict."""
+    saved = h.residuals()
+    attempts = 0
+
+    def attempt():
+        nonlocal attempts
+        if attempts:
+            h.restore(saved)
+        attempts += 1
+        return run_hier()
+
+    try:
+        out = resilience.run_hier_leg(
+            op, _size_class(nbytes), attempt, payloads=payloads,
+            quantized=codec is not None and codec.kind == "quant")
+    except resilience.LegDegraded as exc:
+        h.restore(saved)
+        LOG.warning("%s[%s]: hierarchical leg degraded (%s); this call runs "
+                    "flat", op, _size_class(nbytes), exc.cause)
+        _count_path(op, payload_bytes, False)
+        return run_flat()
+    except BaseException:
+        h.restore(saved)
+        raise
+    _count_path(op, payload_bytes, True, codec, wire_bytes)
+    return out
 
 
 def _nbytes(t: torch.Tensor, n_elems: Optional[int] = None) -> int:
@@ -526,18 +600,24 @@ def allreduce(tensors: Sequence[torch.Tensor], red_op: str, prescale: float,
     total bytes; ``name`` (one entry) keys its residuals, as the
     reference's does."""
     nbytes = sum(_nbytes(t) for t in tensors)
-    h = _hierarchy(ps, nbytes)
-    if h is None:
-        _count_path("allreduce", nbytes, False)
+
+    def flat():
         return C.allreduce(tensors, red_op, prescale, postscale, ps.size(),
                            ps.group)
+
+    h = _hierarchy(ps, "allreduce", nbytes)
+    if h is None:
+        _count_path("allreduce", nbytes, False)
+        return flat()
     codec = h.wire_codec(tensors[0].dtype, red_op)
     buf = (tensors[0].reshape(-1) if len(tensors) == 1
            else _flatten_dense_tensors(tensors))
-    _count_path("allreduce", nbytes, True, codec,
-                h.wire_nbytes(codec, buf.numel()) if codec else None)
-    out = h.allreduce(buf, red_op, prescale, postscale, codec, name)
-    return list(_unflatten_dense_tensors(out, tensors))
+    return _guarded(h, "allreduce", nbytes, nbytes,
+                    lambda: list(_unflatten_dense_tensors(
+                        h.allreduce(buf, red_op, prescale, postscale, codec,
+                                    name), tensors)), flat,
+                    codec, (buf,),
+                    h.wire_nbytes(codec, buf.numel()) if codec else None)
 
 
 def reducescatter(tensor: torch.Tensor, red_op: str, ps,
@@ -545,40 +625,62 @@ def reducescatter(tensor: torch.Tensor, red_op: str, ps,
     n = ps.size()
     shard = C.uneven_chunks(tensor.shape[0], n)[0][0]
     per_row = _nbytes(tensor) // max(tensor.shape[0], 1)
-    h = _hierarchy(ps, n * shard * per_row)
+
+    def flat():
+        return C.reducescatter(tensor, red_op, n, ps.rank(), ps.group)
+
+    h = _hierarchy(ps, "reducescatter", n * shard * per_row)
     if h is None:
         _count_path("reducescatter", _nbytes(tensor), False)
-        return C.reducescatter(tensor, red_op, n, ps.rank(), ps.group)
+        return flat()
     codec = h.wire_codec(tensor.dtype, red_op)
-    _count_path("reducescatter", _nbytes(tensor), True, codec,
-                h.wire_nbytes(codec, tensor.numel()) if codec else None)
-    return h.reducescatter(tensor.detach().contiguous(), red_op, codec, name)
+    t = tensor.detach().contiguous()
+    return _guarded(h, "reducescatter", n * shard * per_row, _nbytes(tensor),
+                    lambda: h.reducescatter(t, red_op, codec, name), flat,
+                    codec, (t,),
+                    h.wire_nbytes(codec, tensor.numel()) if codec else None)
 
 
 def allgather(tensor: torch.Tensor, counts: Sequence[int],
               ps) -> torch.Tensor:
     row = tensor.shape[1:].numel() * tensor.element_size()
-    h = _hierarchy(ps, max(counts) * row)
+
+    def flat():
+        return C.allgather(tensor, counts, ps.group)
+
+    h = _hierarchy(ps, "allgather", max(counts) * row)
     if h is None:
         _count_path("allgather", _nbytes(tensor), False)
-        return C.allgather(tensor, counts, ps.group)
+        return flat()
     codec = h.wire_codec(tensor.dtype)
-    _count_path("allgather", _nbytes(tensor), True, codec,
-                h.wire_nbytes(codec, tensor.numel()) if codec else None)
-    return h.allgather(tensor.detach().contiguous(), counts, codec)
+    t = tensor.detach().contiguous()
+    return _guarded(h, "allgather", max(counts) * row, _nbytes(tensor),
+                    lambda: h.allgather(t, counts, codec), flat, codec, (t,),
+                    h.wire_nbytes(codec, tensor.numel()) if codec else None)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int, ps) -> torch.Tensor:
-    """Overwrite ``tensor`` with world rank ``root_rank``'s."""
-    h = _hierarchy(ps, _nbytes(tensor))
+    """Overwrite ``tensor`` with world rank ``root_rank``'s.  The
+    hierarchical legs only read it, and it is written once they have
+    succeeded: a retried or degraded call starts from the caller's
+    payload."""
+
+    def flat():
+        return C.broadcast_(tensor, root_rank, ps.group)
+
+    h = _hierarchy(ps, "broadcast", _nbytes(tensor))
     if h is None:
         _count_path("broadcast", _nbytes(tensor), False)
-        return C.broadcast_(tensor, root_rank, ps.group)
+        return flat()
     codec = h.wire_codec(tensor.dtype)
-    _count_path("broadcast", _nbytes(tensor), True, codec,
-                h.wire_nbytes(codec, tensor.numel()) if codec else None)
     root = root_rank if ps.ranks is None else ps.ranks.index(root_rank)
-    return tensor.copy_(h.broadcast(tensor.contiguous(), root, codec))
+    t = tensor.contiguous()
+    out = _guarded(h, "broadcast", _nbytes(tensor), _nbytes(tensor),
+                   lambda: h.broadcast(t, root, codec), flat, codec,
+                   (t,) if h.rank == root else (),
+                   h.wire_nbytes(codec, tensor.numel()) if codec else None)
+    # The flat path (a degraded call) has written the tensor already.
+    return out if out is tensor else tensor.copy_(out)
 
 
 def alltoall(tensor: torch.Tensor, matrix: Sequence[int],
@@ -586,15 +688,20 @@ def alltoall(tensor: torch.Tensor, matrix: Sequence[int],
     """``matrix`` is the negotiated splits, sender-major over the set."""
     n, me = ps.size(), ps.rank()
     row = tensor.shape[1:].numel() * tensor.element_size()
-    h = _hierarchy(ps, n * max(matrix) * row)
-    if h is None:
-        _count_path("alltoall", _nbytes(tensor), False)
+
+    def flat():
         return C.alltoall(tensor, matrix[me * n:(me + 1) * n],
                           matrix[me::n], ps.group)
+
+    h = _hierarchy(ps, "alltoall", n * max(matrix) * row)
+    if h is None:
+        _count_path("alltoall", _nbytes(tensor), False)
+        return flat()
     codec = h.wire_codec(tensor.dtype)
-    _count_path("alltoall", _nbytes(tensor), True, codec,
-                h.wire_nbytes(codec, tensor.numel()) if codec else None)
-    return h.alltoall(tensor.detach().contiguous(), matrix, codec)
+    t = tensor.detach().contiguous()
+    return _guarded(h, "alltoall", n * max(matrix) * row, _nbytes(tensor),
+                    lambda: h.alltoall(t, matrix, codec), flat, codec, (t,),
+                    h.wire_nbytes(codec, tensor.numel()) if codec else None)
 
 
 def count_flat(op: str, nbytes: int):

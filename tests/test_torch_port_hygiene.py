@@ -191,6 +191,7 @@ def test_kernels_build_into_an_ignored_directory():
     assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
                                                   "flash_bwd.cu",
                                                   "flash_bwd_onepass.cu",
+                                                  "flash_simt.cu",
                                                   "batch_norm.cu",
                                                   "scale_sum.cu"}
 

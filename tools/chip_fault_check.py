@@ -32,7 +32,11 @@ builds in seconds), then the codec phase's check of the fp8 edge values
 (``codec_edge_mismatches``: the plain e4m3 cast's bytes on the card
 against the reference's).  One fault is a codec's, planted in
 ``compression.py``: an fp8 cast that saturates instead of giving NaN;
-its case runs the codec check alone.  The first case, ``none``, applies
+its case runs the codec check alone.  Three are the CUDA-core flash
+kernels' (``flash_simt.cu``: a causal mask off by one, the last live k
+tile skipped, P not cast to V's dtype); their cases run chip_smoke's
+CUDA-core checks alone, at SIMT_SHAPES in f32 and f16, and the other
+faults' cases leave those checks out.  The first case, ``none``, applies
 no edit; names on the command line run ``none`` and those faults only.
 
 A check process that dies is recorded at the shape (or at the model
@@ -217,6 +221,23 @@ FAULTS = {
         "__fadd_rn(__fmul_rn(alpha, widen(a)), __fmul_rn(beta, widen(b)))",
         "alpha * widen(a) + beta * widen(b)",
         "scale-sum: compiled with FMA contraction"),
+    "simt_mask_off_by_one": (
+        "flash_simt.cu",
+        "  return row < S && col < S && (!causal || col <= row);",
+        "  return row < S && col < S && (!causal || col < row + (2 * row < S));",
+        "CUDA-core kernels (f32, f16): the causal mask drops the diagonal "
+        "key in the second half of the rows"),
+    "simt_last_k_tile": (
+        "flash_simt.cu",
+        "  for (int t = 0; t < tiles; ++t) {  // pass 2",
+        "  for (int t = 0; t < tiles - (tiles > 1); ++t) {  // pass 2",
+        "CUDA-core forward: the last live k tile left out of PV and the row "
+        "sum"),
+    "simt_p_not_cast": (
+        "flash_simt.cu",
+        "        Ps[(ty + 16 * i) * LP + tx + 16 * j] = rnd<T>(p);",
+        "        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;",
+        "CUDA-core forward: P not cast to V's dtype before PV (under f16)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -242,6 +263,14 @@ RAGGED32, RAGGED128 = "BH4 S200 D32 causal", "BH2 S130 D128 full"
 ALL = {RAGGED, DECODER, BERT, RAGGED32, RAGGED128}
 CAUSAL = {DECODER, RAGGED32}
 RAGGED_S = {RAGGED, RAGGED32, RAGGED128}
+# The CUDA-core kernels' units: chip_smoke's SIMT_SHAPES in each dtype.
+SIMT_CAUSAL = ("BH32 S2048 D128 causal", "BH4 S200 D32 causal",
+               "BH2 S130 D64 causal")
+SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128, "BH2 S130 D64 causal")
+
+
+def simt_labels(shapes, dtypes=("float32", "float16")):
+    return {"%s %s" % (shape, dtype) for shape in shapes for dtype in dtypes}
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
@@ -261,7 +290,13 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "onepass_last_k_partial": ALL,
                 "onepass_ragged_rows_written": RAGGED_S,
                 "onepass_stale_ring_stage": ALL,
-                "onepass_partial_store_unawaited": {DECODER, BERT}}
+                "onepass_partial_store_unawaited": {DECODER, BERT},
+                # every kernel keeps by the one mask
+                "simt_mask_off_by_one": simt_labels(SIMT_CAUSAL),
+                # every shape has more than one k tile on most q tiles
+                "simt_last_k_tile": simt_labels(SIMT_ALL),
+                # an identity cast under f32
+                "simt_p_not_cast": simt_labels(SIMT_ALL, ("float16",))}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -274,6 +309,7 @@ CUDA_FAULT = re.compile(
 MODELS = "the model checks"
 CODECS = "the codec check"
 CODEC_FAULTS = {"fp8_cast_saturates"}
+SIMT_SOURCE = "flash_simt.cu"
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs
@@ -283,9 +319,16 @@ from horovod_tpu_torch.ops import scale_sum as ss
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
+ns = len(cs.SIMT_SHAPES)
 for unit in json.loads(sys.argv[1]):
     print("AT %d" % unit, flush=True)
-    if unit < nf:
+    if unit >= nf + nb + 2:
+        k = unit - (nf + nb + 2)
+        bh, s, d, causal = cs.SIMT_SHAPES[k % ns]
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, cs.SIMT_DTYPES[k // ns]), causal)
+        res = {"errs": errs, "poisoned": poisoned}
+    elif unit < nf:
         bh, s, d, causal = cs.FLASH_SHAPES[unit]
         errs, poisoned, _, _ = cs.kernel_errors(
             fa, *cs.kernel_inputs(bh, s, d), causal)
@@ -316,7 +359,9 @@ def unit_labels(cs):
     each attention shape, each BN shape, the model checks, then the codec
     check."""
     return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
-            + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS])
+            + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS]
+            + ["%s %s" % (cs.shape_label(*shape), dtype)
+               for dtype in cs.SIMT_DTYPES for shape in cs.SIMT_SHAPES])
 
 
 def run_case(name, fault, labels, units=None):
@@ -444,8 +489,11 @@ def main(argv) -> int:
         return 2
     print(cs.card_line(), flush=True)
     labels = unit_labels(cs)
-    nf = len(cs.FLASH_SHAPES)
-    flash_labels, bn_labels = labels[:nf], labels[nf:-2]
+    nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
+    flash_labels, bn_labels = labels[:nf], labels[nf:nf + nb]
+    simt_units = list(range(nf + nb + 2, len(labels)))
+    simt_labels_ = [labels[u] for u in simt_units]
+    old_units = list(range(nf + nb + 2))
     ok = True
     for name, fault in FAULTS.items():
         if argv and name != "none" and name not in argv:
@@ -460,7 +508,10 @@ def main(argv) -> int:
                       "fails" if edge or died else "passes"), flush=True)
             ok &= bool(edge) and not died
             continue
-        readings, died = run_case(name, fault, labels)
+        simt = fault is not None and fault[0] == SIMT_SOURCE
+        readings, died = run_case(
+            name, fault, labels,
+            None if fault is None else simt_units if simt else old_units)
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
         cuda_deaths = set()
         for label, err in died.items():
@@ -476,31 +527,40 @@ def main(argv) -> int:
                  for label in flash_labels if label in readings})
         flash_at, flash_max = check_family(readings, flash_labels)
         bn_at, bn_max = check_family(readings, bn_labels)
+        simt_at, _ = check_family(readings, simt_labels_)
         flash_at |= cuda_deaths & set(flash_labels)
         bn_at |= cuda_deaths & set(bn_labels)
+        simt_at |= cuda_deaths & set(simt_labels_)
         if MODELS in readings:
             models = model_verdicts(cs, readings[MODELS])
         else:
             models = (MODELS in cuda_deaths,) * 5
         print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
-              "check %s, scale_sum check %s, adasum check %s"
+              "check %s, scale_sum check %s, adasum check %s, CUDA-core "
+              "flash check %s"
               % tuple("fails" if f else "passes"
                       for f in (bool(flash_at), flash_max, bool(bn_at),
-                                bn_max) + models), flush=True)
-        failed_at = flash_at | bn_at
+                                bn_max) + models + (bool(simt_at),)),
+              flush=True)
+        failed_at = flash_at | bn_at | simt_at
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
             edge = readings.get(CODECS, {}).get("edge")
+            print("  CUDA-core units held: %d of %d"
+                  % (len(set(simt_labels_) & set(readings)),
+                     len(simt_labels_)))
             print("  codec check: fp8 edge values off the reference's "
                   "bytes: %s" % edge)
             ok &= not (died or failed_at or any(models) or edge
-                       or CODECS not in readings)
+                       or CODECS not in readings
+                       or not set(simt_labels_) <= set(readings))
         elif fault[0] == "scale_sum.cu":
             ok &= models[3] and models[4]
         else:
-            family_at = bn_at if fault[0] == "batch_norm.cu" else flash_at
+            family_at = (bn_at if fault[0] == "batch_norm.cu" else
+                         simt_at if simt else flash_at)
             must = MUST_FAIL_AT.get(name, set())
             ok &= bool(family_at) and must <= family_at
             if must - family_at:

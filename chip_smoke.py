@@ -15,23 +15,27 @@
    (BH 32, S 2048, D 128, causal) and BERT-Large's (BH 512, S 384, D 64,
    full), against ``scaled_dot_product_attention``, with both whole
    backward variants timed, and untimed at BH 65,600 (past the 65,535
-   blocks of a grid's y axis; S 64, D 32, causal); the four BatchNorm
+   blocks of a grid's y axis; S 64, D 32, causal); the Hopper forward and
+   one-pass kernels again in f16 at the same shapes (f16 operands, f32
+   accumulation; SDPA in f16 their yardstick); the four BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
    ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
-   four flash kernels' CUDA-core twins (``csrc/flash_simt.cu``) in f32
-   and f16 at the same attention shapes and a ragged causal one (BH 2, S
-   130, D 64), and untimed at BH 65,600, against SDPA in the same dtype
-   (f16 outputs also by the share of elements off the plain version's);
-   the
+   four flash kernels' CUDA-core twins (``csrc/flash_simt.cu``) in f32,
+   f16 and bf16 at the same attention shapes, a ragged causal one (BH 2,
+   S 130, D 64) and three at head dim 256 (the decoder's, BH 32 S 2048
+   causal; BH 2 S 130 causal; BH 4 S 200 full), and untimed at BH 65,600,
+   against SDPA in the same dtype (f16 and bf16 outputs also by the share
+   of elements off the plain version's); the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
    word-embedding gradient, three coefficient pairs and three dtypes,
    aligned and offset by one element, with an inf and a NaN and with
    coefficients read on the device, timed beside the two-call ATen form
    (no one PyTorch call computes it).
 3. Holds three small models on the card against the same weights in f32
-   on the CPU (plain versions): the decoder (bf16; at head_dim 128 and at
-   96, which ``flash_attention`` zero-pads to the kernels' 128),
+   on the CPU (plain versions): the decoder (bf16; at head_dim 128, at
+   96, which ``flash_attention`` zero-pads to the Hopper kernels' 128,
+   and at 192, which it zero-pads to the CUDA-core kernels' 256),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
    decoder at dtype float32 (the CUDA-core kernels) trained 3 Adam steps
@@ -56,7 +60,12 @@
    then BERT-Large fine-tuning (batch 32, seq 384, AdamW with 8 groups
    and the fp16 wire, ``HVD_TPU_FLASH_BWD=pallas_onepass``; flash
    forward and one-pass backward 24 launches a step each, every
-   allreduce fp16).  Between the decoder and ResNet-50, the main path
+   allreduce fp16).  Then the main path of the f16 Hopper kernels: the
+   same BERT-Large step at dtype float16 (f32 parameters), one step
+   through ``make_bert_train_step`` (24 launches each of the f16 Hopper
+   forward and one-pass, none on the CUDA cores), its loss and gradients
+   against the same model's on the plain attention path on the card, then
+   5 more steps timed.  Between the decoder and ResNet-50, the main path
    of the CUDA-core kernels: the decoder at the same width and depth at
    dtype float32, one step through ``make_train_step`` under each
    backward choice from the same weights (flash forward 2 x 12 launches,
@@ -75,7 +84,9 @@
    BERT flash kernels' device time in that step is printed beside the
    step's bound for them, and the Adasum step's reduction is split into
    the scale-sum kernel and the rest.  Then each collective of the
-   surface once on the one-rank NCCL world, and the engine on the card:
+   surface once on the one-rank NCCL world, the flat Average's
+   arithmetic at 3, 5, 6 and 7 ranks on the card against the CPU, bit for
+   bit (f32, f16, bf16, int32), and the engine on the card:
    64 named CUDA tensors (f32, bf16, f16, i32; every reduce op, pre- and
    post-scaled) under a 1 MiB fusion threshold, each result bit for bit,
    in more than one fused group, none above the threshold; one decoder
@@ -117,8 +128,9 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (thirteen kernels), then as
-   the last line ``{"ok": true, "device": {...}}``.
+5. Prints one JSON line of kernel records (fifteen: the thirteen kernels
+   and the f16 forms of the Hopper forward and one-pass), then as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
@@ -166,28 +178,46 @@ FLASH_SHAPES = ((4, 200, 64, False), DECODER_SHAPE, BERT_SHAPE,
 WIDE_BH_SHAPE = (65600, 64, 32, True)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_bwd_onepass")
-# The CUDA-core flash kernels (csrc/flash_simt.cu) in f32 and f16 against
-# their plain versions on the same inputs, by compare's rule, every output
-# under one (rtol, atol) per dtype.  Both cast P and dS at the same values
-# (the forward takes the row max first), so they differ by the order of
-# f32 sums alone.  Held at FLASH_SHAPES and a ragged causal D 64 shape,
-# and untimed at WIDE_BH_SHAPE.
-# f16 outputs (o, dk, dv) are also held to the share of their elements
-# that differ at all from the plain version's, F16_OFF_SHARE at most: a
-# sum whose f32 value moved by its summation order rounds to another f16
-# value about once in thousands of elements, while a cast left out moves
-# it by about half an f16 ulp and so flips a large share of them, below
-# what one ulp of tolerance on each element can see.
-SIMT_DTYPES = ("float32", "float16")
-SIMT_TOL = {"float32": (2 ** -16, 2 ** -16), "float16": (2 ** -10, 2 ** -10)}
+# The Hopper forward and one-pass kernels in f16 (the dq and dk/dv ones
+# take bf16 only) at FLASH_SHAPES and WIDE_BH_SHAPE: they cast P at the
+# running max, as the bf16 kernels and the TPU kernels do, where the plain
+# version casts it at the final max, so they are held to the bf16 rule
+# scaled by f16's 8x finer unit; lse stays f32.
+F16_HOPPER_TOL = dict({out: (2 ** -10, 2 ** -8) for out in KERNEL_TOL},
+                      lse=(2 ** -16, 2 ** -16))
+F16_HOPPER = ("flash_fwd", "flash_bwd_onepass")
+# The CUDA-core flash kernels (csrc/flash_simt.cu) in f32, f16 and bf16
+# against their plain versions on the same inputs, by compare's rule, every
+# output under one (rtol, atol) per dtype: f32 (2^-16, 2^-16), f16 one f16
+# unit (2^-10), bf16 one bf16 unit (2^-7).  Both cast P and dS at the same
+# values (the forward takes the row max first), so they differ by the
+# order of f32 sums alone.  Held at FLASH_SHAPES, a ragged causal D 64
+# shape and WIDE_HEAD_SHAPES, and untimed at WIDE_BH_SHAPE.
+# f16 and bf16 outputs (o, dk, dv) are also held to the share of their
+# elements that differ at all from the plain version's, F16_OFF_SHARE at
+# most: a sum whose f32 value moved by its summation order rounds to
+# another f16 value about once in thousands of elements, while a cast
+# left out moves it by about half an f16 ulp and so flips a large share of
+# them, below what one ulp of tolerance on each element can see.
+SIMT_DTYPES = ("float32", "float16", "bfloat16")
+SIMT_TOL = {"float32": (2 ** -16, 2 ** -16), "float16": (2 ** -10, 2 ** -10),
+            "bfloat16": (2 ** -7, 2 ** -7)}
 F16_OFF_SHARE = 2 ** -6
-SIMT_SHAPES = FLASH_SHAPES + ((2, 130, 64, True),)
+# Head dim 256 (Gemma 7B's attention, and any head dim in 129-255 padded
+# to it) runs on the CUDA cores in every dtype: the decoder's attention at
+# that width, a ragged causal and a ragged full shape (one-pass slots of
+# four 32-row tiles, the last partly past S).
+WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
+                    (4, 200, 256, False))
+SIMT_SHAPES = FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
-# Held at head_dim 128 and at 96, which the kernels take zero-padded.
+# Held at head_dim 128 and at 96, which the Hopper kernels take
+# zero-padded to 128, and at 192, which the CUDA-core kernels take
+# zero-padded to 256.
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
-MODEL_HEAD_DIMS = (128, 96)
+MODEL_HEAD_DIMS = (128, 96, 192)
 # The small decoder at dtype float32 (the CUDA-core flash kernels) trained
 # on the card through make_train_step (Adam, a one-rank world) against
 # the same steps in f32 on the CPU (plain versions, torch.optim.Adam):
@@ -202,6 +232,22 @@ F32_LOSS_TOL, F32_LEAF_TOL = 1e-5, 1e-4
 # differs and both are f32, so summation order only: the small decoder's
 # tolerances.
 F32_FLAGSHIP = dict(d=1024, layers=12, seq=2048, batch=4)
+# BERT-Large's step at dtype float16 (the f16 Hopper forward and one-pass
+# kernels' main path) against the same step's plain attention path on the
+# card, from the same weights: the small BERT's limits (loss, gradient
+# leaves; f16 against f32 attention).
+F16_BERT = dict(batch=32, seq=384)
+# At random weights BERT-Large's late layers are nearly rank-one (their
+# tokens nearly one vector), so dP - delta cancels in their attention
+# backward and their q/k gradients fall far below the first layers' (the
+# plain path read 4.6e-7 at layer 23 against 0.218 at layer 0 for wq):
+# below the rounding of flash attention in f16, which forms delta from
+# the rounded o and rounds P and dS, where the plain softmax backward
+# does neither.  So each leaf's error is taken over the larger of its
+# own plain norm and F16_BERT_LEAF_FLOOR times the largest plain norm of
+# its kind (the same leaf in any layer), as the kernel check floors a
+# row's scale at a share of the tensor's.
+F16_BERT_LEAF_FLOOR = 2 ** -3
 STEPS = 5
 # Untimed steps before a flagship's timed ones: its rounds (a step each,
 # after the broadcast rounds of its set-up) warm the fast path for
@@ -362,41 +408,48 @@ def compare(got, want, rtol, atol):
             "max_abs_plain": want.abs().max().item()}
 
 
-def flash_kernels(fa, dtype):
-    """FLASH_KERNELS' wrappers for inputs of ``dtype``: the Hopper
-    kernels for bf16, the CUDA-core ones for f32 and f16."""
-    return dict(zip(FLASH_KERNELS, fa.HOPPER_KERNELS if dtype == "bfloat16"
-                    else fa.SIMT_KERNELS))
+def flash_kernels(fa, dtype, family="hopper"):
+    """FLASH_KERNELS' wrappers of ``family`` ("hopper" or "simt", the
+    CUDA-core twins) that take inputs of ``dtype``: the four Hopper ones in
+    bf16, the Hopper forward and one-pass in f16, the four CUDA-core ones
+    in any dtype."""
+    import torch
+    kernels = fa.HOPPER_KERNELS if family == "hopper" else fa.SIMT_KERNELS
+    return {name: k for name, k in zip(FLASH_KERNELS, kernels)
+            if getattr(torch, dtype) in k.dtypes}
 
 
-def flash_tol(dtype):
-    """(rtol, atol) per output for kernels on inputs of ``dtype``."""
-    if dtype == "bfloat16":
-        return KERNEL_TOL
-    return dict.fromkeys(KERNEL_TOL, SIMT_TOL[dtype])
+def flash_tol(dtype, family="hopper"):
+    """(rtol, atol) per output for ``family``'s kernels on inputs of
+    ``dtype``."""
+    if family == "simt":
+        return dict.fromkeys(KERNEL_TOL, SIMT_TOL[dtype])
+    return KERNEL_TOL if dtype == "bfloat16" else F16_HOPPER_TOL
 
 
 def dtype_name(t) -> str:
     return str(t.dtype).split(".")[-1]
 
 
-def kernel_errors(fa, q, k, v, do, causal):
-    """Every kernel's outputs against its plain version on the same
-    inputs (the kernels of the inputs' dtype): ({kernel: {output:
-    compare(...)}}, whether the one-pass partials landed in a
+def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
+    """The outputs of each of ``family``'s kernels that take the inputs'
+    dtype against its plain version on the same inputs: ({kernel:
+    {output: compare(...)}}, whether the one-pass partials landed in a
     NaN-poisoned block), plus lse and delta for the timings."""
     import torch
-    kern = flash_kernels(fa, dtype_name(q))
-    tol = flash_tol(dtype_name(q))
+    kern = flash_kernels(fa, dtype_name(q), family)
+    tol = flash_tol(dtype_name(q), family)
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
-    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref,
-                                                    delta, causal)
-    dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(
-        q, k, v, do, lse_ref, delta, causal)
+    bwd = (q, k, v, do, lse_ref, delta, causal)
     o, lse = kern["flash_fwd"](q, k, v, causal)
-    dq = kern["flash_bwd_dq"](q, k, v, do, lse_ref, delta, causal)
-    dk, dv = kern["flash_bwd_dkv"](q, k, v, do, lse_ref, delta, causal)
+    outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)}}
+    if "flash_bwd_dq" in kern:
+        dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(*bwd)
+        outputs["flash_bwd_dq"] = {"dq": (kern["flash_bwd_dq"](*bwd), dq_ref)}
+        dk, dv = kern["flash_bwd_dkv"](*bwd)
+        outputs["flash_bwd_dkv"] = {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(*bwd)
     # Poison the allocator: the partials' block comes back full of NaN, so
     # a slot the kernel leaves unwritten reads NaN, not a stale zero.
     torch.cuda.synchronize()
@@ -404,23 +457,21 @@ def kernel_errors(fa, q, k, v, do, causal):
     poison = torch.full(dqp_ref.shape, float("nan"), device=q.device)
     poisoned_ptr = poison.data_ptr()
     del poison
-    dqp, dk1, dv1 = kern["flash_bwd_onepass"](q, k, v, do, lse_ref, delta,
-                                              causal)
+    dqp, dk1, dv1 = kern["flash_bwd_onepass"](*bwd)
     torch.cuda.synchronize()
-    outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)},
-               "flash_bwd_dq": {"dq": (dq, dq_ref)},
-               "flash_bwd_dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
-               "flash_bwd_onepass": {"dqp": (dqp, dqp_ref), "dk": (dk1, dk1_ref),
-                                     "dv": (dv1, dv1_ref)}}
+    outputs["flash_bwd_onepass"] = {"dqp": (dqp, dqp_ref),
+                                    "dk": (dk1, dk1_ref), "dv": (dv1, dv1_ref)}
     errs = {name: {out: compare(got, want, *tol[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
-    for name, outs in outputs.items():
-        for out, (got, want) in outs.items():
-            if got.dtype == torch.float16:
-                e = errs[name][out]
-                e["off_share"] = (got != want).float().mean().item()
-                e["worst"] = max(e["worst"], e["off_share"] / F16_OFF_SHARE)
+    if family == "simt":
+        for name, outs in outputs.items():
+            for out, (got, want) in outs.items():
+                if got.dtype in (torch.float16, torch.bfloat16):
+                    e = errs[name][out]
+                    e["off_share"] = (got != want).float().mean().item()
+                    e["worst"] = max(e["worst"],
+                                     e["off_share"] / F16_OFF_SHARE)
     return errs, dqp.data_ptr() == poisoned_ptr, lse_ref, delta
 
 
@@ -439,11 +490,12 @@ def flash_bwd_env(value):
             os.environ["HVD_TPU_FLASH_BWD"] = old
 
 
-def held_errors(fa, q, k, v, do, causal, label):
+def held_errors(fa, q, k, v, do, causal, label, family="hopper"):
     """``kernel_errors``, printed; raises if any output is past its
     limit."""
-    errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal)
-    tol = flash_tol(dtype_name(q))
+    errs, poisoned, lse_ref, delta = kernel_errors(fa, q, k, v, do, causal,
+                                                   family)
+    tol = flash_tol(dtype_name(q), family)
     for name, outs in errs.items():
         for out, e in outs.items():
             say("  %s %s at %s: %s (rtol %.3g, atol %.3g x row scale)" % (
@@ -463,23 +515,23 @@ def shape_label(bh, s, d, causal):
     return "BH%d S%d D%d %s" % (bh, s, d, "causal" if causal else "full")
 
 
-def check_kernels(fa, bh, s, d, causal, dtype="bfloat16"):
-    """One shape: every kernel for inputs of ``dtype`` against its plain
-    version, timed beside the plain version and SDPA, and both whole
-    backward variants timed (dq + dk/dv kernels; one-pass kernel + the
-    partials' sum); returns one record per kernel, whose ``launches``
-    counts this check's launches (not the main path's), and the
-    variants' times.  Bounds: bf16 and f16 at the tensor cores' 989
-    TFLOP/s, f32 at the CUDA cores' 67 (exact f32 products are not
-    tensor-core work)."""
+def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
+    """One shape: each of ``family``'s kernels for inputs of ``dtype``
+    against its plain version, timed beside the plain version and SDPA,
+    and both whole backward variants as the port routes them timed (dq +
+    dk/dv kernels; one-pass kernel + the partials' sum); returns one
+    record per kernel, whose ``launches`` counts this check's launches
+    (not the main path's), and the variants' times.  Bounds: bf16 and f16
+    at the tensor cores' 989 TFLOP/s, f32 at the CUDA cores' 67 (exact f32
+    products are not tensor-core work)."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d, dtype)
-    wrappers = flash_kernels(fa, dtype)
+    wrappers = flash_kernels(fa, dtype, family)
     peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     fa.reset_launch_counts()
     errs, lse_ref, delta = held_errors(fa, q, k, v, do, causal,
-                                       shape_label(bh, s, d, causal))
+                                       shape_label(bh, s, d, causal), family)
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     io, rows = bh * s * d * q.element_size(), bh * s * 4
     partials = bh * -(-s // fa.BLOCK_K) * s * d * 4
@@ -520,6 +572,8 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16"):
     lib_bwd = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                   retain_graph=True))
     for name, (kern, plain) in runs.items():
+        if name not in wrappers:
+            continue
         records[name]["ms"] = time_ms(kern, reps=20)
         records[name]["plain_ms"] = time_ms(plain)
         records[name]["library_ms"] = lib_fwd if name == "flash_fwd" else lib_bwd
@@ -529,33 +583,35 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16"):
             variants[choice] = time_ms(lambda: fa.flash_bwd(*bwd), reps=20)
     variants["sdpa"] = lib_bwd
     counts = fa.launch_counts()
-    for name in FLASH_KERNELS:
-        records[name]["launches"] = counts[wrappers[name].__name__]
+    for name, wrapper in wrappers.items():
+        records[name]["launches"] = counts[wrapper.__name__]
     return records, variants
 
 
-def check_flash_kernels(fa, dtype="bfloat16"):
-    """The four flash kernels for ``dtype`` at their shapes (FLASH_SHAPES,
-    or SIMT_SHAPES for f32 and f16) -> {shape: records}, then held at
-    WIDE_BH_SHAPE."""
+def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
+    """``family``'s flash kernels for ``dtype`` at their shapes
+    (FLASH_SHAPES on Hopper, SIMT_SHAPES on the CUDA cores) -> {shape:
+    records}, then held at WIDE_BH_SHAPE."""
     import torch
     out = {}
-    shapes = FLASH_SHAPES if dtype == "bfloat16" else SIMT_SHAPES
+    shapes = FLASH_SHAPES if family == "hopper" else SIMT_SHAPES
     for bh, s, d, causal in shapes:
-        label = "%s %s" % (shape_label(bh, s, d, causal), dtype)
-        records, variants = check_kernels(fa, bh, s, d, causal, dtype)
+        label = "%s %s %s" % (shape_label(bh, s, d, causal), dtype, family)
+        records, variants = check_kernels(fa, bh, s, d, causal, dtype,
+                                          family)
         for name, rec in records.items():
             say("kernel %s %s: %s" % (name, label, json.dumps(
                 {k: (round(v, 6) if isinstance(v, float) else v)
                  for k, v in rec.items()})))
-        say("backward %s, device ms per call: dq + dk/dv kernels %.6g, "
-            "one-pass kernel + partials' sum %.6g, SDPA backward %.6g"
-            % (label, variants["pallas"], variants["pallas_onepass"],
-               variants["sdpa"]))
+        say("backward %s, device ms per call as the port routes it: dq + "
+            "dk/dv kernels %.6g, one-pass kernel + partials' sum %.6g, SDPA "
+            "backward %.6g" % (label, variants["pallas"],
+                               variants["pallas_onepass"], variants["sdpa"]))
         out[(bh, s, d, causal)] = records
     *wide, causal = WIDE_BH_SHAPE
     held_errors(fa, *kernel_inputs(*wide, dtype), causal,
-                "%s %s (untimed)" % (shape_label(*WIDE_BH_SHAPE), dtype))
+                "%s %s %s (untimed)" % (shape_label(*WIDE_BH_SHAPE), dtype,
+                                        family), family)
     torch.cuda.empty_cache()
     return out
 
@@ -1048,6 +1104,15 @@ def check_bert_model():
                 % (choice, loss_err, bad))
 
 
+# The kernels' element types as the Itanium ABI mangles them.
+_TYPES = "f|6__half|13__nv_bfloat16"
+
+
+def _type_name(mangled) -> str:
+    return {"f": "float", "6__half": "half", None: "bf16",
+            "13__nv_bfloat16": "bf16"}[mangled]
+
+
 def print_ptxas(text: str):
     """nvcc's -Xptxas=-v report: one line per flash kernel
     instantiation (registers, spills, shared memory); the BN kernels'
@@ -1062,9 +1127,12 @@ def print_ptxas(text: str):
         elif name and "spill" in line:
             spills = line.strip()
         elif name and "registers" in line:
-            # _ZN8hvdflash16flash_fwd_kernelILi128ELb1EEEv... -> kernel<128, 1>
-            k = re.search(r"hvdflash\d+(\w+?)ILi(\d+)ELb(\d)E", name)
-            t = re.search(r"hvdsimt\d+(\w+?)I(f|6__half)Li(\d+)ELb(\d)E",
+            # _ZN8hvdflash16flash_fwd_kernelI6__halfLi128ELb1EEEv... ->
+            # flash_fwd_kernel<half, 128, 1>; the dq and dk/dv kernels take
+            # bf16 only and have no type argument
+            k = re.search(r"hvdflash\d+(\w+?)I(%s)?Li(\d+)ELb(\d)E" % _TYPES,
+                          name)
+            t = re.search(r"hvdsimt\d+(\w+?)I(%s)Li(\d+)ELb(\d)E" % _TYPES,
                           name)
             b = re.search(r"hvdbn\d+(bn_\w+?_kernel)", name)
             if b:
@@ -1073,10 +1141,11 @@ def print_ptxas(text: str):
                             .group(1)) if spills else 0
                 bn_regs.setdefault(b.group(1), []).append((regs, spill))
             else:
-                label = ("%s<%s, %s>" % k.groups() if k else
-                         "simt %s<%s, %s, %s>" % (
-                             t.group(1), "half" if "half" in t.group(2)
-                             else "float", *t.groups()[2:]) if t else name)
+                label = ("%s<%s, %s, %s>" % (
+                    k.group(1), _type_name(k.group(2)), *k.groups()[2:])
+                    if k else "simt %s<%s, %s, %s>" % (
+                        t.group(1), _type_name(t.group(2)), *t.groups()[2:])
+                    if t else name)
                 say("  ptxas %-26s %s; %s" % (
                     label, line.split(":", 1)[-1].strip(), spills))
             name = None
@@ -1574,6 +1643,163 @@ def train_bert_flagship(torch, batch=32, seq=384):
     prof = profile_step(torch, step, data, med * 1e3)
     hvd.shutdown()
     return counts, prof
+
+
+def train_bert_f16(torch):
+    """The f16 Hopper kernels' main path: BERT-Large (``train_bert_flagship``'s
+    configuration and recipe: AdamW(5e-5, weight decay 0.01), 8 groups, the
+    fp16 wire, batch 32, seq 384) at dtype float16 with f32 parameters and
+    a ``torch.amp.GradScaler`` (its default scale, 2^16: unscaled, most of
+    BERT's gradients at random weights lie below f16's normal range), one
+    step through ``make_bert_train_step`` and the engine under
+    HVD_TPU_FLASH_BWD=pallas_onepass, every launch count set to 0 just
+    before it and read just after: 24 f16 Hopper forwards and one-pass
+    backwards, nothing on the CUDA cores.  Its loss and gradients are held
+    against the same model's on the plain attention path
+    (HOROVOD_FLASH_ATTENTION=0) on the card, from the same weights and
+    data under the same scale, the plain gradients rounded to f16 as the
+    one-rank fp16 wire rounds the step's, then unscaled: each leaf by its
+    error over the larger of its plain norm and F16_BERT_LEAF_FLOOR of
+    its kind's largest; bk's gradient is zero in exact arithmetic, so its
+    norm stands in for its error, over bq's scale.  Then STEPS more
+    steps, timed.  -> the counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.bert import BertConfig, classification_loss
+    from horovod_tpu_torch.models.convert_bert import (init_params,
+                                                       params_from_jax)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (make_bert_train_step,
+                                         synthetic_bert_batch)
+
+    hvd.init()
+    cfg = BertConfig(**{**BERT_LARGE, "dtype": "float16"})
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    scaler = torch.amp.GradScaler("cuda")
+    scale = scaler.get_scale()
+    build, shard_batch = make_bert_train_step(
+        cfg, lambda ps: torch.optim.AdamW(ps, lr=5e-5, weight_decay=0.01),
+        objective="classification", compression=hvd.Compression.fp16,
+        num_groups=8, grad_scaler=scaler)
+    params = init_params(cfg, seed=0)
+    step, model, _ = build(params)
+    data = shard_batch(synthetic_bert_batch(cfg, F16_BERT["batch"],
+                                            F16_BERT["seq"], seed=0))
+    # The plain path on a copy of the weights with no gradient hooks.
+    ref = params_from_jax(params, cfg, next(model.parameters()).device)
+    fa.reset_launch_counts()
+    with env_set(HOROVOD_FLASH_ATTENTION="0"):
+        loss = classification_loss(ref, data)
+        (loss * scale).backward()
+    want = loss.item()
+    plain = {n: p.grad.half().float() * (1.0 / scale)
+             for n, p in ref.named_parameters() if p.grad is not None}
+    del ref, loss
+    if any(fa.launch_counts().values()):
+        raise AssertionError("the plain attention path launched flash "
+                             "kernels: %s" % fa.launch_counts())
+    say("f16 bert: BERT-Large d%d L%d %d heads of %d, batch %d, seq %d, "
+        "dtype float16, f32 parameters; set-up and the plain path's loss and "
+        "gradients %.1f s" % (cfg.d_model, L, cfg.n_heads, cfg.head_dim,
+                              F16_BERT["batch"], F16_BERT["seq"],
+                              time.perf_counter() - t0))
+    fa.reset_launch_counts()
+    with flash_bwd_env("pallas_onepass"):
+        t = time.perf_counter()
+        got = step(data).item()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+    counts = fa.launch_counts()
+    say("launches on the f16 bert path (1 step): %s; loss scale %g, after "
+        "the step %g" % (counts, scale, scaler.get_scale()))
+    if scaler.get_scale() != scale:
+        raise AssertionError("f16 bert: a scaled gradient overflowed (the "
+                             "scaler backed off to %g)" % scaler.get_scale())
+    check_counts(counts, {"flash_fwd_kernel": L,
+                          "flash_bwd_onepass_kernel": L})
+    loss_err = abs(got - want) / abs(want)
+    grads = {n: p.grad for n, p in model.named_parameters() if n in plain}
+
+    def kind(name):  # "layers.6.wq" -> "wq"; a top-level leaf is its own
+        return name.split(".")[-1] if name.startswith("layers.") else name
+
+    norms = {n: g.norm().item() for n, g in plain.items()}
+    largest = {}
+    for n, v in norms.items():
+        largest[kind(n)] = max(largest.get(kind(n), 0.0), v)
+    leaves, raw = {}, {}
+    for n, g in grads.items():
+        ref = n[:-2] + "bq" if n.endswith(".bk") else n
+        err = (g.norm() if n.endswith(".bk") else (g - plain[n]).norm()).item()
+        raw[n] = err / norms[ref]
+        leaves[n] = err / max(norms[ref],
+                              F16_BERT_LEAF_FLOOR * largest[kind(ref)])
+    say("f16 bert q and k projections by layer (plain norm, card norm, "
+        "relative error unfloored / floored): %s" % "; ".join(
+            "%d: wq %.3g %.3g %.3g/%.3g, wk %.3g %.3g %.3g/%.3g" % (
+                i, *(x for leaf in ("wq", "wk") for x in (
+                    norms["layers.%d.%s" % (i, leaf)],
+                    grads["layers.%d.%s" % (i, leaf)].norm().item(),
+                    raw["layers.%d.%s" % (i, leaf)],
+                    leaves["layers.%d.%s" % (i, leaf)])))
+            for i in range(L)))
+    worst_raw = sorted(raw.items(), key=lambda kv: -kv[1])[:5]
+    say("f16 bert: leaves' relative errors over their own plain norm, worst "
+        "5: %s" % json.dumps({n: float("%.3g" % e) for n, e in worst_raw}))
+    ranked = sorted(leaves.items(), key=lambda kv: -kv[1])
+    say("f16 bert step: %.2f ms (its first step, negotiation included); "
+        "loss %.6f, relative error against the plain path %.3g (tol %.3g); "
+        "gradients' relative norm error (floored at %g of the kind's "
+        "largest): worst %s %.3g (tol %.3g), median %.3g, top 5 %s"
+        % (took * 1e3, got, loss_err, BERT_LOSS_TOL, F16_BERT_LEAF_FLOOR,
+           ranked[0][0], ranked[0][1], BERT_LEAF_TOL,
+           statistics.median(leaves.values()),
+           json.dumps({n: float("%.3g" % e) for n, e in ranked[:5]})))
+    if not math.isfinite(got):
+        raise AssertionError("f16 bert: non-finite loss %s" % got)
+    if not (loss_err <= BERT_LOSS_TOL and ranked[0][1] <= BERT_LEAF_TOL):
+        raise AssertionError("the f16 BERT-Large step disagrees with its "
+                             "plain attention path: loss %.3g, worst leaf "
+                             "%s %.3g" % (loss_err, *ranked[0]))
+    del plain, grads
+    times = []
+    with flash_bwd_env("pallas_onepass"):
+        for _ in range(STEPS):
+            t = time.perf_counter()
+            loss = step(data)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    med = statistics.median(times)
+    say("f16 bert: %d more steps (negotiated), ms %s, median step_ms %.2f, "
+        "tok/s %.1f, last loss %.6f" % (
+            STEPS, ["%.2f" % (x * 1e3) for x in times], med * 1e3,
+            F16_BERT["batch"] * F16_BERT["seq"] / med, loss.item()))
+    hvd.shutdown()
+    return counts
+
+
+def check_average_on_card(torch):
+    """The flat Average (``ops/collectives.py average``) of the same sums
+    on the card and on the CPU, bit for bit, at 3, 5, 6 and 7 ranks: f32,
+    f16 and bf16 (multiplied by the reciprocal in f32, as the reference's
+    compiled ``r / size``) and int32 (floor division)."""
+    from horovod_tpu_torch.ops import collectives
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(1 << 20, generator=g) * 1000
+    bad = []
+    for dtype in (torch.float32, torch.float16, torch.bfloat16, torch.int32):
+        cpu = x.to(dtype)
+        card = cpu.cuda()
+        for n in (3, 5, 6, 7):
+            want = collectives.average(cpu, n)
+            got = collectives.average(card, n).cpu()
+            off, _ = bit_mismatches(got, want)
+            if off:
+                bad.append("%s n=%d: %d elements" % (dtype, n, off))
+    say("flat Average on the card against the CPU (2^20 elements, f32, f16, "
+        "bf16, int32; n 3, 5, 6, 7): %s" % (bad or "bit for bit"))
+    if bad:
+        raise AssertionError("flat Average differs on the card: %s" % bad)
 
 
 def bit_mismatches(got, want):
@@ -2691,7 +2917,9 @@ def main() -> int:
 
     # -- 2: kernels against their plain versions
     flash = check_flash_kernels(fa)
-    simt = {dtype: check_flash_kernels(fa, dtype) for dtype in SIMT_DTYPES}
+    flash16 = check_flash_kernels(fa, "float16")
+    simt = {dtype: check_flash_kernels(fa, dtype, "simt")
+            for dtype in SIMT_DTYPES}
     bn_err, bn_shape_times = check_bn_kernels(bn)
     ss_records = check_scale_sum_kernel(ss)
 
@@ -2727,6 +2955,8 @@ def main() -> int:
                 else "not measured",
                 24 * flash[BERT_SHAPE][name]["bound_ms"]))
     torch.cuda.empty_cache()
+    f16_counts = train_bert_f16(torch)
+    torch.cuda.empty_cache()
     with flash_bwd_env("pallas_onepass"):
         adasum_counts, adasum_prof = train_bert_adasum(torch)
     say("scale_sum, one BERT-Large Adasum step's %d launches: device %s ms "
@@ -2735,6 +2965,7 @@ def main() -> int:
                        if "scale_sum" in adasum_prof else "not measured"))
     torch.cuda.empty_cache()
     check_collectives_on_card(torch)
+    check_average_on_card(torch)
     check_engine_on_card(torch)
     frozen_grads = check_fastpath_on_card(torch)
     check_codecs_on_card(torch, buckets)
@@ -2794,13 +3025,19 @@ def main() -> int:
             len(SS_LENGTHS) * len(SS_DTYPES) * (2 * len(SS_COEFS) + 1),
             adasum_counts["scale_sum_kernel"], SS_LENGTHS[-1],
             ss_records["float32"]["aten_two_call_ms"]) + "; " + "; ".join(
-        "%s_simt (f32 and f16) held at %s and %s (phase 2; its record: f32 "
-        "at %s, SDPA in f32 its library_ms), launched %d times in the f32 "
-        "decoder flagship's two steps (phase 4)" % (
+        "%s_simt (f32, f16 and bf16) held at %s and %s (phase 2; its "
+        "record: f32 at %s, SDPA in f32 its library_ms), launched %d times "
+        "in the f32 decoder flagship's two steps (phase 4)" % (
             name, ", ".join(shape_label(*s) for s in SIMT_SHAPES),
             shape_label(*WIDE_BH_SHAPE), shape_label(*shape),
             simt_counts[name + "_simt_kernel"])
-        for name, (_, _, _, shape, _) in sources.items()))
+        for name, (_, _, _, shape, _) in sources.items()) + "; " + "; ".join(
+        "%s_f16 (the Hopper kernel in f16) held at %s and %s (phase 2; its "
+        "record at %s, SDPA in f16 its library_ms), launched %d times in the "
+        "f16 BERT-Large step (phase 4)" % (
+            name, ", ".join(shape_label(*s) for s in FLASH_SHAPES),
+            shape_label(*WIDE_BH_SHAPE), shape_label(*BERT_SHAPE),
+            f16_counts[sources[name][2]]) for name in F16_HOPPER))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -2826,6 +3063,15 @@ def main() -> int:
         out.append({"name": name + "_simt", "route": "cuda",
                     "source": "horovod_tpu_torch/csrc/flash_simt.cu",
                     "replaces": replaces, "launches": simt_counts[wrapper],
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"]})
+    for name in F16_HOPPER:
+        src, replaces, wrapper, _, _ = sources[name]
+        rec = flash16[BERT_SHAPE][name]
+        out.append({"name": name + "_f16", "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": f16_counts[wrapper],
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],

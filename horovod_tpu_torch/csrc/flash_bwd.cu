@@ -256,7 +256,7 @@ static cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
       (err = panel_map<D>(&mg, g, s, bh, dqtile::BQ)) != cudaSuccess ||
       (err = panel_map<D>(&mk, k, s, bh, dqtile::BK)) != cudaSuccess ||
       (err = panel_map<D>(&mv, v, s, bh, dqtile::BK)) != cudaSuccess ||
-      (err = panel_map<D, 4>(&mdq, dq, s, bh, 64)) != cudaSuccess)
+      (err = panel_map<D>(&mdq, dq, s, bh, 64)) != cudaSuccess)
     return err;
   auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -280,8 +280,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mdk,
                      const __grid_constant__ CUtensorMap mdv, int S) {
   // no partials: the body reads neither its dq map (mdk stands in) nor dqp
-  kv::ktile_body<D, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdk, mdv,
-                                   nullptr, S);
+  kv::ktile_body<bf16, D, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdk,
+                                         mdv, nullptr, S);
 }
 
 template <int D, bool CAUSAL>
@@ -289,11 +289,11 @@ static cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
                               const bf16* g, const float* lse, const float* delta,
                               bf16* dk, bf16* dv, int bh, int s, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg, mlse, mdelta, mdk, mdv;
-  cudaError_t err = kv::ktile_maps<D>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
+  cudaError_t err = kv::ktile_maps<bf16, D>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
                                       &mdv, q, k, v, g, lse, delta, dk, dv, bh, s);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dkv_kernel<D, CAUSAL>;
-  const size_t bytes = kv::Smem<D, false>::bytes;
+  const size_t bytes = kv::Smem<bf16, D, false>::bytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;

@@ -21,11 +21,13 @@
 // memory into f32 registers, P^T = exp2(S^T log2e - lse log2e) and dS^T =
 // P^T (dP^T - delta) on those registers (masked only where the tile
 // crosses the diagonal or the ragged end), and adds dV += P^T dO and dK +=
-// dS^T Q by wgmma with A from registers (P and dS packed to bf16 in the
+// dS^T Q by wgmma with A from registers (P and dS packed to T in the
 // accumulator's layout) and dO, Q read MN-major; dk and dv stay in
-// registers for the whole loop.
+// registers for the whole loop.  T, the inputs' and dk's and dv's type,
+// is bf16 or f16 (the one-pass kernel takes both, the dk/dv kernel bf16):
+// the products take T with f32 accumulation, P and dS are packed to T.
 //
-// With PARTIALS, dS^T also goes to shared memory as bf16, and the dq
+// With PARTIALS, dS^T also goes to shared memory as T, and the dq
 // partial dS K is one more wgmma, A (dS) and B (K) both MN-major, its D
 // columns split between the two consumers.  Each consumer's f32 half of
 // the partial goes through a double-buffered swizzled tile and a TMA
@@ -46,7 +48,6 @@
 namespace hvdflash {
 namespace kv {
 
-using bf16 = __nv_bfloat16;
 using namespace sm90;
 
 constexpr int BQ = 64;   // q rows per tile
@@ -59,34 +60,34 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ROWS_BOX = BQ + 4;
 constexpr int ROWS_STRIDE = 128;  // floats between boxes in shared memory
 
-template <int D, bool PARTIALS>
+template <typename T, int D, bool PARTIALS>
 struct Smem {
-  static constexpr size_t qtile = BQ * D * sizeof(bf16);
+  static constexpr size_t qtile = BQ * D * sizeof(T);
   static constexpr size_t k = 0;                           // BK x D
-  static constexpr size_t v = k + BK * D * sizeof(bf16);   // BK x D
-  static constexpr size_t ring = v + BK * D * sizeof(bf16);  // STAGES x (Q, dO)
-  static constexpr size_t ds = ring + STAGES * 2 * qtile;  // dS^T, BK x BQ bf16
+  static constexpr size_t v = k + BK * D * sizeof(T);      // BK x D
+  static constexpr size_t ring = v + BK * D * sizeof(T);   // STAGES x (Q, dO)
+  static constexpr size_t ds = ring + STAGES * 2 * qtile;  // dS^T, BK x BQ of T
   static constexpr size_t out =                            // 2 x (BQ x D f32)
-      ds + (PARTIALS ? BK * BQ * sizeof(bf16) : 0);
+      ds + (PARTIALS ? BK * BQ * sizeof(T) : 0);
   static constexpr size_t out_buf = BQ * D * sizeof(float);
   static constexpr size_t rows =                           // STAGES x (lse, delta)
       out + (PARTIALS ? 2 * out_buf : 0);
   static constexpr size_t bar = rows + STAGES * 2 * ROWS_STRIDE * sizeof(float);
   static constexpr size_t bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
-  // the epilogue's dv and dk tiles (BK x D bf16 each) fill the out buffers
-  static_assert(2 * out_buf == 2 * BK * D * sizeof(bf16), "dk/dv tiles");
+  // the epilogue's dv and dk tiles (BK x D of T each) fill the out buffers
+  static_assert(2 * out_buf == 2 * BK * D * sizeof(T), "dk/dv tiles");
 };
 
 // The block of k tile blockIdx.y of head blockIdx.x (gridDim.y = nk).
 // Without PARTIALS, mdqp and dqp are not read.
-template <int D, bool CAUSAL, bool PARTIALS>
+template <typename T, int D, bool CAUSAL, bool PARTIALS>
 __device__ __forceinline__ void ktile_body(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
     const CUtensorMap& mg, const CUtensorMap& mlse, const CUtensorMap& mdelta,
     const CUtensorMap& mdqp, const CUtensorMap& mdk, const CUtensorMap& mdv,
     float* __restrict__ dqp, int S) {
-  using L = Smem<D, PARTIALS>;
-  using PB = Panels<D>;       // bf16 (rows, D) tiles
+  using L = Smem<T, D, PARTIALS>;
+  using PB = Panels<D>;       // (rows, D) tiles of T
   using PF = Panels<D / 2, 4>;  // one consumer's f32 half of a partial tile
   extern __shared__ unsigned char raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -116,7 +117,7 @@ __device__ __forceinline__ void ktile_body(
   if (wg == 2) {  // producer
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(kv_full, 2 * BK * D * sizeof(bf16));
+      mbar_arrive_expect_tx(kv_full, 2 * BK * D * sizeof(T));
       for (int p = 0; p < PB::NP; ++p) {
         tma_load_3d(smem + L::k + p * BK * PB::SWZ, mk, kv_full, p * PB::PC, k0, bh);
         tma_load_3d(smem + L::v + p * BK * PB::SWZ, mv, kv_full, p * PB::PC, k0, bh);
@@ -171,18 +172,18 @@ __device__ __forceinline__ void ktile_body(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BQ, 0, 0>::run(st, desc_kmajor<D, BK>(sk + 64 * wg * PB::SWZ, kk),
+        MmaSS<BQ, 0, 0, T>::run(st, desc_kmajor<D, BK>(sk + 64 * wg * PB::SWZ, kk),
                              desc_kmajor<D, BQ>(sq, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BQ, 0, 0>::run(dpt, desc_kmajor<D, BK>(sv + 64 * wg * PB::SWZ, kk),
+        MmaSS<BQ, 0, 0, T>::run(dpt, desc_kmajor<D, BK>(sv + 64 * wg * PB::SWZ, kk),
                              desc_kmajor<D, BQ>(sg, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
 
-      // P^T and dS^T, packed to bf16 pairs in the accumulator's layout
+      // P^T and dS^T, packed to pairs of T in the accumulator's layout
       const bool mask = (CAUSAL && q0 < k0 + 64 * wg + 63) || q0 + BQ > S ||
                         k0 + 64 * wg + 64 > S;
       uint32_t pp[BQ / 4], pds[BQ / 4];
@@ -203,8 +204,8 @@ __device__ __forceinline__ void ktile_body(
             }
             d[e] = p[e] * (dpt[x] - (e ? dl.y : dl.x));
           }
-          pp[2 * j + h] = pack_bf16(p[0], p[1]);
-          pds[2 * j + h] = pack_bf16(d[0], d[1]);
+          pp[2 * j + h] = pack<T>(p[0], p[1]);
+          pds[2 * j + h] = pack<T>(d[0], d[1]);
         }
       }
 
@@ -215,13 +216,13 @@ __device__ __forceinline__ void ktile_body(
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         const uint32_t a[4] = {pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2], pp[4 * kk + 3]};
-        MmaRS<D, 1>::run(dv, a, desc_mnmajor<D, BQ>(sg, kk), 1);
+        MmaRS<D, 1, T>::run(dv, a, desc_mnmajor<D, BQ>(sg, kk), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         const uint32_t a[4] = {pds[4 * kk], pds[4 * kk + 1], pds[4 * kk + 2],
                                pds[4 * kk + 3]};
-        MmaRS<D, 1>::run(dk, a, desc_mnmajor<D, BQ>(sq, kk), 1);
+        MmaRS<D, 1, T>::run(dk, a, desc_mnmajor<D, BQ>(sq, kk), 1);
       }
       wgmma_commit();
 
@@ -249,7 +250,7 @@ __device__ __forceinline__ void ktile_body(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          MmaSS<D / 2, 1, 1>::run(dq, desc_mnmajor<BQ, BK>(sds, kk),
+          MmaSS<D / 2, 1, 1, T>::run(dq, desc_mnmajor<BQ, BK>(sds, kk),
                                   desc_mnmajor<D, BK>(sk, kk, wg * (D / 2)), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
@@ -277,7 +278,7 @@ __device__ __forceinline__ void ktile_body(
       }
     }
 
-    // Epilogue: dv and dk in bf16.  With partials through the out
+    // Epilogue: dv and dk in T.  With partials through the out
     // buffers, once both consumers' partial stores have read them; without,
     // over this consumer's own rows of V and K, which only it reads.
     unsigned char* sdv = sv;
@@ -286,7 +287,7 @@ __device__ __forceinline__ void ktile_body(
       if (t == 0) tma_store_wait_read<0>();
       named_sync(1, 256);
       sdv = smem + L::out;
-      sdk = sdv + BK * D * sizeof(bf16);
+      sdk = sdv + BK * D * sizeof(T);
     }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -294,9 +295,9 @@ __device__ __forceinline__ void ktile_body(
       for (int h = 0; h < 2; ++h) {
         const uint32_t off = panel_offset<D, BK>(rl + 8 * h, 8 * j + c2);
         *reinterpret_cast<uint32_t*>(sdv + off) =
-            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+            pack<T>(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
         *reinterpret_cast<uint32_t*>(sdk + off) =
-            pack_bf16(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+            pack<T>(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
       }
     fence_proxy_async();
     named_sync(2 + wg, 128);
@@ -312,15 +313,15 @@ __device__ __forceinline__ void ktile_body(
   }
 }
 
-// The tensor maps of the inputs and of dk, dv: (D, S, BH) bf16 tiles and
+// The tensor maps of the inputs and of dk, dv: (D, S, BH) tiles of T and
 // the (BH S) lse and delta vectors.
-template <int D>
+template <typename T, int D>
 inline cudaError_t ktile_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
                               CUtensorMap* mg, CUtensorMap* mlse,
                               CUtensorMap* mdelta, CUtensorMap* mdk,
-                              CUtensorMap* mdv, const bf16* q, const bf16* k,
-                              const bf16* v, const bf16* g, const float* lse,
-                              const float* delta, bf16* dk, bf16* dv, int bh,
+                              CUtensorMap* mdv, const T* q, const T* k,
+                              const T* v, const T* g, const float* lse,
+                              const float* delta, T* dk, T* dv, int bh,
                               int s) {
   const uint64_t rows_dim[1] = {(uint64_t)bh * s};
   const uint32_t rows_box[1] = {ROWS_BOX};
@@ -329,8 +330,8 @@ inline cudaError_t ktile_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
       (err = panel_map<D>(mg, g, s, bh, BQ)) != cudaSuccess ||
       (err = panel_map<D>(mk, k, s, bh, BK)) != cudaSuccess ||
       (err = panel_map<D>(mv, v, s, bh, BK)) != cudaSuccess ||
-      (err = panel_map<D>(mdk, dk, s, bh, 64)) != cudaSuccess ||
-      (err = panel_map<D>(mdv, dv, s, bh, 64)) != cudaSuccess ||
+      (err = panel_map<D>(mdk, (const T*)dk, s, bh, 64)) != cudaSuccess ||
+      (err = panel_map<D>(mdv, (const T*)dv, s, bh, 64)) != cudaSuccess ||
       (err = encode_map(mlse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, lse, rows_dim,
                         nullptr, rows_box, CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
     return err;

@@ -1,16 +1,20 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), in bf16 and in f16.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_attn_kernel, launched by
-// _flash_attention_fwd_flat.  Same function: causal or full attention on a q
-// already scaled by 1/sqrt(D); an online softmax keeps m, l and acc in f32,
-// masked scores are -1e30, l is clamped at 1e-30, P is cast to v's dtype
-// before the PV product; out: O in bf16 and the row log-sum-exp in f32,
-// natural-log units.  Tiles wholly above the diagonal are skipped.
+// _flash_attention_fwd_flat, at bf16 and f16 inputs.  Same function:
+// causal or full attention on a q already scaled by 1/sqrt(D); products of
+// inputs in T (bf16 or f16) with f32 accumulation; an online softmax keeps
+// m, l and acc in f32, masked scores are -1e30, l is clamped at 1e-30, P is
+// cast to v's dtype (T) at the running max before the PV product, as the
+// TPU kernel casts it; out: O in T and the row log-sum-exp in f32,
+// natural-log units.  Tiles wholly above the diagonal are skipped.  No
+// conversion flushes an f16 subnormal to zero (no .ftz, no fast math).
 //
 // Bound on the H100 SXM: compute at the decoder's shape (BH 32, S 2048,
 // D 128, causal): 4*BH*D*S*(S+1)/2 = 34.4 GFLOP, 35 us at 989 TFLOP/s
-// bf16, against 67 MB (20 us at 3.35 TB/s).  Bytes at BERT-Large's (BH
-// 512, S 384, D 64, full): 101 MB, 30 us, against 19.3 GFLOP (20 us).
+// (bf16 and f16 alike), against 67 MB (20 us at 3.35 TB/s).  Bytes at
+// BERT-Large's (BH 512, S 384, D 64, full): 101 MB, 30 us, against 19.3
+// GFLOP (20 us).
 //
 // Design: the TPU grid ran its k axis in order and carried m, l and acc in
 // VMEM scratch from one grid step to the next.  Here one block owns a (bh,
@@ -22,7 +26,7 @@
 // first two are consumers, 64 q rows each: S = Q K^T by wgmma from shared
 // memory into f32 registers; the online softmax on those registers (the
 // row max and sum from two quad shuffles, exp2 of s*log2e - m*log2e, the
-// mask only on the diagonal tile and a ragged last one); P packed to bf16
+// mask only on the diagonal tile and a ragged last one); P packed to T
 // in registers straight from S's accumulator layout, which is the layout
 // of wgmma's register A operand; O += P V by wgmma with V read MN-major
 // (the transpose bit), O's accumulator rescaled by corr in registers.
@@ -40,7 +44,6 @@
 
 namespace hvdflash {
 
-using bf16 = __nv_bfloat16;
 using namespace sm90;
 
 constexpr int BQ = 128;  // q rows per block, 64 per consumer warpgroup
@@ -49,23 +52,23 @@ constexpr int STAGES = 2;
 constexpr float NEG_INF = -1e30f;  // the mask value of the TPU kernels
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <typename T, int D>
 struct FwdSmem {
-  static constexpr size_t tile = BK * D * sizeof(bf16);
+  static constexpr size_t tile = BK * D * sizeof(T);
   static constexpr size_t q = 0;                     // BQ x D
-  static constexpr size_t kv = q + BQ * D * sizeof(bf16);  // STAGES x (K, V)
+  static constexpr size_t kv = q + BQ * D * sizeof(T);  // STAGES x (K, V)
   static constexpr size_t bar = kv + STAGES * 2 * tile;
   static constexpr size_t bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
 };
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
                  const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv,
                  const __grid_constant__ CUtensorMap mo,
                  float* __restrict__ lse, int S) {
-  using L = FwdSmem<D>;
+  using L = FwdSmem<T, D>;
   using PB = Panels<D>;
   extern __shared__ unsigned char raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -96,7 +99,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
   if (wg == 2) {  // producer
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(q_full, BQ * D * sizeof(bf16));
+      mbar_arrive_expect_tx(q_full, BQ * D * sizeof(T));
       for (int p = 0; p < PB::NP; ++p)
         tma_load_3d(smem + L::q + p * BQ * PB::SWZ, mq, q_full, p * PB::PC, q0, bh);
       for (int i = 0; i < kend; ++i) {
@@ -133,7 +136,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BK, 0, 0>::run(sc, desc_kmajor<D, BQ>(sq, kk),
+        MmaSS<BK, 0, 0, T>::run(sc, desc_kmajor<D, BQ>(sq, kk),
                              desc_kmajor<D, BK>(sk, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -185,17 +188,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
         o[4 * j + 3] *= corr[1];
       }
 
-      // O += P V: P packed to bf16 in registers (the A operand's layout
+      // O += P V: P packed to T in registers (the A operand's layout
       // is S's accumulator layout), V MN-major
       uint32_t pa[BK / 4];
 #pragma unroll
-      for (int x = 0; x < BK / 4; ++x) pa[x] = pack_bf16(sc[2 * x], sc[2 * x + 1]);
+      for (int x = 0; x < BK / 4; ++x) pa[x] = pack<T>(sc[2 * x], sc[2 * x + 1]);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-        MmaRS<D, 1>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);
+        MmaRS<D, 1, T>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -203,7 +206,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_arrive(&empty[s]);
     }
 
-    // Epilogue: O / l in bf16 into this warpgroup's rows of Q's tile, then
+    // Epilogue: O / l in T into this warpgroup's rows of Q's tile, then
     // one TMA store of them; lse = m + log(l).
     float lc[2];
 #pragma unroll
@@ -218,7 +221,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<uint32_t*>(so + panel_offset<D, BQ>(rl + 8 * h, 8 * j + c2)) =
-            pack_bf16(o[4 * j + 2 * h] / lc[h], o[4 * j + 2 * h + 1] / lc[h]);
+            pack<T>(o[4 * j + 2 * h] / lc[h], o[4 * j + 2 * h + 1] / lc[h]);
     fence_proxy_async();
     named_sync(1 + wg, 128);
     if (t == 0 && q0 + 64 * wg < S) {
@@ -230,48 +233,51 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D, bool CAUSAL>
-static cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                          float* lse, int bh, int s, cudaStream_t stream) {
+template <typename T, int D, bool CAUSAL>
+static cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                          void* lse, int bh, int s, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   cudaError_t err;
-  if ((err = panel_map<D>(&mq, q, s, bh, BQ)) != cudaSuccess ||
-      (err = panel_map<D>(&mk, k, s, bh, BK)) != cudaSuccess ||
-      (err = panel_map<D>(&mv, v, s, bh, BK)) != cudaSuccess ||
-      (err = panel_map<D>(&mo, o, s, bh, 64)) != cudaSuccess)
+  if ((err = panel_map<D>(&mq, static_cast<const T*>(q), s, bh, BQ)) != cudaSuccess ||
+      (err = panel_map<D>(&mk, static_cast<const T*>(k), s, bh, BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mv, static_cast<const T*>(v), s, bh, BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mo, static_cast<const T*>(o), s, bh, 64)) != cudaSuccess)
     return err;
-  auto kernel = flash_fwd_kernel<D, CAUSAL>;
-  const size_t bytes = FwdSmem<D>::bytes;
+  auto kernel = flash_fwd_kernel<T, D, CAUSAL>;
+  const size_t bytes = FwdSmem<T, D>::bytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (s + BQ - 1) / BQ);
-  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mo, lse, s);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mo, static_cast<float*>(lse), s);
   return cudaGetLastError();
 }
 
 }  // namespace hvdflash
 
+// dtype: 1 float16, 2 bfloat16 (the codes of flash_simt.cu).  d: 32, 64 or
+// 128.  Returns a cudaError_t (cudaErrorInvalidValue for a dtype or d it
+// does not take).
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int s, int d, int causal,
-                             void* stream) {
+                             int dtype, void* stream) {
   using namespace hvdflash;
   auto st = static_cast<cudaStream_t>(stream);
-  auto Q = static_cast<const bf16*>(q);
-  auto K = static_cast<const bf16*>(k);
-  auto V = static_cast<const bf16*>(v);
-  auto O = static_cast<bf16*>(o);
-  auto LSE = static_cast<float*>(lse);
-#define HVD_FWD(DD)                                                       \
-  case DD:                                                                \
-    return causal ? launch<DD, true>(Q, K, V, O, LSE, bh, s, st)          \
-                  : launch<DD, false>(Q, K, V, O, LSE, bh, s, st);
-  switch (d) {
-    HVD_FWD(32)
-    HVD_FWD(64)
-    HVD_FWD(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define HVD_FWD(T, DD)                                                   \
+  case DD:                                                               \
+    return causal ? launch<T, DD, true>(q, k, v, o, lse, bh, s, st)      \
+                  : launch<T, DD, false>(q, k, v, o, lse, bh, s, st);
+#define HVD_FWD_WIDTHS(T)                                                \
+  switch (d) {                                                           \
+    HVD_FWD(T, 32)                                                       \
+    HVD_FWD(T, 64)                                                       \
+    HVD_FWD(T, 128)                                                      \
+    default:                                                             \
+      return (int)cudaErrorInvalidValue;                                 \
   }
+  if (dtype == 1) HVD_FWD_WIDTHS(__half)
+  if (dtype == 2) HVD_FWD_WIDTHS(__nv_bfloat16)
+  return (int)cudaErrorInvalidValue;
+#undef HVD_FWD_WIDTHS
 #undef HVD_FWD
 }

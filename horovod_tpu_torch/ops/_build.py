@@ -26,6 +26,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 
+# No --use_fast_math and no -ftz=true: the f16 kernels keep subnormals (a
+# flush to zero would round dS = P (dP - delta), which underflows in f16
+# far sooner than in bf16, otherwise than the plain versions' casts do),
+# and expf, logf and the divisions stay IEEE.  -Xptxas=-v writes each
+# kernel's registers, shared memory and spills into <name>.log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -78,8 +78,15 @@ def scale_(buf: torch.Tensor, factor: float):
 
 
 def average(buf: torch.Tensor, n: int) -> torch.Tensor:
+    """The flat Average of a sum over ``n`` ranks.  A floating sum is
+    multiplied by the reciprocal of ``n`` in f32 (f64 stays f64) and cast
+    back: what XLA compiles the reference's ``r / size`` to, and what the
+    hierarchical legs compute (``multihost._axis0_reduce``), so the result
+    is the same on every device.  A division would round otherwise on the
+    CPU.  Integers floor-divide, as the reference's ``r // size``."""
     if buf.is_floating_point():
-        return (buf.float() / n).to(buf.dtype)
+        wide = torch.promote_types(buf.dtype, torch.float32)
+        return (buf.to(wide) * (1.0 / n)).to(buf.dtype)
     return torch.div(buf, n, rounding_mode="floor")
 
 

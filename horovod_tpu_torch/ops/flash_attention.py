@@ -5,10 +5,11 @@ Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` ``flash_attention``
 (``_flash_fwd``, ``_flash_bwd``).  Around the kernels, in torch, as the
 JAX package does it: GQA repeats KV heads; q is scaled by 1/sqrt(d) in
 its own dtype; the head dim is zero-padded to the next width the kernels
-take (32, 64 or 128; the JAX package pads to 128 lanes: zero columns add
-0 to every product) and the outputs sliced back; ``delta = rowsum(g *
-o)`` is computed in f32; dq is multiplied by 1/sqrt(d) in f32 before its
-cast; the layout goes ``(B, S, H, D) <-> (B*H, S, D)``.
+take (32, 64, 128 or 256; the JAX package pads to a multiple of 128
+lanes: zero columns add 0 to every product) and the outputs sliced back;
+``delta = rowsum(g * o)`` is computed in f32; dq is multiplied by
+1/sqrt(d) in f32 before its cast; the layout goes ``(B, S, H, D) <->
+(B*H, S, D)``.
 
 The backward is chosen as the JAX package chooses it, by
 ``HVD_TPU_FLASH_BWD`` read when the backward runs: ``pallas`` (the
@@ -19,11 +20,16 @@ kernel, whose f32 dq partials (one per 128-row k tile) are summed here
 Each kernel has a wrapper (``*_kernel``) that launches it and counts its
 launches in ``.launches``, and a plain PyTorch version (``*_reference``)
 of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
-version only for tensors on the CPU; on CUDA they launch the kernels of
-the inputs' dtype, which raise on anything they do not take: bf16 goes
-to the Hopper kernels (``csrc/flash_fwd.cu``, ``flash_bwd.cu``,
-``flash_bwd_onepass.cu``), f32 and f16 to their CUDA-core twins
-(``csrc/flash_simt.cu``, ``*_simt_kernel``), any other dtype raises.
+version only for tensors on the CPU; on CUDA they launch the kernels that
+``_kernels_for`` names for the inputs' dtype and padded width, which
+raise on anything they do not take.  The Hopper kernels
+(``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) take
+head dims 32, 64 and 128: the forward and the one-pass backward in bf16
+and f16, dq and dk/dv in bf16.  Their CUDA-core twins
+(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at 32,
+64, 128 and 256 and run whatever the Hopper kernels do not: f32, the f16
+dq and dk/dv, and every dtype at 256.  Any other dtype, or a head dim past
+256, raises.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)  # the kernels' widths; flash_attention pads to one
+# the kernels' widths, flash_attention pads a head dim to one; the Hopper
+# kernels take the first three
+_HEAD_DIMS = (32, 64, 128, 256)
+HOPPER_WIDTHS = _HEAD_DIMS[:3]
 # rows of k per one-pass tile, hence per dq partial; passed to the kernel,
 # which refuses a value other than its own
 BLOCK_K = 128
@@ -45,20 +54,24 @@ BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 4 + [_P]},
+    "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 5 + [_P]},
     "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
-    "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 5 + [_P]},
+    "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
     "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
 }
-# The dtypes of the Hopper kernels (flash_fwd.cu, flash_bwd.cu,
-# flash_bwd_onepass.cu) and of the CUDA-core ones (flash_simt.cu), with the
-# code the latter take for each.
-HOPPER_DTYPES = (torch.bfloat16,)
-SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
+# The code of each dtype that a kernel's C entry takes (flash_simt.cu all
+# three; flash_fwd.cu and flash_bwd_onepass.cu f16 and bf16).
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# The dtypes of the Hopper kernels: the forward and the one-pass backward
+# (flash_fwd.cu, flash_bwd_onepass.cu) take bf16 and f16, dq and dk/dv
+# (flash_bwd.cu) bf16; the CUDA-core ones (flash_simt.cu) take all three.
+HOPPER_DTYPES = (torch.bfloat16, torch.float16)
+HOPPER_BWD_DTYPES = (torch.bfloat16,)
+SIMT_DTYPES = tuple(DTYPE_CODES)
 
 
 def _lib(name: str):
@@ -128,13 +141,28 @@ def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_kernel_args(name: str, flat, rows=(), dtypes=HOPPER_DTYPES):
-    """Raise on inputs the kernels do not take: they run on CUDA, on
-    contiguous (BH, S, D) tensors of one of ``dtypes`` with D in
-    32/64/128 (what ``flash_attention`` pads a head dim up to 128 to), and
-    f32 (BH, S) row statistics, each starting on a 16-byte boundary (TMA
-    reads and writes tiles only from there)."""
+def _check_kernel_args(kernel, flat, rows=()):
+    """Raise on inputs ``kernel`` does not take: (BH, S, D) tensors of one
+    of its ``dtypes`` with D one of its ``widths`` (what
+    ``flash_attention`` pads a head dim to) and f32 (BH, S) row
+    statistics, all contiguous on one CUDA device, each starting on a
+    16-byte boundary (TMA reads and writes tiles only from there)."""
+    name, dtypes, widths = kernel.__name__, kernel.dtypes, kernel.widths
     bh, s, d = flat[0].shape
+    for t in flat:
+        if t.dtype != flat[0].dtype or t.dtype not in dtypes or \
+                tuple(t.shape) != (bh, s, d):
+            raise ValueError("%s takes (BH, S, D) tensors of one shape and "
+                             "one dtype of %s, got %s %s"
+                             % (name, [str(x) for x in dtypes], t.dtype,
+                                tuple(t.shape)))
+    for t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
+            raise ValueError("%s takes f32 (BH, S) row statistics" % name)
+    if d not in widths:
+        raise ValueError("%s takes head_dim in %s, got %d: flash_attention "
+                         "zero-pads a head dim up to 256 to one of %s"
+                         % (name, widths, d, _HEAD_DIMS))
     for t in list(flat) + list(rows):
         if not t.is_cuda:
             raise ValueError("%s launches a CUDA kernel; got a tensor on %s"
@@ -146,20 +174,6 @@ def _check_kernel_args(name: str, flat, rows=(), dtypes=HOPPER_DTYPES):
         if t.data_ptr() % 16:
             raise ValueError("%s takes tensors that start on a 16-byte "
                              "boundary" % name)
-    for t in flat:
-        if t.dtype != flat[0].dtype or t.dtype not in dtypes or \
-                tuple(t.shape) != (bh, s, d):
-            raise ValueError("%s takes (BH, S, D) tensors of one shape and "
-                             "one dtype of %s, got %s %s"
-                             % (name, [str(x) for x in dtypes], t.dtype,
-                                tuple(t.shape)))
-    for t in rows:
-        if t.dtype != torch.float32 or tuple(t.shape) != (bh, s):
-            raise ValueError("%s takes f32 (BH, S) row statistics" % name)
-    if d not in _HEAD_DIMS:
-        raise ValueError("%s takes head_dim in %s, got %d: flash_attention "
-                         "zero-pads a head dim up to 128, and no kernel "
-                         "takes a wider one" % (name, _HEAD_DIMS, d))
     return bh, s, d
 
 
@@ -168,21 +182,23 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def flash_fwd_kernel(q, k, v, causal: bool):
-    """CUDA forward (``csrc/flash_fwd.cu``) -> (o bf16, lse f32)."""
-    bh, s, d = _check_kernel_args("flash_fwd_kernel", (q, k, v))
+    """Hopper forward (``csrc/flash_fwd.cu``), bf16 or f16 -> (o in q's
+    dtype, lse f32)."""
+    bh, s, d = _check_kernel_args(flash_fwd_kernel, (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
     _build.check(_lib("flash_fwd").hvd_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, s, d, int(causal), _stream(q)),
-        "flash_fwd_kernel")
+        lse.data_ptr(), bh, s, d, int(causal), DTYPE_CODES[q.dtype],
+        _stream(q)), "flash_fwd_kernel")
     flash_fwd_kernel.launches += 1
     return o, lse
 
 
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
-    """CUDA dq (``csrc/flash_bwd.cu``) -> dq f32, pre-scaled units."""
-    bh, s, d = _check_kernel_args("flash_bwd_dq_kernel", (q, k, v, g),
+    """Hopper dq (``csrc/flash_bwd.cu``), bf16 -> dq f32, pre-scaled
+    units."""
+    bh, s, d = _check_kernel_args(flash_bwd_dq_kernel, (q, k, v, g),
                                   (lse, delta))
     dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
     _build.check(_lib("flash_bwd").hvd_flash_bwd_dq(
@@ -194,8 +210,8 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
 
 
 def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
-    """CUDA dk/dv (``csrc/flash_bwd.cu``) -> (dk bf16, dv bf16)."""
-    bh, s, d = _check_kernel_args("flash_bwd_dkv_kernel", (q, k, v, g),
+    """Hopper dk/dv (``csrc/flash_bwd.cu``) -> (dk bf16, dv bf16)."""
+    bh, s, d = _check_kernel_args(flash_bwd_dkv_kernel, (q, k, v, g),
                                   (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(_lib("flash_bwd").hvd_flash_bwd_dkv(
@@ -207,9 +223,9 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
 
 
 def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
-    """CUDA one-pass backward (``csrc/flash_bwd_onepass.cu``) ->
-    (dq partials f32 (BH, nk, S, D), dk bf16, dv bf16)."""
-    bh, s, d = _check_kernel_args("flash_bwd_onepass_kernel", (q, k, v, g),
+    """Hopper one-pass backward (``csrc/flash_bwd_onepass.cu``), bf16 or
+    f16 -> (dq partials f32 (BH, nk, S, D), dk, dv in k's dtype)."""
+    bh, s, d = _check_kernel_args(flash_bwd_onepass_kernel, (q, k, v, g),
                                   (lse, delta))
     partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
                            device=q.device)
@@ -217,21 +233,21 @@ def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     _build.check(_lib("flash_bwd_onepass").hvd_flash_bwd_onepass(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, _stream(q)),
-        "flash_bwd_onepass_kernel")
+        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, DTYPE_CODES[q.dtype],
+        _stream(q)), "flash_bwd_onepass_kernel")
     flash_bwd_onepass_kernel.launches += 1
     return partials, dk, dv
 
 
-def _simt_args(name, flat, rows=()):
-    bh, s, d = _check_kernel_args(name, flat, rows, tuple(SIMT_DTYPES))
-    return bh, s, d, SIMT_DTYPES[flat[0].dtype]
+def _simt_args(kernel, flat, rows=()):
+    bh, s, d = _check_kernel_args(kernel, flat, rows)
+    return bh, s, d, DTYPE_CODES[flat[0].dtype]
 
 
 def flash_fwd_simt_kernel(q, k, v, causal: bool):
-    """CUDA-core forward (``csrc/flash_simt.cu``), f32 or f16 -> (o in
-    q's dtype, lse f32)."""
-    bh, s, d, code = _simt_args("flash_fwd_simt_kernel", (q, k, v))
+    """CUDA-core forward (``csrc/flash_simt.cu``), f32, f16 or bf16 -> (o
+    in q's dtype, lse f32)."""
+    bh, s, d, code = _simt_args(flash_fwd_simt_kernel, (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
     _build.check(_lib("flash_simt").hvd_simt_flash_fwd(
@@ -244,7 +260,7 @@ def flash_fwd_simt_kernel(q, k, v, causal: bool):
 
 def flash_bwd_dq_simt_kernel(q, k, v, g, lse, delta, causal: bool):
     """CUDA-core dq (``csrc/flash_simt.cu``) -> dq f32, pre-scaled units."""
-    bh, s, d, code = _simt_args("flash_bwd_dq_simt_kernel", (q, k, v, g),
+    bh, s, d, code = _simt_args(flash_bwd_dq_simt_kernel, (q, k, v, g),
                                 (lse, delta))
     dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
     _build.check(_lib("flash_simt").hvd_simt_flash_bwd_dq(
@@ -257,7 +273,7 @@ def flash_bwd_dq_simt_kernel(q, k, v, g, lse, delta, causal: bool):
 
 def flash_bwd_dkv_simt_kernel(q, k, v, g, lse, delta, causal: bool):
     """CUDA-core dk/dv (``csrc/flash_simt.cu``) -> (dk, dv) in k's dtype."""
-    bh, s, d, code = _simt_args("flash_bwd_dkv_simt_kernel", (q, k, v, g),
+    bh, s, d, code = _simt_args(flash_bwd_dkv_simt_kernel, (q, k, v, g),
                                 (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(_lib("flash_simt").hvd_simt_flash_bwd_dkv(
@@ -271,7 +287,7 @@ def flash_bwd_dkv_simt_kernel(q, k, v, g, lse, delta, causal: bool):
 def flash_bwd_onepass_simt_kernel(q, k, v, g, lse, delta, causal: bool):
     """CUDA-core one-pass backward (``csrc/flash_simt.cu``) -> (dq
     partials f32 (BH, nk, S, D), dk, dv)."""
-    bh, s, d, code = _simt_args("flash_bwd_onepass_simt_kernel",
+    bh, s, d, code = _simt_args(flash_bwd_onepass_simt_kernel,
                                 (q, k, v, g), (lse, delta))
     partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
                            device=q.device)
@@ -285,8 +301,8 @@ def flash_bwd_onepass_simt_kernel(q, k, v, g, lse, delta, causal: bool):
     return partials, dk, dv
 
 
-# The kernels by dtype: the Hopper ones take bf16, the CUDA-core ones f32
-# and f16 (fwd, dq, dk/dv, one-pass).
+# The two families (fwd, dq, dk/dv, one-pass), each kernel with the
+# dtypes and widths it takes.
 HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
                   flash_bwd_onepass_kernel)
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
@@ -294,6 +310,10 @@ SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS
 for _k in KERNELS:
     _k.launches = 0
+    _k.widths = _HEAD_DIMS if _k in SIMT_KERNELS else HOPPER_WIDTHS
+    _k.dtypes = (SIMT_DTYPES if _k in SIMT_KERNELS else HOPPER_BWD_DTYPES
+                 if _k in (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+                 else HOPPER_DTYPES)
 
 
 def reset_launch_counts():
@@ -305,22 +325,29 @@ def launch_counts() -> dict:
     return {kern.__name__: kern.launches for kern in KERNELS}
 
 
-def _kernels_for(dtype):
-    """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype``:
-    chosen by the dtype alone, never as a retry after a failure."""
-    if dtype in HOPPER_DTYPES:
-        return HOPPER_KERNELS
-    if dtype in SIMT_DTYPES:
-        return SIMT_KERNELS
-    raise ValueError(
-        "flash attention on CUDA takes bf16 (Hopper kernels), f32 or f16 "
-        "(CUDA-core kernels), got %s" % dtype)
+def _kernels_for(dtype, width: int):
+    """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
+    a padded head dim of ``width``: chosen by the two alone, never as a
+    retry after a failure.  Each step takes its Hopper kernel where that
+    kernel takes the dtype and the width, else its CUDA-core twin: bf16 at
+    up to 128 runs all four on Hopper, f16 there the forward and one-pass
+    (dq and dk/dv on the CUDA cores), f32, and every dtype at 256, all four
+    on the CUDA cores."""
+    if dtype not in SIMT_DTYPES:
+        raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
+                         "got %s" % dtype)
+    if width not in _HEAD_DIMS:
+        raise ValueError("flash attention on CUDA takes a head dim of at "
+                         "most 256 (zero-padded to one of %s), got %d"
+                         % (_HEAD_DIMS, width))
+    return tuple(h if dtype in h.dtypes and width in h.widths else c
+                 for h, c in zip(HOPPER_KERNELS, SIMT_KERNELS))
 
 
 def flash_fwd(q, k, v, causal: bool):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
-    return _kernels_for(q.dtype)[0](q, k, v, causal)
+    return _kernels_for(q.dtype, q.shape[-1])[0](q, k, v, causal)
 
 
 def bwd_choice() -> str:
@@ -341,7 +368,7 @@ def bwd_choice() -> str:
 def flash_bwd(q, k, v, g, lse, delta, causal: bool):
     cpu = q.device.type == "cpu"
     _, dq_kernel, dkv_kernel, onepass_kernel = (
-        (None,) * 4 if cpu else _kernels_for(q.dtype))
+        (None,) * 4 if cpu else _kernels_for(q.dtype, q.shape[-1]))
     if bwd_choice() == "pallas_onepass":
         run = flash_bwd_onepass_reference if cpu else onepass_kernel
         partials, dk, dv = run(q, k, v, g, lse, delta, causal)
@@ -359,8 +386,8 @@ def flash_bwd(q, k, v, g, lse, delta, causal: bool):
 
 def padded_head_dim(d: int) -> int:
     """The kernels' width that holds a head dim of ``d``: the smallest of
-    32, 64 and 128 at or above it, else ``d`` itself (the plain versions
-    take any width; the kernels raise)."""
+    32, 64, 128 and 256 at or above it, else ``d`` itself (the plain
+    versions take any width; on CUDA ``_kernels_for`` raises)."""
     return next((w for w in _HEAD_DIMS if w >= d), d)
 
 
@@ -412,8 +439,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True):
     """Fused attention on ``(batch, seq, heads, head_dim)`` tensors; GQA
     (fewer KV heads) repeats each KV head over its group of q heads.  On
-    CUDA, bf16 runs the Hopper kernels and f32 and f16 the CUDA-core ones,
-    each at a head dim up to 128; another dtype raises."""
+    CUDA the kernels run as ``_kernels_for`` routes them by dtype and
+    padded head dim (up to 256); another dtype, or a wider head, raises."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)

@@ -157,7 +157,7 @@ def make_bert_train_step(cfg: bert.BertConfig,
                                              torch.optim.Optimizer],
                          objective: str = "classification",
                          compression=Compression.none, num_groups: int = 0,
-                         op: str = AVERAGE, device=None):
+                         op: str = AVERAGE, device=None, grad_scaler=None):
     """Returns ``(build, shard_batch)``, as ``make_train_step`` does, for
     BERT fine-tuning with the ``classification_loss`` or ``mlm_loss``
     objective.
@@ -169,7 +169,14 @@ def make_bert_train_step(cfg: bert.BertConfig,
     of ``examples/pytorch_bert_finetune.py``: AdamW, 8 groups, fp16 wire;
     ``op=hvd.Adasum`` for Adasum) and returns ``(step, model, opt)``; ``step(batch) -> loss`` (this
     rank's loss, detached).  ``shard_batch(global_batch)`` gives this
-    rank's rows on ``device``.  Needs ``hvd.init()`` first."""
+    rank's rows on ``device``.  Needs ``hvd.init()`` first.
+
+    ``grad_scaler`` (a ``torch.amp.GradScaler``), for f16 activations:
+    the step backpropagates the scaled loss, so that small gradients stay
+    in f16's normal range in the backward and on an fp16 wire, and then
+    follows Horovod's recipe: ``synchronize()``, ``unscale_``, the
+    optimizer step under ``skip_synchronize()`` (skipped by the scaler
+    when a gradient is not finite), ``update()``."""
     loss_fn = {"classification": bert.classification_loss,
                "mlm": bert.mlm_loss}[objective]
     dev = basics.resolve_device(device)
@@ -188,8 +195,16 @@ def make_bert_train_step(cfg: bert.BertConfig,
         def step(batch):
             opt.zero_grad()
             loss = loss_fn(model, batch)
-            loss.backward()
-            opt.step()
+            if grad_scaler is None:
+                loss.backward()
+                opt.step()
+                return loss.detach()
+            grad_scaler.scale(loss).backward()
+            opt.synchronize()
+            grad_scaler.unscale_(opt)
+            with opt.skip_synchronize():
+                grad_scaler.step(opt)
+            grad_scaler.update()
             return loss.detach()
 
         return step, model, opt

@@ -32,12 +32,19 @@ builds in seconds), then the codec phase's check of the fp8 edge values
 (``codec_edge_mismatches``: the plain e4m3 cast's bytes on the card
 against the reference's).  One fault is a codec's, planted in
 ``compression.py``: an fp8 cast that saturates instead of giving NaN;
-its case runs the codec check alone.  Three are the CUDA-core flash
+its case runs the codec check alone.  Four are the CUDA-core flash
 kernels' (``flash_simt.cu``: a causal mask off by one, the last live k
-tile skipped, P not cast to V's dtype); their cases run chip_smoke's
-CUDA-core checks alone, at SIMT_SHAPES in f32 and f16, and the other
-faults' cases leave those checks out.  The first case, ``none``, applies
-no edit; names on the command line run ``none`` and those faults only.
+tile skipped, P not cast to V's dtype, the last 32-row tile of a D 256
+one-pass slot skipped); their cases run chip_smoke's CUDA-core checks
+alone, at SIMT_SHAPES in f32, f16 and bf16, and the other faults' cases
+leave those checks out.  A fault in a source of the Hopper kernels that
+also run in f16 (the forward, the one-pass and dk/dv body, the one-pass
+entry, ``sm90.cuh``) is held at the f16 units too (the forward and
+one-pass in f16 at the five attention shapes); two faults are f16's own:
+f16 read as bf16 (the tensor map's type and the products'), and the
+forward's causal mask off by one in f16 only.  The first case, ``none``,
+applies no edit; names on the command line run ``none`` and those faults
+only.
 
 A check process that dies is recorded at the shape (or at the model
 checks) it was in, and a fresh process runs the rest, so that every
@@ -73,7 +80,7 @@ _KV_MASK = "if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"
 _KV_P = "p[e] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));"
 _DQ_STORE = ("tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, "
              "q0 + 64 * wg, bh);")
-_DQ_MAP = "panel_map<D, 4>(&mdq, dq, s, bh, 64)"
+_DQ_MAP = "panel_map<D>(&mdq, dq, s, bh, 64)"
 FAULTS = {
     "none": None,
     "fp8_cast_saturates": (
@@ -106,8 +113,8 @@ FAULTS = {
         "forward: lse left in log2 units"),
     "fwd_v_transpose_bit": (
         "flash_fwd.cu",
-        "MmaRS<D, 1>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
-        "MmaRS<D, 0>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
+        "MmaRS<D, 1, T>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
+        "MmaRS<D, 0, T>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
         "forward: V read K-major (its transpose bit flipped)"),
     "dq_mask_off_by_one": (
         "flash_bwd.cu",
@@ -138,7 +145,7 @@ FAULTS = {
     "dq_ragged_rows_written": (
         "flash_bwd.cu",
         (_DQ_MAP, _DQ_STORE, "dl[h] = row < S ? delta[at] : 0.f;"),
-        ("panel_map<D, 4>(&mdq, dq, (uint64_t)s * bh, 1, 64)",
+        ("panel_map<D>(&mdq, dq, (uint64_t)s * bh, 1, 64)",
          _DQ_STORE.replace("q0 + 64 * wg, bh);", "bh * S + q0 + 64 * wg, 0);"),
          "dl[h] = row < S ? delta[at] : 1.f;"),
         "dq: rows past S written (dq's map flattened, so the next head's "
@@ -164,16 +171,18 @@ FAULTS = {
     "onepass_last_k_partial": (
         _KV,
         "        for (int kk = 0; kk < BK / 16; ++kk)\n"
-        "          MmaSS<D / 2, 1, 1>",
+        "          MmaSS<D / 2, 1, 1, T>",
         "        for (int kk = 0; kk < BK / 16 * (kt + 1 < nk); ++kk)\n"
-        "          MmaSS<D / 2, 1, 1>",
+        "          MmaSS<D / 2, 1, 1, T>",
         "one-pass: the last k tile's dq partial dropped (its registers unset)"),
     "onepass_ragged_rows_written": (
         ("flash_bwd_onepass.cu", _KV, _KV),
-        ("panel_map<D / 2, 4>(&mdqp, dqp, s, (uint64_t)bh * nk, kv::BQ, D)",
+        ("static_cast<const float*>(dqp), s,\n"
+         "                              (uint64_t)bh * nk, kv::BQ, D)",
          "q0,\n                         bh * nk + kt);",
          _KV_MASK),
-        ("panel_map<D / 2, 4>(&mdqp, dqp, (uint64_t)s * bh * nk, 1, kv::BQ, D)",
+        ("static_cast<const float*>(dqp),\n"
+         "                              (uint64_t)s * bh * nk, 1, kv::BQ, D)",
          "(bh * nk + kt) * S + q0,\n                         0);",
          "if (!(kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
         "one-pass: partial rows past S written (the partials' map flattened, "
@@ -238,6 +247,29 @@ FAULTS = {
         "        Ps[(ty + 16 * i) * LP + tx + 16 * j] = rnd<T>(p);",
         "        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;",
         "CUDA-core forward: P not cast to V's dtype before PV (under f16)"),
+    "f16_read_as_bf16": (
+        "sm90.cuh",
+        "  static constexpr CUtensorMapDataType map = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;\n"
+        "  static constexpr bool f16 = true;",
+        "  static constexpr CUtensorMapDataType map = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;\n"
+        "  static constexpr bool f16 = false;",
+        "f16 Hopper kernels: f16 read through a BFLOAT16 tensor map and "
+        "multiplied as bf16 (a map's type sets only its element size and "
+        "out-of-range fill, the same for both, so the products' type is "
+        "what reads the bits)"),
+    "fwd_f16_mask_off_by_one": (
+        "flash_fwd.cu",
+        "            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
+        "            if (!(col < S && (!CAUSAL || col < row + (2 * row < S || "
+        "!Elem<T>::f16)))) sc[4 * j + e] = NEG_INF;",
+        "f16 Hopper forward: causal mask drops the diagonal key in the "
+        "second half (bf16 untouched)"),
+    "simt_d256_last_tile": (
+        "flash_simt.cu",
+        "  for (int h = 0; h < parts && k0 + h * M < S; ++h)",
+        "  for (int h = 0; h < parts - (D > 128) && k0 + h * M < S; ++h)",
+        "CUDA-core one-pass at D 256: the last 32-row k tile of each "
+        "128-row slot skipped (its dk, dv unwritten, its partial left out)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -264,13 +296,21 @@ ALL = {RAGGED, DECODER, BERT, RAGGED32, RAGGED128}
 CAUSAL = {DECODER, RAGGED32}
 RAGGED_S = {RAGGED, RAGGED32, RAGGED128}
 # The CUDA-core kernels' units: chip_smoke's SIMT_SHAPES in each dtype.
+WIDE = ("BH32 S2048 D256 causal", "BH2 S130 D256 causal",
+        "BH4 S200 D256 full")
 SIMT_CAUSAL = ("BH32 S2048 D128 causal", "BH4 S200 D32 causal",
-               "BH2 S130 D64 causal")
-SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128, "BH2 S130 D64 causal")
+               "BH2 S130 D64 causal") + WIDE[:2]
+SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128,
+            "BH2 S130 D64 causal") + WIDE
 
 
-def simt_labels(shapes, dtypes=("float32", "float16")):
+def simt_labels(shapes, dtypes=("float32", "float16", "bfloat16")):
     return {"%s %s" % (shape, dtype) for shape in shapes for dtype in dtypes}
+
+
+def f16_labels(shapes):
+    """The f16 Hopper kernels' units: FLASH_SHAPES in f16."""
+    return {"%s float16 hopper" % shape for shape in shapes}
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
@@ -296,7 +336,12 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # every shape has more than one k tile on most q tiles
                 "simt_last_k_tile": simt_labels(SIMT_ALL),
                 # an identity cast under f32
-                "simt_p_not_cast": simt_labels(SIMT_ALL, ("float16",))}
+                "simt_p_not_cast": simt_labels(SIMT_ALL,
+                                               ("float16", "bfloat16")),
+                # every D 256 shape has a slot of four tiles
+                "simt_d256_last_tile": simt_labels(WIDE),
+                "f16_read_as_bf16": f16_labels(ALL),
+                "fwd_f16_mask_off_by_one": f16_labels(CAUSAL)}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -310,6 +355,9 @@ MODELS = "the model checks"
 CODECS = "the codec check"
 CODEC_FAULTS = {"fp8_cast_saturates"}
 SIMT_SOURCE = "flash_simt.cu"
+# Sources of the kernels that also run in f16: a fault there is held at
+# the f16 units too.
+F16_SOURCES = {"flash_fwd.cu", _KV, "flash_bwd_onepass.cu", "sm90.cuh"}
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs
@@ -319,14 +367,20 @@ from horovod_tpu_torch.ops import scale_sum as ss
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
-ns = len(cs.SIMT_SHAPES)
+ns, nd = len(cs.SIMT_SHAPES), len(cs.SIMT_DTYPES)
 for unit in json.loads(sys.argv[1]):
     print("AT %d" % unit, flush=True)
-    if unit >= nf + nb + 2:
+    if unit >= nf + nb + 2 + ns * nd:
+        bh, s, d, causal = cs.FLASH_SHAPES[unit - (nf + nb + 2 + ns * nd)]
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, "float16"), causal)
+        res = {"errs": errs, "poisoned": poisoned}
+    elif unit >= nf + nb + 2:
         k = unit - (nf + nb + 2)
         bh, s, d, causal = cs.SIMT_SHAPES[k % ns]
         errs, poisoned, _, _ = cs.kernel_errors(
-            fa, *cs.kernel_inputs(bh, s, d, cs.SIMT_DTYPES[k // ns]), causal)
+            fa, *cs.kernel_inputs(bh, s, d, cs.SIMT_DTYPES[k // ns]), causal,
+            "simt")
         res = {"errs": errs, "poisoned": poisoned}
     elif unit < nf:
         bh, s, d, causal = cs.FLASH_SHAPES[unit]
@@ -356,12 +410,15 @@ for unit in json.loads(sys.argv[1]):
 
 def unit_labels(cs):
     """The check units of a case, in the order a check process runs them:
-    each attention shape, each BN shape, the model checks, then the codec
-    check."""
+    each attention shape, each BN shape, the model checks, the codec
+    check, the CUDA-core units (each dtype at each of SIMT_SHAPES), then
+    the f16 Hopper units (FLASH_SHAPES in f16)."""
     return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
             + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS]
             + ["%s %s" % (cs.shape_label(*shape), dtype)
-               for dtype in cs.SIMT_DTYPES for shape in cs.SIMT_SHAPES])
+               for dtype in cs.SIMT_DTYPES for shape in cs.SIMT_SHAPES]
+            + ["%s float16 hopper" % cs.shape_label(*shape)
+               for shape in cs.FLASH_SHAPES])
 
 
 def run_case(name, fault, labels, units=None):
@@ -491,8 +548,11 @@ def main(argv) -> int:
     labels = unit_labels(cs)
     nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
     flash_labels, bn_labels = labels[:nf], labels[nf:nf + nb]
-    simt_units = list(range(nf + nb + 2, len(labels)))
+    ns = len(cs.SIMT_SHAPES) * len(cs.SIMT_DTYPES)
+    simt_units = list(range(nf + nb + 2, nf + nb + 2 + ns))
+    f16_units = list(range(nf + nb + 2 + ns, len(labels)))
     simt_labels_ = [labels[u] for u in simt_units]
+    f16_labels_ = [labels[u] for u in f16_units]
     old_units = list(range(nf + nb + 2))
     ok = True
     for name, fault in FAULTS.items():
@@ -509,9 +569,11 @@ def main(argv) -> int:
             ok &= bool(edge) and not died
             continue
         simt = fault is not None and fault[0] == SIMT_SOURCE
+        f16 = fault is not None and fault[0] in F16_SOURCES
         readings, died = run_case(
             name, fault, labels,
-            None if fault is None else simt_units if simt else old_units)
+            None if fault is None else simt_units if simt else
+            old_units + f16_units if f16 else old_units)
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
         cuda_deaths = set()
         for label, err in died.items():
@@ -528,7 +590,9 @@ def main(argv) -> int:
         flash_at, flash_max = check_family(readings, flash_labels)
         bn_at, bn_max = check_family(readings, bn_labels)
         simt_at, _ = check_family(readings, simt_labels_)
+        f16_at, _ = check_family(readings, f16_labels_)
         flash_at |= cuda_deaths & set(flash_labels)
+        f16_at |= cuda_deaths & set(f16_labels_)
         bn_at |= cuda_deaths & set(bn_labels)
         simt_at |= cuda_deaths & set(simt_labels_)
         if MODELS in readings:
@@ -538,29 +602,33 @@ def main(argv) -> int:
         print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
               "check %s, scale_sum check %s, adasum check %s, CUDA-core "
-              "flash check %s"
+              "flash check %s, f16 Hopper flash check %s"
               % tuple("fails" if f else "passes"
                       for f in (bool(flash_at), flash_max, bool(bn_at),
-                                bn_max) + models + (bool(simt_at),)),
+                                bn_max) + models + (bool(simt_at),
+                                                    bool(f16_at))),
               flush=True)
-        failed_at = flash_at | bn_at | simt_at
+        failed_at = flash_at | bn_at | simt_at | f16_at
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
             edge = readings.get(CODECS, {}).get("edge")
-            print("  CUDA-core units held: %d of %d"
-                  % (len(set(simt_labels_) & set(readings)),
-                     len(simt_labels_)))
+            print("  CUDA-core units held: %d of %d; f16 Hopper units held: "
+                  "%d of %d" % (len(set(simt_labels_) & set(readings)),
+                                len(simt_labels_),
+                                len(set(f16_labels_) & set(readings)),
+                                len(f16_labels_)))
             print("  codec check: fp8 edge values off the reference's "
                   "bytes: %s" % edge)
             ok &= not (died or failed_at or any(models) or edge
                        or CODECS not in readings
-                       or not set(simt_labels_) <= set(readings))
+                       or not set(simt_labels_) <= set(readings)
+                       or not set(f16_labels_) <= set(readings))
         elif fault[0] == "scale_sum.cu":
             ok &= models[3] and models[4]
         else:
             family_at = (bn_at if fault[0] == "batch_norm.cu" else
-                         simt_at if simt else flash_at)
+                         simt_at if simt else flash_at | f16_at)
             must = MUST_FAIL_AT.get(name, set())
             ok &= bool(family_at) and must <= family_at
             if must - family_at:

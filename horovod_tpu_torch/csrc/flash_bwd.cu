@@ -1,22 +1,27 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv.
+// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
+// in bf16 and in f16.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel, launched by _flash_attention_bwd_flat (the default
-// two-pass backward).  Same function, with q pre-scaled by 1/sqrt(D):
+// two-pass backward), at bf16 and f16 inputs.  Same function, with q
+// pre-scaled by 1/sqrt(D), products of inputs in T (bf16 or f16) with f32
+// accumulation and every cast to T:
 //   p  = exp(q k^T - lse), 0 where masked
 //   ds = p * (g v^T - delta)            (delta = rowsum(g * o), from the caller)
 //   dq = ds k      (ds cast to k's dtype; dq in q's pre-scaled units, f32 out)
 //   dv = p^T g     (p cast to g's dtype)
 //   dk = ds^T q    (ds cast to q's dtype; no extra scale)
-// accumulating in f32.  dq leaves the kernel in f32 so that the caller's
-// multiply by 1/sqrt(D) comes before the one rounding to bf16.
+// dq leaves the kernel in f32 so that the caller's multiply by 1/sqrt(D)
+// comes before the one rounding to T.  No conversion flushes an f16
+// subnormal to zero; dS underflows in f16 sooner than in bf16, where the
+// plain version's cast sees the same values.
 //
 // Bound on the H100 SXM: compute at the decoder's shape (BH 32, S 2048,
 // D 128, causal): dq does 3 products and dk/dv 4, each 2*BH*D*S*(S+1)/2
-// FLOP: 51.6 + 68.8 GFLOP, 52 + 70 us at 989 TFLOP/s bf16, against about
-// 0.1 GB of input and output per kernel (30 us at 3.35 TB/s).  Bytes at
-// BERT-Large's (BH 512, S 384, D 64, full): 152 MB each (45 us) against
-// 29 + 39 GFLOP.
+// FLOP: 51.6 + 68.8 GFLOP, 52 + 70 us at 989 TFLOP/s (bf16 and f16 alike),
+// against about 0.1 GB of input and output per kernel (30 us at 3.35
+// TB/s).  Bytes at BERT-Large's (BH 512, S 384, D 64, full): 152 MB each
+// (45 us) against 29 + 39 GFLOP.
 //
 // Design: the TPU kernels ran the reduction axis in grid order and carried
 // the sums in VMEM scratch.  Here the reduction is a loop inside the
@@ -40,13 +45,14 @@
 //          by wgmma from shared memory (both operands K-major), P =
 //          exp2(S log2e - lse log2e) and dS = P (dP - delta) on the
 //          registers (the mask only on a diagonal or ragged tile), dS
-//          packed to bf16 in the accumulator's layout, which is wgmma's
+//          packed to T in the accumulator's layout, which is wgmma's
 //          register A layout, and dq += dS K with K read MN-major (the
 //          transpose bit).  dq stays in f32 registers; it leaves through a
 //          swizzled f32 tile in the ring, which both consumers are done
 //          with then, and a TMA store that drops rows at or past S.
 // 3-D tensor maps (D, S, BH) make a ragged tile read zeros, not the next
-// head's rows.
+// head's rows.  Both kernels are templates on T: sm90.cuh's Elem<T> names
+// the maps' element type and the wgmma kind, and pack<T> rounds dS and P.
 //
 // Left on the table: overlap inside a consumer of one tile's elementwise
 // work with the next tile's products (each tile now runs products,
@@ -57,7 +63,6 @@
 
 namespace hvdflash {
 
-using bf16 = __nv_bfloat16;
 using namespace sm90;
 
 // ----------------------------------------------------------------- dq kernel
@@ -69,10 +74,10 @@ constexpr int BK = 128;  // k rows per tile
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <typename T, int D>
 struct Smem {
-  static constexpr size_t qtile = BQ * D * sizeof(bf16);
-  static constexpr size_t ktile = BK * D * sizeof(bf16);
+  static constexpr size_t qtile = BQ * D * sizeof(T);
+  static constexpr size_t ktile = BK * D * sizeof(T);
   static constexpr size_t q = 0;             // BQ x D
   static constexpr size_t g = q + qtile;     // BQ x D
   static constexpr size_t ring = g + qtile;  // STAGES x (K, V); then the dq tile
@@ -84,7 +89,7 @@ struct Smem {
 
 }  // namespace dqtile
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mk,
@@ -93,8 +98,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mdq,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, int S) {
-  using L = dqtile::Smem<D>;
-  using PB = Panels<D>;     // bf16 (rows, D) tiles
+  using L = dqtile::Smem<T, D>;
+  using PB = Panels<D>;     // (rows, D) tiles of T
   using PF = Panels<D, 4>;  // a consumer's f32 (64, D) dq tile
   constexpr int BQ = dqtile::BQ, BK = dqtile::BK, STAGES = dqtile::STAGES;
   constexpr float LOG2E = dqtile::LOG2E;
@@ -176,18 +181,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BK, 0, 0>::run(sc, desc_kmajor<D, BQ>(sq, kk),
-                             desc_kmajor<D, BK>(sk, kk), kk > 0);
+        MmaSS<BK, 0, 0, T>::run(sc, desc_kmajor<D, BQ>(sq, kk),
+                                desc_kmajor<D, BK>(sk, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BK, 0, 0>::run(dp, desc_kmajor<D, BQ>(sg, kk),
-                             desc_kmajor<D, BK>(sv, kk), kk > 0);
+        MmaSS<BK, 0, 0, T>::run(dp, desc_kmajor<D, BQ>(sg, kk),
+                                desc_kmajor<D, BK>(sv, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
 
-      // dS = P (dP - delta), packed to bf16 pairs in the accumulator's layout
+      // dS = P (dP - delta), packed to pairs of T in the accumulator's layout
       const bool mask = (CAUSAL && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S;
       uint32_t pds[BK / 4];
 #pragma unroll
@@ -205,7 +210,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
             }
             d[e] = p * (dp[x] - dl[h]);
           }
-          pds[2 * j + h] = pack_bf16(d[0], d[1]);
+          pds[2 * j + h] = pack<T>(d[0], d[1]);
         }
 
       // dq += dS K: A from registers, K MN-major
@@ -215,7 +220,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t a[4] = {pds[4 * kk], pds[4 * kk + 1], pds[4 * kk + 2],
                                pds[4 * kk + 3]};
-        MmaRS<D, 1>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);
+        MmaRS<D, 1, T>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -245,11 +250,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D, bool CAUSAL>
-static cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
-                             const bf16* g, const float* lse, const float* delta,
-                             float* dq, int bh, int s, cudaStream_t stream) {
-  using L = dqtile::Smem<D>;
+template <typename T, int D, bool CAUSAL>
+static cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* g,
+                             const float* lse, const float* delta, float* dq,
+                             int bh, int s, cudaStream_t stream) {
+  using L = dqtile::Smem<T, D>;
   CUtensorMap mq, mk, mv, mg, mdq;
   cudaError_t err;
   if ((err = panel_map<D>(&mq, q, s, bh, dqtile::BQ)) != cudaSuccess ||
@@ -258,7 +263,7 @@ static cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
       (err = panel_map<D>(&mv, v, s, bh, dqtile::BK)) != cudaSuccess ||
       (err = panel_map<D>(&mdq, dq, s, bh, 64)) != cudaSuccess)
     return err;
-  auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
+  auto kernel = flash_bwd_dq_kernel<T, D, CAUSAL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::bytes);
   if (err != cudaSuccess) return err;
@@ -269,7 +274,7 @@ static cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
 
 // --------------------------------------------------------------- dkv kernel
 
-template <int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -280,20 +285,20 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mdk,
                      const __grid_constant__ CUtensorMap mdv, int S) {
   // no partials: the body reads neither its dq map (mdk stands in) nor dqp
-  kv::ktile_body<bf16, D, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdk,
-                                         mdv, nullptr, S);
+  kv::ktile_body<T, D, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdk,
+                                      mdv, nullptr, S);
 }
 
-template <int D, bool CAUSAL>
-static cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-                              const bf16* g, const float* lse, const float* delta,
-                              bf16* dk, bf16* dv, int bh, int s, cudaStream_t stream) {
+template <typename T, int D, bool CAUSAL>
+static cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
+                              const float* lse, const float* delta, T* dk, T* dv,
+                              int bh, int s, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg, mlse, mdelta, mdk, mdv;
-  cudaError_t err = kv::ktile_maps<bf16, D>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
-                                      &mdv, q, k, v, g, lse, delta, dk, dv, bh, s);
+  cudaError_t err = kv::ktile_maps<T, D>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
+                                         &mdv, q, k, v, g, lse, delta, dk, dv, bh, s);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_bwd_dkv_kernel<D, CAUSAL>;
-  const size_t bytes = kv::Smem<bf16, D, false>::bytes;
+  auto kernel = flash_bwd_dkv_kernel<T, D, CAUSAL>;
+  const size_t bytes = kv::Smem<T, D, false>::bytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;
@@ -304,57 +309,65 @@ static cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
 
 }  // namespace hvdflash
 
+// dtype: 1 float16, 2 bfloat16 (the codes of flash_simt.cu).  d: 32, 64 or
+// 128.  Each returns a cudaError_t (cudaErrorInvalidValue for a dtype or d
+// it does not take).
+#define HVD_BWD_WIDTHS(CASE, T) \
+  switch (d) {                  \
+    CASE(T, 32)                 \
+    CASE(T, 64)                 \
+    CASE(T, 128)                \
+    default:                    \
+      return (int)cudaErrorInvalidValue; \
+  }
+
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse, const void* delta,
                                 void* dq, int bh, int s, int d, int causal,
-                                void* stream) {
+                                int dtype, void* stream) {
   using namespace hvdflash;
   auto st = static_cast<cudaStream_t>(stream);
-  auto Q = static_cast<const bf16*>(q);
-  auto K = static_cast<const bf16*>(k);
-  auto V = static_cast<const bf16*>(v);
-  auto G = static_cast<const bf16*>(g);
   auto LSE = static_cast<const float*>(lse);
   auto DEL = static_cast<const float*>(delta);
   auto DQ = static_cast<float*>(dq);
-#define HVD_DQ(DD)                                                          \
-  case DD:                                                                  \
-    return causal ? launch_dq<DD, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, st) \
-                  : launch_dq<DD, false>(Q, K, V, G, LSE, DEL, DQ, bh, s, st);
-  switch (d) {
-    HVD_DQ(32)
-    HVD_DQ(64)
-    HVD_DQ(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define HVD_DQ(T, DD)                                                        \
+  case DD: {                                                                 \
+    auto Q = static_cast<const T*>(q);                                       \
+    auto K = static_cast<const T*>(k);                                       \
+    auto V = static_cast<const T*>(v);                                       \
+    auto G = static_cast<const T*>(g);                                       \
+    return causal ? launch_dq<T, DD, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, st) \
+                  : launch_dq<T, DD, false>(Q, K, V, G, LSE, DEL, DQ, bh, s, st); \
   }
+  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)
+  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DQ, __nv_bfloat16)
+  return (int)cudaErrorInvalidValue;
 #undef HVD_DQ
 }
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse, const void* delta,
                                  void* dk, void* dv, int bh, int s, int d,
-                                 int causal, void* stream) {
+                                 int causal, int dtype, void* stream) {
   using namespace hvdflash;
   auto st = static_cast<cudaStream_t>(stream);
-  auto Q = static_cast<const bf16*>(q);
-  auto K = static_cast<const bf16*>(k);
-  auto V = static_cast<const bf16*>(v);
-  auto G = static_cast<const bf16*>(g);
   auto LSE = static_cast<const float*>(lse);
   auto DEL = static_cast<const float*>(delta);
-  auto DK = static_cast<bf16*>(dk);
-  auto DV = static_cast<bf16*>(dv);
-#define HVD_DKV(DD)                                                              \
-  case DD:                                                                       \
-    return causal ? launch_dkv<DD, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st) \
-                  : launch_dkv<DD, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st);
-  switch (d) {
-    HVD_DKV(32)
-    HVD_DKV(64)
-    HVD_DKV(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define HVD_DKV(T, DD)                                                        \
+  case DD: {                                                                  \
+    auto Q = static_cast<const T*>(q);                                        \
+    auto K = static_cast<const T*>(k);                                        \
+    auto V = static_cast<const T*>(v);                                        \
+    auto G = static_cast<const T*>(g);                                        \
+    auto DK = static_cast<T*>(dk);                                            \
+    auto DV = static_cast<T*>(dv);                                            \
+    return causal                                                             \
+        ? launch_dkv<T, DD, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st)    \
+        : launch_dkv<T, DD, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st);  \
   }
+  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __half)
+  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DKV, __nv_bfloat16)
+  return (int)cudaErrorInvalidValue;
 #undef HVD_DKV
 }
+#undef HVD_BWD_WIDTHS

@@ -24,8 +24,8 @@
 // dS^T Q by wgmma with A from registers (P and dS packed to T in the
 // accumulator's layout) and dO, Q read MN-major; dk and dv stay in
 // registers for the whole loop.  T, the inputs' and dk's and dv's type,
-// is bf16 or f16 (the one-pass kernel takes both, the dk/dv kernel bf16):
-// the products take T with f32 accumulation, P and dS are packed to T.
+// is bf16 or f16 (both kernels take both): the products take T with f32
+// accumulation, P and dS are packed to T.
 //
 // With PARTIALS, dS^T also goes to shared memory as T, and the dq
 // partial dS K is one more wgmma, A (dS) and B (K) both MN-major, its D

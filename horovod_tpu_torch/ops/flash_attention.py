@@ -5,8 +5,9 @@ Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` ``flash_attention``
 (``_flash_fwd``, ``_flash_bwd``).  Around the kernels, in torch, as the
 JAX package does it: GQA repeats KV heads; q is scaled by 1/sqrt(d) in
 its own dtype; the head dim is zero-padded to the next width the kernels
-take (32, 64, 128 or 256; the JAX package pads to a multiple of 128
-lanes: zero columns add 0 to every product) and the outputs sliced back;
+take (32, 64, 128 or 256, and past 256 the next multiple of 128, as the
+JAX package pads every head dim to a multiple of 128 lanes: zero columns
+add 0 to every product) and the outputs sliced back;
 ``delta = rowsum(g * o)`` is computed in f32; dq is multiplied by
 1/sqrt(d) in f32 before its cast; the layout goes ``(B, S, H, D) <->
 (B*H, S, D)``.
@@ -24,12 +25,11 @@ version only for tensors on the CPU; on CUDA they launch the kernels that
 ``_kernels_for`` names for the inputs' dtype and padded width, which
 raise on anything they do not take.  The Hopper kernels
 (``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) take
-head dims 32, 64 and 128: the forward and the one-pass backward in bf16
-and f16, dq and dk/dv in bf16.  Their CUDA-core twins
+bf16 and f16 at head dims 32, 64 and 128.  Their CUDA-core twins
 (``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at 32,
-64, 128 and 256 and run whatever the Hopper kernels do not: f32, the f16
-dq and dk/dv, and every dtype at 256.  Any other dtype, or a head dim past
-256, raises.
+64, 128, 256 and every multiple of 128 past 256, and run whatever the
+Hopper kernels do not: f32, and every dtype from 256 on.  Any other dtype
+raises.
 """
 
 from __future__ import annotations
@@ -43,10 +43,24 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-# the kernels' widths, flash_attention pads a head dim to one; the Hopper
-# kernels take the first three
+# the kernels' widths up to 256, flash_attention pads a head dim to one
+# (past 256, to a multiple of 128); the Hopper kernels take the first three
 _HEAD_DIMS = (32, 64, 128, 256)
 HOPPER_WIDTHS = _HEAD_DIMS[:3]
+
+
+class _PaddedWidths:
+    """Every width ``padded_head_dim`` gives: 32, 64, 128, 256 and each
+    multiple of 128 past 256 (the CUDA-core kernels' widths)."""
+
+    def __contains__(self, width) -> bool:
+        return width in _HEAD_DIMS or (width > 256 and width % 128 == 0)
+
+    def __repr__(self) -> str:
+        return "(32, 64, 128, 256, or a multiple of 128 past 256)"
+
+
+PADDED_WIDTHS = _PaddedWidths()
 # rows of k per one-pass tile, hence per dq partial; passed to the kernel,
 # which refuses a value other than its own
 BLOCK_K = 128
@@ -55,8 +69,8 @@ BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 5 + [_P]},
-    "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
-                  "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P]},
+    "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+                  "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P]},
     "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
     "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
@@ -64,13 +78,9 @@ _SIGNATURES = {
                    "hvd_simt_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
 }
 # The code of each dtype that a kernel's C entry takes (flash_simt.cu all
-# three; flash_fwd.cu and flash_bwd_onepass.cu f16 and bf16).
+# three; the Hopper sources f16 and bf16).
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# The dtypes of the Hopper kernels: the forward and the one-pass backward
-# (flash_fwd.cu, flash_bwd_onepass.cu) take bf16 and f16, dq and dk/dv
-# (flash_bwd.cu) bf16; the CUDA-core ones (flash_simt.cu) take all three.
 HOPPER_DTYPES = (torch.bfloat16, torch.float16)
-HOPPER_BWD_DTYPES = (torch.bfloat16,)
 SIMT_DTYPES = tuple(DTYPE_CODES)
 
 
@@ -161,8 +171,8 @@ def _check_kernel_args(kernel, flat, rows=()):
             raise ValueError("%s takes f32 (BH, S) row statistics" % name)
     if d not in widths:
         raise ValueError("%s takes head_dim in %s, got %d: flash_attention "
-                         "zero-pads a head dim up to 256 to one of %s"
-                         % (name, widths, d, _HEAD_DIMS))
+                         "zero-pads a head dim to one of %s"
+                         % (name, widths, d, PADDED_WIDTHS))
     for t in list(flat) + list(rows):
         if not t.is_cuda:
             raise ValueError("%s launches a CUDA kernel; got a tensor on %s"
@@ -196,28 +206,31 @@ def flash_fwd_kernel(q, k, v, causal: bool):
 
 
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dq (``csrc/flash_bwd.cu``), bf16 -> dq f32, pre-scaled
-    units."""
+    """Hopper dq (``csrc/flash_bwd.cu``), bf16 or f16 -> dq f32,
+    pre-scaled units."""
     bh, s, d = _check_kernel_args(flash_bwd_dq_kernel, (q, k, v, g),
                                   (lse, delta))
     dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
     _build.check(_lib("flash_bwd").hvd_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
-        int(causal), _stream(q)), "flash_bwd_dq_kernel")
+        int(causal), DTYPE_CODES[q.dtype], _stream(q)),
+        "flash_bwd_dq_kernel")
     flash_bwd_dq_kernel.launches += 1
     return dq
 
 
 def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dk/dv (``csrc/flash_bwd.cu``) -> (dk bf16, dv bf16)."""
+    """Hopper dk/dv (``csrc/flash_bwd.cu``), bf16 or f16 -> (dk, dv) in
+    k's dtype."""
     bh, s, d = _check_kernel_args(flash_bwd_dkv_kernel, (q, k, v, g),
                                   (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(_lib("flash_bwd").hvd_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, s, d, int(causal), _stream(q)), "flash_bwd_dkv_kernel")
+        bh, s, d, int(causal), DTYPE_CODES[q.dtype], _stream(q)),
+        "flash_bwd_dkv_kernel")
     flash_bwd_dkv_kernel.launches += 1
     return dk, dv
 
@@ -310,10 +323,8 @@ SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS
 for _k in KERNELS:
     _k.launches = 0
-    _k.widths = _HEAD_DIMS if _k in SIMT_KERNELS else HOPPER_WIDTHS
-    _k.dtypes = (SIMT_DTYPES if _k in SIMT_KERNELS else HOPPER_BWD_DTYPES
-                 if _k in (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
-                 else HOPPER_DTYPES)
+    _k.widths = PADDED_WIDTHS if _k in SIMT_KERNELS else HOPPER_WIDTHS
+    _k.dtypes = SIMT_DTYPES if _k in SIMT_KERNELS else HOPPER_DTYPES
 
 
 def reset_launch_counts():
@@ -329,17 +340,16 @@ def _kernels_for(dtype, width: int):
     """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes its Hopper kernel where that
-    kernel takes the dtype and the width, else its CUDA-core twin: bf16 at
-    up to 128 runs all four on Hopper, f16 there the forward and one-pass
-    (dq and dk/dv on the CUDA cores), f32, and every dtype at 256, all four
-    on the CUDA cores."""
+    kernel takes the dtype and the width, else its CUDA-core twin: bf16 and
+    f16 at up to 128 run all four on Hopper; f32, and every dtype from 256
+    on, all four on the CUDA cores."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)
-    if width not in _HEAD_DIMS:
-        raise ValueError("flash attention on CUDA takes a head dim of at "
-                         "most 256 (zero-padded to one of %s), got %d"
-                         % (_HEAD_DIMS, width))
+    if width not in PADDED_WIDTHS:
+        raise ValueError("flash attention on CUDA takes a head dim "
+                         "zero-padded to one of %s, got %d"
+                         % (PADDED_WIDTHS, width))
     return tuple(h if dtype in h.dtypes and width in h.widths else c
                  for h, c in zip(HOPPER_KERNELS, SIMT_KERNELS))
 
@@ -386,9 +396,9 @@ def flash_bwd(q, k, v, g, lse, delta, causal: bool):
 
 def padded_head_dim(d: int) -> int:
     """The kernels' width that holds a head dim of ``d``: the smallest of
-    32, 64, 128 and 256 at or above it, else ``d`` itself (the plain
-    versions take any width; on CUDA ``_kernels_for`` raises)."""
-    return next((w for w in _HEAD_DIMS if w >= d), d)
+    32, 64, 128 and 256 at or above it, and past 256 the next multiple of
+    128 (the JAX package's ``_d_pad``)."""
+    return next((w for w in _HEAD_DIMS if w >= d), -(-d // 128) * 128)
 
 
 def _to_flat(x, width: int):
@@ -440,7 +450,7 @@ def flash_attention(q, k, v, causal: bool = True):
     """Fused attention on ``(batch, seq, heads, head_dim)`` tensors; GQA
     (fewer KV heads) repeats each KV head over its group of q heads.  On
     CUDA the kernels run as ``_kernels_for`` routes them by dtype and
-    padded head dim (up to 256); another dtype, or a wider head, raises."""
+    padded head dim (any width); another dtype raises."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)

@@ -41,10 +41,29 @@ def synthetic_batch(cfg: TransformerConfig, batch: int,
     return {"tokens": tokens, "targets": tokens.copy()}
 
 
+def _backward_and_step(opt, loss, grad_scaler):
+    """``loss.backward()`` and ``opt.step()``; with ``grad_scaler`` (a
+    ``torch.amp.GradScaler``) the scaled loss's backward, so that small
+    gradients stay in f16's normal range in the backward and on an fp16
+    wire, then Horovod's recipe: ``synchronize()``, ``unscale_``, the
+    optimizer step under ``skip_synchronize()`` (skipped by the scaler
+    when a gradient is not finite), ``update()``."""
+    if grad_scaler is None:
+        loss.backward()
+        opt.step()
+        return
+    grad_scaler.scale(loss).backward()
+    opt.synchronize()
+    grad_scaler.unscale_(opt)
+    with opt.skip_synchronize():
+        grad_scaler.step(opt)
+    grad_scaler.update()
+
+
 def make_train_step(cfg: TransformerConfig,
                     optimizer: Callable[[Iterable[torch.nn.Parameter]],
                                         torch.optim.Optimizer],
-                    device=None):
+                    device=None, grad_scaler=None):
     """Returns ``(build, shard_batch)``.
 
     ``build(np_params)`` puts the JAX-layout tree on ``device`` (CUDA
@@ -52,7 +71,13 @@ def make_train_step(cfg: TransformerConfig,
     ``DistributedOptimizer``, broadcasts rank 0's parameters and returns
     ``(step, model, opt)``, with ``step(batch) -> loss`` (this rank's
     mean loss, detached).  ``shard_batch(global_batch)`` gives this
-    rank's rows on ``device``.  Needs ``hvd.init()`` first."""
+    rank's rows on ``device``.  Needs ``hvd.init()`` first.
+
+    ``grad_scaler`` (a ``torch.amp.GradScaler``), for f16 activations:
+    the step backpropagates the scaled loss and follows Horovod's recipe
+    (``synchronize()``, ``unscale_``, the optimizer step under
+    ``skip_synchronize()``, ``update()``), as ``make_bert_train_step``
+    does.  With None the step is the plain one."""
     dev = basics.resolve_device(device)
 
     def build(np_params):
@@ -65,8 +90,7 @@ def make_train_step(cfg: TransformerConfig,
         def step(batch):
             opt.zero_grad()
             loss = loss_fn(model, batch)
-            loss.backward()
-            opt.step()
+            _backward_and_step(opt, loss, grad_scaler)
             return loss.detach()
 
         return step, model, opt
@@ -174,9 +198,7 @@ def make_bert_train_step(cfg: bert.BertConfig,
     ``grad_scaler`` (a ``torch.amp.GradScaler``), for f16 activations:
     the step backpropagates the scaled loss, so that small gradients stay
     in f16's normal range in the backward and on an fp16 wire, and then
-    follows Horovod's recipe: ``synchronize()``, ``unscale_``, the
-    optimizer step under ``skip_synchronize()`` (skipped by the scaler
-    when a gradient is not finite), ``update()``."""
+    follows Horovod's recipe (``_backward_and_step``)."""
     loss_fn = {"classification": bert.classification_loss,
                "mlm": bert.mlm_loss}[objective]
     dev = basics.resolve_device(device)
@@ -195,16 +217,7 @@ def make_bert_train_step(cfg: bert.BertConfig,
         def step(batch):
             opt.zero_grad()
             loss = loss_fn(model, batch)
-            if grad_scaler is None:
-                loss.backward()
-                opt.step()
-                return loss.detach()
-            grad_scaler.scale(loss).backward()
-            opt.synchronize()
-            grad_scaler.unscale_(opt)
-            with opt.skip_synchronize():
-                grad_scaler.step(opt)
-            grad_scaler.update()
+            _backward_and_step(opt, loss, grad_scaler)
             return loss.detach()
 
         return step, model, opt

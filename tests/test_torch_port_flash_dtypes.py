@@ -1,9 +1,8 @@
 """The port's flash attention at float32 and float16 against the JAX
 package's, which computes in any float dtype.
 
-On the card, bf16 runs the Hopper kernels, f32 their CUDA-core twins
-(``csrc/flash_simt.cu``), and f16 the Hopper forward and one-pass with
-the CUDA-core dq and dk/dv, chosen by dtype and width alone; here on
+On the card, bf16 and f16 run the Hopper kernels and f32 their CUDA-core
+twins (``csrc/flash_simt.cu``), chosen by dtype and width alone; here on
 the CPU the same autograd function runs the kernels' plain versions,
 which cast as those kernels do (P to V's dtype before PV, dS to K's and
 Q's before its products).  The JAX side runs
@@ -113,16 +112,13 @@ def test_plain_versions_cast_as_the_kernels(dtype):
 
 
 def test_kernels_chosen_by_dtype():
-    """At head dims up to 128: bf16 -> the Hopper kernels, f32 -> the
-    CUDA-core ones, f16 -> the Hopper forward and one-pass with the
-    CUDA-core dq and dk/dv; anything else raises; the wrappers take CUDA
+    """At head dims up to 128: bf16 and f16 -> the Hopper kernels, f32 ->
+    the CUDA-core ones; anything else raises; the wrappers take CUDA
     tensors only."""
     for width in (32, 64, 128):
         assert fa._kernels_for(torch.bfloat16, width) == fa.HOPPER_KERNELS
         assert fa._kernels_for(torch.float32, width) == fa.SIMT_KERNELS
-        assert fa._kernels_for(torch.float16, width) == (
-            fa.flash_fwd_kernel, fa.flash_bwd_dq_simt_kernel,
-            fa.flash_bwd_dkv_simt_kernel, fa.flash_bwd_onepass_kernel)
+        assert fa._kernels_for(torch.float16, width) == fa.HOPPER_KERNELS
     with pytest.raises(ValueError, match="f32, f16 or bf16"):
         fa._kernels_for(torch.float64, 64)
     assert set(fa.KERNELS) == set(fa.HOPPER_KERNELS + fa.SIMT_KERNELS)

@@ -166,53 +166,48 @@ SIMT = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.SIMT_KERNELS))
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [32, 64, 128, 256])
 def test_route_by_dtype_and_width(dtype, width):
-    """bf16 at up to 128: the four Hopper kernels; f16 there: the Hopper
-    forward and one-pass, the CUDA-core dq and dk/dv; f32, and any dtype
-    at 256: the four CUDA-core kernels.  Each kernel routed to takes the
-    dtype and width."""
+    """bf16 and f16 at up to 128: the four Hopper kernels; f32, and any
+    dtype at 256: the four CUDA-core kernels.  Each kernel routed to takes
+    the dtype and width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))
-    if width == 256 or dtype == torch.float32:
-        want = SIMT
-    elif dtype == torch.bfloat16:
-        want = HOPPER
-    else:
-        want = {"fwd": HOPPER["fwd"], "dq": SIMT["dq"], "dkv": SIMT["dkv"],
-                "onepass": HOPPER["onepass"]}
+    want = SIMT if width == 256 or dtype == torch.float32 else HOPPER
     assert route == want
     for kern in route.values():
         assert dtype in kern.dtypes and width in kern.widths
 
 
-@pytest.mark.parametrize("width", [96, 160, 257, 384])
+@pytest.mark.parametrize("width", [96, 160, 257, 300])
 def test_route_refuses_widths_no_kernel_takes(width):
-    """A width is routed only after ``padded_head_dim``; one past 256
-    raises with a message that names 256, in every dtype."""
+    """A width is routed only after ``padded_head_dim``; one that is not a
+    padded width (below 256 not a power of two from 32, past 256 not a
+    multiple of 128) raises with a message that names the padded widths,
+    in every dtype."""
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
-        with pytest.raises(ValueError, match="256"):
+        with pytest.raises(ValueError, match="multiple of 128 past 256"):
             fa._kernels_for(dtype, width)
     with pytest.raises(ValueError, match="f32, f16 or bf16"):
         fa._kernels_for(torch.float64, 256)
 
 
 def test_padded_head_dims_past_128():
-    """129-256 pad to 256; past 256 a head dim stays as it is (the plain
-    versions take it; on the card the route raises)."""
+    """129-256 pad to 256; past 256 a head dim pads to the next multiple
+    of 128, as the JAX package's ``_d_pad`` does."""
     assert [fa.padded_head_dim(d) for d in (129, 192, 255, 256, 257, 384)] \
-        == [256, 256, 256, 256, 257, 384]
+        == [256, 256, 256, 256, 384, 384]
 
 
 def test_kernel_wrappers_check_their_family():
     """Each wrapper refuses a dtype or width outside its family's before it
-    looks at the device: the Hopper dq takes bf16 only, the Hopper forward
-    no width past 128, the CUDA-core forward none past 256; what they take
-    then raises here for lying on the CPU."""
+    looks at the device: the Hopper dq takes no f32, the Hopper forward no
+    width past 128, the CUDA-core forward no width that is not a padded
+    one (320); what they take then raises here for lying on the CPU."""
     x = {(dt, w): torch.zeros(2, 64, w, dtype=dt)
-         for dt in (torch.float16, torch.float32) for w in (64, 256, 384)}
+         for dt in (torch.float16, torch.float32) for w in (64, 256, 320)}
     rows = torch.zeros(2, 64)
-    cases = ((fa.flash_bwd_dq_kernel, torch.float16, 64, "one dtype of"),
+    cases = ((fa.flash_bwd_dq_kernel, torch.float32, 64, "one dtype of"),
              (fa.flash_fwd_kernel, torch.float16, 256, "head_dim in"),
-             (fa.flash_fwd_simt_kernel, torch.float32, 384, "head_dim in"),
+             (fa.flash_fwd_simt_kernel, torch.float32, 320, "head_dim in"),
              (fa.flash_fwd_simt_kernel, torch.float16, 256, "CUDA kernel"),
              (fa.flash_bwd_onepass_kernel, torch.float16, 64, "CUDA kernel"))
     for kern, dtype, width, msg in cases:

@@ -32,17 +32,18 @@ builds in seconds), then the codec phase's check of the fp8 edge values
 (``codec_edge_mismatches``: the plain e4m3 cast's bytes on the card
 against the reference's).  One fault is a codec's, planted in
 ``compression.py``: an fp8 cast that saturates instead of giving NaN;
-its case runs the codec check alone.  Four are the CUDA-core flash
+its case runs the codec check alone.  Five are the CUDA-core flash
 kernels' (``flash_simt.cu``: a causal mask off by one, the last live k
 tile skipped, P not cast to V's dtype, the last 32-row tile of a D 256
-one-pass slot skipped); their cases run chip_smoke's CUDA-core checks
-alone, at SIMT_SHAPES in f32, f16 and bf16, and the other faults' cases
-leave those checks out.  A fault in a source of the Hopper kernels that
-also run in f16 (the forward, the one-pass and dk/dv body, the one-pass
-entry, ``sm90.cuh``) is held at the f16 units too (the forward and
-one-pass in f16 at the five attention shapes); two faults are f16's own:
-f16 read as bf16 (the tensor map's type and the products'), and the
-forward's causal mask off by one in f16 only.  The first case, ``none``,
+one-pass slot skipped, a 128-column panel left out of the scores past
+256); their cases run chip_smoke's CUDA-core checks alone, at
+SIMT_SHAPES in f32, f16 and bf16, and the other faults' cases leave
+those checks out.  A fault in a source of the Hopper kernels, which all
+run in f16 too, is held at the f16 units as well (the four kernels in
+f16 at the five attention shapes); four faults are f16's own: f16 read
+as bf16 (the tensor map's type and the products'), the same in dq alone
+and in dk/dv alone (their f16 entries launching the bf16 instances), and
+the forward's causal mask off by one in f16 only.  The first case, ``none``,
 applies no edit; names on the command line run ``none`` and those faults
 only.
 
@@ -81,6 +82,11 @@ _KV_P = "p[e] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));"
 _DQ_STORE = ("tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, "
              "q0 + 64 * wg, bh);")
 _DQ_MAP = "panel_map<D>(&mdq, dq, s, bh, 64)"
+# the CUDA-core kernels' loops over the 128-column panels of the scores
+_SIMT_PANELS = tuple("for (int p = 0; p < np; ++p) {  // " + c for c in (
+    "S = Q K^T over every panel", "S again, V's panel with the last",
+    "S = Q K^T, dP = dO V^T over every panel",
+    "S^T = K Q^T, dP^T = V dO^T, every panel"))
 FAULTS = {
     "none": None,
     "fp8_cast_saturates": (
@@ -133,8 +139,8 @@ FAULTS = {
         "dq: the diagonal k tile skipped for q rows in the second half"),
     "dq_k_transpose_bit": (
         "flash_bwd.cu",
-        "MmaRS<D, 1>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
-        "MmaRS<D, 0>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
+        "MmaRS<D, 1, T>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
+        "MmaRS<D, 0, T>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
         "dq: K read K-major in dS K (its transpose bit flipped)"),
     "dq_stale_ring_stage": (
         "flash_bwd.cu",
@@ -270,6 +276,24 @@ FAULTS = {
         "  for (int h = 0; h < parts - (D > 128) && k0 + h * M < S; ++h)",
         "CUDA-core one-pass at D 256: the last 32-row k tile of each "
         "128-row slot skipped (its dk, dv unwritten, its partial left out)"),
+    "dq_f16_read_as_bf16": (
+        "flash_bwd.cu",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __nv_bfloat16)",
+        "f16 Hopper dq: f16 inputs run through the bf16 instance (a bf16 "
+        "tensor map, bf16 products, dS packed to bf16)"),
+    "dkv_f16_read_as_bf16": (
+        "flash_bwd.cu",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __half)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __nv_bfloat16)",
+        "f16 Hopper dk/dv: f16 inputs run through the bf16 instance (bf16 "
+        "tensor maps, products, P and dS packed to bf16)"),
+    "simt_wide_panel_skipped": (
+        "flash_simt.cu", _SIMT_PANELS,
+        tuple(t.replace("++p", "p += 1 + (np > 2 && p == 0)")
+              for t in _SIMT_PANELS),
+        "CUDA-core kernels past 256: the second 128-column panel left out of "
+        "the scores (S, and dP in the backward) in every kernel"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -298,10 +322,12 @@ RAGGED_S = {RAGGED, RAGGED32, RAGGED128}
 # The CUDA-core kernels' units: chip_smoke's SIMT_SHAPES in each dtype.
 WIDE = ("BH32 S2048 D256 causal", "BH2 S130 D256 causal",
         "BH4 S200 D256 full")
+WIDER = ("BH32 S2048 D384 causal", "BH2 S130 D384 causal",
+         "BH4 S200 D384 full", "BH2 S130 D640 causal", "BH4 S200 D640 full")
 SIMT_CAUSAL = ("BH32 S2048 D128 causal", "BH4 S200 D32 causal",
-               "BH2 S130 D64 causal") + WIDE[:2]
+               "BH2 S130 D64 causal") + WIDE[:2] + WIDER[:2] + WIDER[3:4]
 SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128,
-            "BH2 S130 D64 causal") + WIDE
+            "BH2 S130 D64 causal") + WIDE + WIDER
 
 
 def simt_labels(shapes, dtypes=("float32", "float16", "bfloat16")):
@@ -340,7 +366,11 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                                                ("float16", "bfloat16")),
                 # every D 256 shape has a slot of four tiles
                 "simt_d256_last_tile": simt_labels(WIDE),
+                # every shape past 256 has three panels or more
+                "simt_wide_panel_skipped": simt_labels(WIDER),
                 "f16_read_as_bf16": f16_labels(ALL),
+                "dq_f16_read_as_bf16": f16_labels(ALL),
+                "dkv_f16_read_as_bf16": f16_labels(ALL),
                 "fwd_f16_mask_off_by_one": f16_labels(CAUSAL)}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
@@ -357,7 +387,8 @@ CODEC_FAULTS = {"fp8_cast_saturates"}
 SIMT_SOURCE = "flash_simt.cu"
 # Sources of the kernels that also run in f16: a fault there is held at
 # the f16 units too.
-F16_SOURCES = {"flash_fwd.cu", _KV, "flash_bwd_onepass.cu", "sm90.cuh"}
+F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
+               "sm90.cuh"}
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs

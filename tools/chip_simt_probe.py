@@ -1,22 +1,22 @@
 #!/usr/bin/env python3
-"""A short first call for the flash kernels beside the bf16 Hopper ones:
-the CUDA-core twins (``horovod_tpu_torch/csrc/flash_simt.cu``, f32, f16
-and bf16, head dims up to 256) and the f16 forms of the Hopper forward
-and one-pass kernels (``flash_fwd.cu``, ``flash_bwd_onepass.cu``), on one
-GPU.
+"""A short first call for the flash kernels: the CUDA-core twins
+(``horovod_tpu_torch/csrc/flash_simt.cu``, f32, f16 and bf16, head dims
+32 to 256 and past it in 128-column panels) and the four Hopper kernels
+(``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) in f16 and
+bf16, on one GPU.
 
     python3 tools/chip_simt_probe.py
 
 Builds the kernels, prints the card, the build time and ``nvcc``'s
-register and spill report for those three sources, then each kernel's
+register and spill report for those four sources, then each kernel's
 readings against its plain version (``chip_smoke``'s ``kernel_errors``,
 with no limit applied: ``worst`` is then the error over (|plain| + the
 row's scale)) at chip_smoke's shapes of its family (FLASH_SHAPES for
-the f16 Hopper kernels, SIMT_SHAPES for the CUDA-core ones in each dtype)
+the Hopper kernels, SIMT_SHAPES for the CUDA-core ones, in each dtype)
 and WIDE_BH_SHAPE, and each kernel's device ms per call (``time_ms``, 5
 calls) at the decoder's and BERT-Large's shapes (and the decoder's at
-head dim 256 for the CUDA-core ones).  Exits non-zero on any error; it
-judges nothing (``chip_smoke.py`` does).
+head dims 256 and 384 for the CUDA-core ones).  Exits non-zero on any
+error; it judges nothing (``chip_smoke.py`` does).
 """
 
 import json
@@ -24,9 +24,9 @@ import os
 import sys
 import time
 
-PROBED = (("hopper", "float16"), ("simt", "float32"), ("simt", "float16"),
-          ("simt", "bfloat16"))
-SOURCES = ("flash_simt", "flash_fwd", "flash_bwd_onepass")
+PROBED = (("hopper", "float16"), ("hopper", "bfloat16"), ("simt", "float32"),
+          ("simt", "float16"), ("simt", "bfloat16"))
+SOURCES = ("flash_simt", "flash_fwd", "flash_bwd", "flash_bwd_onepass")
 
 
 def main() -> int:
@@ -66,7 +66,8 @@ def main() -> int:
     for family, dtype in PROBED:
         kern = cs.flash_kernels(fa, dtype, family)
         shapes = [cs.DECODER_SHAPE, cs.BERT_SHAPE] + (
-            [cs.WIDE_HEAD_SHAPES[0]] if family == "simt" else [])
+            [cs.WIDE_HEAD_SHAPES[0], cs.WIDER_HEAD_SHAPES[0]]
+            if family == "simt" else [])
         for shape in shapes:
             q, k, v, do = cs.kernel_inputs(*shape[:3], dtype)
             causal = shape[3]

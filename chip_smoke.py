@@ -17,7 +17,11 @@
    backward variants timed, and untimed at BH 65,600 (past the 65,535
    blocks of a grid's y axis; S 64, D 32, causal); the four Hopper
    kernels again in f16 at the same shapes (f16 operands, f32
-   accumulation; SDPA in f16 their yardstick); the four BatchNorm
+   accumulation; SDPA in f16 their yardstick); the Hopper forward in bf16
+   and f16 at head dim 256 (the three shapes below, and untimed at BH
+   65,600, S 64) and past it (the five shapes at 384 and 640 below, each
+   also with V's later panels copies of its first, whose outputs must
+   agree bit for bit); the four BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
    ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
@@ -37,8 +41,8 @@
 3. Holds three small models on the card against the same weights in f32
    on the CPU (plain versions): the decoder (bf16; at head_dim 128, at
    96, which ``flash_attention`` zero-pads to the Hopper kernels' 128,
-   at 192, which it zero-pads to the CUDA-core kernels' 256, and at 320,
-   padded to 384),
+   at 192, which it zero-pads to 256, and at 320, padded to 384: the
+   Hopper forward and the CUDA-core backward),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
    decoder at dtype float32 (the CUDA-core kernels) trained 3 Adam steps
@@ -70,9 +74,12 @@
    same BERT-Large step at dtype float16, one step through
    ``make_bert_train_step`` under each backward choice from the same
    weights (24 launches each of the f16 Hopper forward and one-pass, then
-   of the forward, dq and dk/dv); each step's loss and gradients against
-   the same model's on the plain attention path on the card, then 5 more
-   steps timed (under each choice for BERT).  Between the decoder and
+   of the forward, dq and dk/dv); the decoder flagship with 4 heads of
+   256 (Gemma 7B's head width) in bf16, one step under ``pallas`` (12
+   Hopper forwards at D 256, 12 CUDA-core dq and dk/dv, no CUDA-core
+   forward); each step's loss and gradients against the same model's on
+   the plain attention path on the card, then 5 more steps timed (under
+   each choice for BERT).  Between the decoder and
    ResNet-50, the main path
    of the CUDA-core kernels: the decoder at the same width and depth at
    dtype float32, one step through ``make_train_step`` under each
@@ -136,9 +143,10 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (seventeen: the thirteen
-   kernels and the f16 forms of the four Hopper ones), then as the last
-   line ``{"ok": true, "device": {...}}``.
+5. Prints one JSON line of kernel records (nineteen: the thirteen
+   kernels, the f16 forms of the four Hopper ones, and the Hopper forward
+   at D 256 and at D 384), then as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
@@ -215,9 +223,10 @@ SIMT_TOL = {"float32": (2 ** -16, 2 ** -16), "float16": (2 ** -10, 2 ** -10),
             "bfloat16": (2 ** -7, 2 ** -7)}
 F16_OFF_SHARE = 2 ** -6
 # Head dim 256 (Gemma 7B's attention, and any head dim in 129-255 padded
-# to it) runs on the CUDA cores in every dtype: the decoder's attention at
-# that width, a ragged causal and a ragged full shape (one-pass slots of
-# four 32-row tiles, the last partly past S).
+# to it): the decoder's attention at that width, a ragged causal and a
+# ragged full shape (one-pass slots of four 32-row tiles, the last partly
+# past S).  The forward runs on Hopper in bf16 and f16 (64-row k tiles),
+# the backward on the CUDA cores, and everything in f32.
 WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
                     (4, 200, 256, False))
 # Past 256 (any head dim, padded to a multiple of 128) the CUDA-core
@@ -225,19 +234,31 @@ WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
 # panels at 384 (the decoder's attention at that width, timed; a ragged
 # causal and a ragged full shape), five at 640 (the two ragged ones).
 # Each ragged shape ends in a partial tile (S 130: 2 rows past two 64-row
-# tiles and one 128-row slot; S 200: 8 rows).
+# tiles and one 128-row slot; S 200: 8 rows).  The Hopper forward splits
+# o into panels of 256 columns and a last one of 128 (384 = 256 + 128,
+# 640 = 256 + 256 + 128), one block each, every block summing the scores
+# over every 64-column chunk in one order.
 WIDER_HEAD_SHAPES = ((32, 2048, 384, True), (2, 130, 384, True),
                      (4, 200, 384, False), (2, 130, 640, True),
                      (4, 200, 640, False))
 SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
                + WIDER_HEAD_SHAPES)
+# The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
+# family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
+# max), and untimed at WIDE_BH_SHAPE's BH and S at D 256.  Past 256 it is
+# also held to itself: with V's later panels copies of its first
+# (``panel_agreement``), every panel block must give o's columns bit for
+# bit as panel 0's block does, which it can only when all of them formed
+# the same P.
+HOPPER_FWD_SHAPES = WIDE_HEAD_SHAPES + WIDER_HEAD_SHAPES
+WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
 # Held at head_dim 128 and at 96, which the Hopper kernels take
-# zero-padded to 128, at 192, which the CUDA-core kernels take
-# zero-padded to 256, and at 320, zero-padded to 384 (three 128-column
-# panels on the CUDA cores).
+# zero-padded to 128, at 192, zero-padded to 256, and at 320, zero-padded
+# to 384 (the Hopper forward, whose panels there are 256 and 128 columns,
+# and the CUDA-core backward, 128-column panels).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
 # The small decoder at dtype float32 (the CUDA-core flash kernels) trained
@@ -431,14 +452,15 @@ def compare(got, want, rtol, atol):
             "max_abs_plain": want.abs().max().item()}
 
 
-def flash_kernels(fa, dtype, family="hopper"):
+def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper" or "simt", the
-    CUDA-core twins) that take inputs of ``dtype``: the four Hopper ones in
-    bf16 and f16, the four CUDA-core ones in any dtype."""
+    CUDA-core twins) that take inputs of ``dtype`` at head dim ``width``:
+    the four Hopper ones in bf16 and f16 up to 128 and the forward alone
+    from 256 on, the four CUDA-core ones in any dtype."""
     import torch
     kernels = fa.HOPPER_KERNELS if family == "hopper" else fa.SIMT_KERNELS
     return {name: k for name, k in zip(FLASH_KERNELS, kernels)
-            if getattr(torch, dtype) in k.dtypes}
+            if getattr(torch, dtype) in k.dtypes and width in k.widths}
 
 
 def flash_tol(dtype, family="hopper"):
@@ -453,13 +475,34 @@ def dtype_name(t) -> str:
     return str(t.dtype).split(".")[-1]
 
 
+def panel_agreement(fa, q, k, v, causal):
+    """The Hopper forward past 256 against itself: v's columns from 256 on
+    replaced by copies of its first ones (panel z's column j is column j
+    of panel 0), so every O panel block must give o's columns bit for bit
+    as panel 0's block does, which it does only when all of them formed
+    the same S, m, l and P.  -> compare's keys, ``worst`` 0 when every
+    element agrees and 1 + the count of those that do not."""
+    import torch
+    width, n = v.shape[-1], -(-v.shape[-1] // 256)
+    v = torch.cat([v[..., :256]] * n, -1)[..., :width].contiguous()
+    o, _ = fa.flash_fwd_kernel(q, k, v, causal)
+    base = torch.cat([o[..., :256]] * n, -1)[..., :width]
+    off = (o != base).sum().item()
+    return {"max_abs_err": (o.float() - base.float()).abs().max().item(),
+            "worst": 0.0 if off == 0 else 1.0 + off,
+            "max_abs_plain": base.float().abs().max().item()}
+
+
 def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     """The outputs of each of ``family``'s kernels that take the inputs'
-    dtype against its plain version on the same inputs: ({kernel:
-    {output: compare(...)}}, whether the one-pass partials landed in a
-    NaN-poisoned block), plus lse and delta for the timings."""
+    dtype and width against its plain version on the same inputs (and the
+    Hopper forward past 256 against itself, ``panel_agreement``, as its
+    output "panels"): ({kernel: {output: compare(...)}}, whether the
+    one-pass partials landed in a NaN-poisoned block, None where the
+    family has no one-pass kernel at the width), plus lse and delta for
+    the timings."""
     import torch
-    kern = flash_kernels(fa, dtype_name(q), family)
+    kern = flash_kernels(fa, dtype_name(q), family, q.shape[-1])
     tol = flash_tol(dtype_name(q), family)
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
@@ -471,21 +514,28 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
         outputs["flash_bwd_dq"] = {"dq": (kern["flash_bwd_dq"](*bwd), dq_ref)}
         dk, dv = kern["flash_bwd_dkv"](*bwd)
         outputs["flash_bwd_dkv"] = {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}
-    dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(*bwd)
-    # Poison the allocator: the partials' block comes back full of NaN, so
-    # a slot the kernel leaves unwritten reads NaN, not a stale zero.
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    poison = torch.full(dqp_ref.shape, float("nan"), device=q.device)
-    poisoned_ptr = poison.data_ptr()
-    del poison
-    dqp, dk1, dv1 = kern["flash_bwd_onepass"](*bwd)
-    torch.cuda.synchronize()
-    outputs["flash_bwd_onepass"] = {"dqp": (dqp, dqp_ref),
-                                    "dk": (dk1, dk1_ref), "dv": (dv1, dv1_ref)}
+    poisoned = None
+    if "flash_bwd_onepass" in kern:
+        dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(*bwd)
+        # Poison the allocator: the partials' block comes back full of
+        # NaN, so a slot the kernel leaves unwritten reads NaN, not a stale
+        # zero.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        poison = torch.full(dqp_ref.shape, float("nan"), device=q.device)
+        poisoned_ptr = poison.data_ptr()
+        del poison
+        dqp, dk1, dv1 = kern["flash_bwd_onepass"](*bwd)
+        torch.cuda.synchronize()
+        poisoned = dqp.data_ptr() == poisoned_ptr
+        outputs["flash_bwd_onepass"] = {"dqp": (dqp, dqp_ref),
+                                        "dk": (dk1, dk1_ref),
+                                        "dv": (dv1, dv1_ref)}
     errs = {name: {out: compare(got, want, *tol[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
+    if family == "hopper" and q.shape[-1] > 256:
+        errs["flash_fwd"]["panels"] = panel_agreement(fa, q, k, v, causal)
     if family == "simt":
         for name, outs in outputs.items():
             for out, (got, want) in outs.items():
@@ -494,7 +544,7 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
                     e["off_share"] = (got != want).float().mean().item()
                     e["worst"] = max(e["worst"],
                                      e["off_share"] / F16_OFF_SHARE)
-    return errs, dqp.data_ptr() == poisoned_ptr, lse_ref, delta
+    return errs, poisoned, lse_ref, delta
 
 
 @contextlib.contextmanager
@@ -520,11 +570,14 @@ def held_errors(fa, q, k, v, do, causal, label, family="hopper"):
     tol = flash_tol(dtype_name(q), family)
     for name, outs in errs.items():
         for out, e in outs.items():
-            say("  %s %s at %s: %s (rtol %.3g, atol %.3g x row scale)" % (
+            say("  %s %s at %s: %s (%s)" % (
                 name, out, label, json.dumps({k: float("%.4g" % x)
                                               for k, x in e.items()}),
-                *tol[out]))
-    say("  flash_bwd_onepass partials in a NaN-poisoned block: %s" % poisoned)
+                "rtol %.3g, atol %.3g x row scale" % tol[out] if out in tol
+                else "o's panels against panel 0's, bit for bit"))
+    if poisoned is not None:
+        say("  flash_bwd_onepass partials in a NaN-poisoned block: %s"
+            % poisoned)
     bad = ["%s %s" % (name, out) for name, outs in errs.items()
            for out, e in outs.items() if not e["worst"] <= 1.0]
     if bad:
@@ -538,18 +591,21 @@ def shape_label(bh, s, d, causal):
 
 
 def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
-    """One shape: each of ``family``'s kernels for inputs of ``dtype``
-    against its plain version, timed beside the plain version and SDPA,
-    and both whole backward variants as the port routes them timed (dq +
+    """One shape: each of ``family``'s kernels for inputs of ``dtype`` at
+    head dim ``d`` against its plain version, timed beside the plain
+    version and SDPA, and, where the family has backward kernels at ``d``,
+    both whole backward variants as the port routes them timed (dq +
     dk/dv kernels; one-pass kernel + the partials' sum); returns one
     record per kernel, whose ``launches`` counts this check's launches
-    (not the main path's), and the variants' times.  Bounds: bf16 and f16
-    at the tensor cores' 989 TFLOP/s, f32 at the CUDA cores' 67 (exact f32
-    products are not tensor-core work)."""
+    (not the main path's), and the variants' times (empty without
+    backward kernels).  Bounds: bf16 and f16 at the tensor cores' 989
+    TFLOP/s, f32 at the CUDA cores' 67 (exact f32 products are not
+    tensor-core work); the forward's is the function's (4 d FLOP a live
+    pair), whatever the kernel recomputes."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d, dtype)
-    wrappers = flash_kernels(fa, dtype, family)
+    wrappers = flash_kernels(fa, dtype, family, d)
     peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     fa.reset_launch_counts()
     errs, lse_ref, delta = held_errors(fa, q, k, v, do, causal,
@@ -591,8 +647,9 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
     out4 = sdpa()
     do4 = do.view(1, bh, s, d)
     lib_fwd = time_ms(lambda: sdpa().detach())
-    lib_bwd = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                                  retain_graph=True))
+    backward = "flash_bwd_dq" in wrappers
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True)) if backward else None
     for name, (kern, plain) in runs.items():
         if name not in wrappers:
             continue
@@ -600,10 +657,11 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
         records[name]["plain_ms"] = time_ms(plain)
         records[name]["library_ms"] = lib_fwd if name == "flash_fwd" else lib_bwd
     variants = {}
-    for choice in ("pallas", "pallas_onepass"):
-        with flash_bwd_env(choice):
-            variants[choice] = time_ms(lambda: fa.flash_bwd(*bwd), reps=20)
-    variants["sdpa"] = lib_bwd
+    if backward:
+        for choice in ("pallas", "pallas_onepass"):
+            with flash_bwd_env(choice):
+                variants[choice] = time_ms(lambda: fa.flash_bwd(*bwd), reps=20)
+        variants["sdpa"] = lib_bwd
     counts = fa.launch_counts()
     for name, wrapper in wrappers.items():
         records[name]["launches"] = counts[wrapper.__name__]
@@ -611,12 +669,14 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
 
 
 def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
-    """``family``'s flash kernels for ``dtype`` at their shapes
-    (FLASH_SHAPES on Hopper, SIMT_SHAPES on the CUDA cores) -> {shape:
-    records}, then held at WIDE_BH_SHAPE."""
+    """``family``'s flash kernels for ``dtype`` at their shapes (on Hopper
+    FLASH_SHAPES, and HOPPER_FWD_SHAPES for the forward; SIMT_SHAPES on
+    the CUDA cores) -> {shape: records}, then held at WIDE_BH_SHAPE (on
+    Hopper also at WIDE_BH_D256_SHAPE)."""
     import torch
     out = {}
-    shapes = FLASH_SHAPES if family == "hopper" else SIMT_SHAPES
+    hopper = family == "hopper"
+    shapes = FLASH_SHAPES + HOPPER_FWD_SHAPES if hopper else SIMT_SHAPES
     for bh, s, d, causal in shapes:
         label = "%s %s %s" % (shape_label(bh, s, d, causal), dtype, family)
         records, variants = check_kernels(fa, bh, s, d, causal, dtype,
@@ -625,16 +685,19 @@ def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
             say("kernel %s %s: %s" % (name, label, json.dumps(
                 {k: (round(v, 6) if isinstance(v, float) else v)
                  for k, v in rec.items()})))
-        say("backward %s, device ms per call as the port routes it: dq + "
-            "dk/dv kernels %.6g, one-pass kernel + partials' sum %.6g, SDPA "
-            "backward %.6g" % (label, variants["pallas"],
-                               variants["pallas_onepass"], variants["sdpa"]))
+        if variants:
+            say("backward %s, device ms per call as the port routes it: dq "
+                "+ dk/dv kernels %.6g, one-pass kernel + partials' sum %.6g, "
+                "SDPA backward %.6g" % (label, variants["pallas"],
+                                        variants["pallas_onepass"],
+                                        variants["sdpa"]))
         out[(bh, s, d, causal)] = records
-    *wide, causal = WIDE_BH_SHAPE
-    held_errors(fa, *kernel_inputs(*wide, dtype), causal,
-                "%s %s %s (untimed)" % (shape_label(*WIDE_BH_SHAPE), dtype,
-                                        family), family)
-    torch.cuda.empty_cache()
+    for shape in (WIDE_BH_SHAPE,) + ((WIDE_BH_D256_SHAPE,) if hopper else ()):
+        *wide, causal = shape
+        held_errors(fa, *kernel_inputs(*wide, dtype), causal,
+                    "%s %s %s (untimed)" % (shape_label(*shape), dtype,
+                                            family), family)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -804,8 +867,24 @@ def train_f32_flagship(torch):
 
 
 def check_model():
+    """The small decoder at each of MODEL_HEAD_DIMS against the CPU, its
+    flash launches counted -> {head_dim: counts}.  From head_dim 129 on,
+    bf16 takes the Hopper forward, never the CUDA-core one."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    counts = {}
     for head_dim in MODEL_HEAD_DIMS:
+        fa.reset_launch_counts()
         loss_err, leaves = model_errors(head_dim)
+        counts[head_dim] = fa.launch_counts()
+        if head_dim > 128:
+            say("model check (head_dim %d): flash launches %s" % (
+                head_dim, {k: n for k, n in counts[head_dim].items() if n}))
+            if not (counts[head_dim]["flash_fwd_kernel"] == 2
+                    and counts[head_dim]["flash_fwd_simt_kernel"] == 0):
+                raise AssertionError(
+                    "the small decoder at head_dim %d did not take the Hopper "
+                    "forward in each of its 2 layers: %s"
+                    % (head_dim, counts[head_dim]))
         worst = max(leaves, key=leaves.get)
         say("model check (head_dim %d): loss relative error %.3g (tol %.3g); "
             "gradient relative norm error per parameter: worst %s %.3g (tol "
@@ -818,6 +897,7 @@ def check_model():
                 "small decoder (head_dim %d) on the card disagrees with the "
                 "f32 CPU reference: loss %.3g, gradients of %s"
                 % (head_dim, loss_err, bad))
+    return counts
 
 
 def bn_inputs(m, c, residual):
@@ -1179,7 +1259,7 @@ def print_ptxas(text: str):
                                 max(v[1] for v in vals)))
 
 
-FAMILIES = (("flash_fwd", ("flash_fwd_kernel",)),
+FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
             ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
             ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",)),
@@ -1693,9 +1773,10 @@ def f16_leaf_errors(grads, plain):
 
 
 def held_f16_step(label, took, got, want, grads, plain, layers):
-    """Prints an f16 step's loss and gradients against its plain attention
-    path's (``f16_leaf_errors``; the q and k projections layer by layer)
-    and raises past BERT_LOSS_TOL or BERT_LEAF_TOL."""
+    """Prints a step's loss and gradients (f16, or bf16 with 256-wide
+    heads) against its plain attention path's (``f16_leaf_errors``; the q
+    and k projections layer by layer) and raises past BERT_LOSS_TOL or
+    BERT_LEAF_TOL."""
     loss_err = abs(got - want) / abs(want)
     leaves, raw, norms = f16_leaf_errors(grads, plain)
     say("%s q and k projections by layer (plain norm, card norm, relative "
@@ -1810,6 +1891,78 @@ def train_decoder_f16(torch):
     times, last, frozen = timed_steps(torch, step, data, "pallas")
     med = statistics.median(times)
     say("f16 decoder: %d more steps (pallas), ms %s, median step_ms %.2f, "
+        "tok/s %.1f, %d of them frozen, last loss %.6f" % (
+            STEPS, ["%.2f" % x for x in times], med, batch * seq / med * 1e3,
+            frozen, last))
+    with flash_bwd_env("pallas"):
+        profile_step(torch, step, data, med)
+    hvd.shutdown()
+    return counts
+
+
+def train_decoder_hd256(torch):
+    """The Hopper forward's main path at head dim 256: the decoder flagship
+    (``train_flagship``'s configuration, bench.py:86-91, and its Adam) with
+    n_heads = n_kv_heads = d // 256 = 4 (Gemma 7B's head width), bf16, one
+    step through ``make_train_step`` and the engine under
+    HVD_TPU_FLASH_BWD=pallas, every launch count set to 0 just before it
+    and read just after: 12 Hopper forwards, 12 CUDA-core dq and dk/dv, no
+    CUDA-core forward.  Its loss and gradients are held against the same
+    model's on the plain attention path (HOROVOD_FLASH_ATTENTION=0) on the
+    card, from the same weights and data, by the flagship steps' rules
+    (``held_f16_step``); the logits take bf16 operands on both paths, so
+    that only attention differs.  Then STEPS more steps, timed, and one
+    profiled.  -> the counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import init_params, params_from_jax
+    from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import make_train_step, synthetic_batch
+
+    hvd.init()
+    d, L, seq, batch = 1024, 12, 2048, 4
+    cfg = TransformerConfig(vocab_size=8192, d_model=d, n_layers=L,
+                            n_heads=d // 256, n_kv_heads=d // 256,
+                            d_ff=d * 3, max_seq=seq, logits_dtype="bf16")
+    t0 = time.perf_counter()
+    build, shard_batch = make_train_step(
+        cfg, lambda ps: torch.optim.Adam(ps, 1e-3))
+    params = init_params(cfg, seed=0)
+    step, model, _ = build(params)
+    data = shard_batch(synthetic_batch(cfg, batch, seed=0))
+    # The plain path on a copy of the weights with no gradient hooks.
+    ref = params_from_jax(params, cfg, next(model.parameters()).device)
+    fa.reset_launch_counts()
+    with env_set(HOROVOD_FLASH_ATTENTION="0"):
+        loss = loss_fn(ref, data)
+        loss.backward()
+    want = loss.item()
+    plain = {n: p.grad for n, p in ref.named_parameters()}
+    del ref, loss
+    if any(fa.launch_counts().values()):
+        raise AssertionError("the plain attention path launched flash "
+                             "kernels: %s" % fa.launch_counts())
+    say("hd256 decoder: d%d L%d %d heads of %d, seq %d, batch %d, bf16; "
+        "set-up and the plain path's loss and gradients %.1f s"
+        % (d, L, cfg.n_heads, cfg.head_dim, seq, batch,
+           time.perf_counter() - t0))
+    fa.reset_launch_counts()
+    with flash_bwd_env("pallas"):
+        t = time.perf_counter()
+        got = step(data).item()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+    counts = fa.launch_counts()
+    say("launches on the hd256 decoder path (1 step): %s" % counts)
+    check_counts(counts, {"flash_fwd_kernel": L,
+                          "flash_bwd_dq_simt_kernel": L,
+                          "flash_bwd_dkv_simt_kernel": L})
+    held_f16_step("hd256 decoder", took, got, want,
+                  {n: p.grad for n, p in model.named_parameters()}, plain, L)
+    del plain
+    times, last, frozen = timed_steps(torch, step, data, "pallas")
+    med = statistics.median(times)
+    say("hd256 decoder: %d more steps (pallas), ms %s, median step_ms %.2f, "
         "tok/s %.1f, %d of them frozen, last loss %.6f" % (
             STEPS, ["%.2f" % x for x in times], med, batch * seq / med * 1e3,
             frozen, last))
@@ -3063,7 +3216,7 @@ def main() -> int:
     ss_records = check_scale_sum_kernel(ss)
 
     # -- 3: small models against the f32 CPU reference
-    check_model()
+    model_counts = check_model()
     check_resnet_model()
     check_bert_model()
     train_f32_decoder(torch)
@@ -3097,6 +3250,8 @@ def main() -> int:
     f16_dec_counts = train_decoder_f16(torch)
     torch.cuda.empty_cache()
     f16_counts = train_bert_f16(torch)
+    torch.cuda.empty_cache()
+    hd256_counts = train_decoder_hd256(torch)
     torch.cuda.empty_cache()
     with flash_bwd_env("pallas_onepass"):
         adasum_counts, adasum_prof = train_bert_adasum(torch)
@@ -3193,7 +3348,19 @@ def main() -> int:
             shape_label(*WIDE_BH_SHAPE), shape_label(*f16_record[name][0]),
             ", ".join("%d times in %s" % (c[sources[name][2]], label)
                       for label, c in f16_paths.items()),
-            f16_record[name][1]) for name in F16_HOPPER))
+            f16_record[name][1]) for name in F16_HOPPER) + "; " +
+        "flash_fwd_d256 and flash_fwd_d384 (the Hopper forward from 256 on, "
+        "bf16 and f16) held at %s and %s (phase 2; their records bf16 at %s "
+        "and %s, SDPA in bf16 their library_ms), launched %d times in the "
+        "hd256 decoder step (phase 4; flash_fwd_d256's launches) and %d "
+        "times in the small decoder at head_dim 320 (phase 3, padded to 384; "
+        "flash_fwd_d384's launches: no phase-4 path runs a head dim past "
+        "256)" % (", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
+                  shape_label(*WIDE_BH_D256_SHAPE),
+                  shape_label(*HOPPER_FWD_SHAPES[0]),
+                  shape_label(*WIDER_HEAD_SHAPES[0]),
+                  hd256_counts["flash_fwd_kernel"],
+                  model_counts[320]["flash_fwd_kernel"]))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -3229,6 +3396,19 @@ def main() -> int:
         rec = flash16[shape][name]
         out.append({"name": name + "_f16", "route": "cuda", "source": src,
                     "replaces": replaces, "launches": f16_paths[path][wrapper],
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"]})
+    for name, shape, launches in (
+            ("flash_fwd_d256", HOPPER_FWD_SHAPES[0],
+             hd256_counts["flash_fwd_kernel"]),
+            ("flash_fwd_d384", WIDER_HEAD_SHAPES[0],
+             model_counts[320]["flash_fwd_kernel"])):
+        rec = flash[shape]["flash_fwd"]
+        out.append({"name": name, "route": "cuda",
+                    "source": sources["flash_fwd"][0],
+                    "replaces": sources["flash_fwd"][1], "launches": launches,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],

@@ -23,13 +23,14 @@ launches in ``.launches``, and a plain PyTorch version (``*_reference``)
 of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
 version only for tensors on the CPU; on CUDA they launch the kernels that
 ``_kernels_for`` names for the inputs' dtype and padded width, which
-raise on anything they do not take.  The Hopper kernels
-(``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) take
-bf16 and f16 at head dims 32, 64 and 128.  Their CUDA-core twins
-(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at 32,
-64, 128, 256 and every multiple of 128 past 256, and run whatever the
-Hopper kernels do not: f32, and every dtype from 256 on.  Any other dtype
-raises.
+raise on anything they do not take.  The Hopper kernels take bf16 and
+f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
+128, 256 and every multiple of 128 past 256), dq, dk/dv
+(``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
+at 32, 64 and 128.  Their CUDA-core twins (``csrc/flash_simt.cu``,
+``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
+whatever the Hopper kernels do not: f32, and the backward in every dtype
+from 256 on.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -44,14 +45,16 @@ from . import _build
 
 NEG_INF = -1e30
 # the kernels' widths up to 256, flash_attention pads a head dim to one
-# (past 256, to a multiple of 128); the Hopper kernels take the first three
+# (past 256, to a multiple of 128); the Hopper backward kernels take the
+# first three
 _HEAD_DIMS = (32, 64, 128, 256)
 HOPPER_WIDTHS = _HEAD_DIMS[:3]
 
 
 class _PaddedWidths:
     """Every width ``padded_head_dim`` gives: 32, 64, 128, 256 and each
-    multiple of 128 past 256 (the CUDA-core kernels' widths)."""
+    multiple of 128 past 256 (the widths of the Hopper forward and of the
+    CUDA-core kernels)."""
 
     def __contains__(self, width) -> bool:
         return width in _HEAD_DIMS or (width > 256 and width % 128 == 0)
@@ -192,8 +195,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def flash_fwd_kernel(q, k, v, causal: bool):
-    """Hopper forward (``csrc/flash_fwd.cu``), bf16 or f16 -> (o in q's
-    dtype, lse f32)."""
+    """Hopper forward (``csrc/flash_fwd.cu``), bf16 or f16, at every padded
+    width (past 256 one launch a 256-column panel of o, and one for a last
+    128-column panel) -> (o in q's dtype, lse f32)."""
     bh, s, d = _check_kernel_args(flash_fwd_kernel, (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
@@ -323,7 +327,8 @@ SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS
 for _k in KERNELS:
     _k.launches = 0
-    _k.widths = PADDED_WIDTHS if _k in SIMT_KERNELS else HOPPER_WIDTHS
+    _k.widths = (PADDED_WIDTHS if _k in SIMT_KERNELS or _k is flash_fwd_kernel
+                 else HOPPER_WIDTHS)
     _k.dtypes = SIMT_DTYPES if _k in SIMT_KERNELS else HOPPER_DTYPES
 
 
@@ -341,8 +346,9 @@ def _kernels_for(dtype, width: int):
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes its Hopper kernel where that
     kernel takes the dtype and the width, else its CUDA-core twin: bf16 and
-    f16 at up to 128 run all four on Hopper; f32, and every dtype from 256
-    on, all four on the CUDA cores."""
+    f16 at up to 128 run all four on Hopper, and from 256 on the forward on
+    Hopper and dq, dk/dv and the one-pass backward on the CUDA cores; f32
+    runs all four on the CUDA cores at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)

@@ -52,8 +52,10 @@ def _one_torch_thread():
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384])
 def test_f16_route(width):
     """f16 at up to 128: the four Hopper kernels; at 256 and past it the
-    four CUDA-core ones, as bf16 goes."""
-    want = fa.HOPPER_KERNELS if width <= 128 else fa.SIMT_KERNELS
+    Hopper forward and the three CUDA-core backward kernels, as bf16
+    goes."""
+    want = fa.HOPPER_KERNELS if width <= 128 else (
+        (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:])
     assert fa._kernels_for(torch.float16, width) == want
     assert fa._kernels_for(torch.bfloat16, width) == want
 

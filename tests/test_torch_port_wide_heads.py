@@ -3,9 +3,10 @@ and the route each (dtype, width) takes on the card.
 
 ``flash_attention`` zero-pads a head dim in 129-255 to 256 (the JAX
 package pads any to a multiple of 128: zero columns add 0 to every
-product) and slices the outputs back; on the card, every dtype at 256
-runs the CUDA-core kernels (``csrc/flash_simt.cu``), which cast as the
-plain versions run here do.  The JAX side runs
+product) and slices the outputs back; on the card, bf16 and f16 at 256
+run the Hopper forward (``csrc/flash_fwd.cu``) and the CUDA-core
+backward kernels (``csrc/flash_simt.cu``), f32 all four CUDA-core ones;
+here the plain versions run.  The JAX side runs
 ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its Pallas kernels
 in interpret mode, under both backward choices (``HVD_TPU_FLASH_BWD``,
 read by both packages).
@@ -166,12 +167,14 @@ SIMT = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.SIMT_KERNELS))
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [32, 64, 128, 256])
 def test_route_by_dtype_and_width(dtype, width):
-    """bf16 and f16 at up to 128: the four Hopper kernels; f32, and any
-    dtype at 256: the four CUDA-core kernels.  Each kernel routed to takes
-    the dtype and width."""
+    """bf16 and f16 at up to 128: the four Hopper kernels, and at 256 the
+    Hopper forward with the CUDA-core backward kernels; f32: the four
+    CUDA-core kernels.  Each kernel routed to takes the dtype and width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))
     want = SIMT if width == 256 or dtype == torch.float32 else HOPPER
+    if dtype != torch.float32:
+        want = dict(want, fwd=HOPPER["fwd"])
     assert route == want
     for kern in route.values():
         assert dtype in kern.dtypes and width in kern.widths
@@ -199,14 +202,14 @@ def test_padded_head_dims_past_128():
 
 def test_kernel_wrappers_check_their_family():
     """Each wrapper refuses a dtype or width outside its family's before it
-    looks at the device: the Hopper dq takes no f32, the Hopper forward no
-    width past 128, the CUDA-core forward no width that is not a padded
-    one (320); what they take then raises here for lying on the CPU."""
+    looks at the device: the Hopper dq takes no f32, the Hopper and the
+    CUDA-core forward no width that is not a padded one (320); what they
+    take then raises here for lying on the CPU."""
     x = {(dt, w): torch.zeros(2, 64, w, dtype=dt)
          for dt in (torch.float16, torch.float32) for w in (64, 256, 320)}
     rows = torch.zeros(2, 64)
     cases = ((fa.flash_bwd_dq_kernel, torch.float32, 64, "one dtype of"),
-             (fa.flash_fwd_kernel, torch.float16, 256, "head_dim in"),
+             (fa.flash_fwd_kernel, torch.float16, 320, "head_dim in"),
              (fa.flash_fwd_simt_kernel, torch.float32, 320, "head_dim in"),
              (fa.flash_fwd_simt_kernel, torch.float16, 256, "CUDA kernel"),
              (fa.flash_bwd_onepass_kernel, torch.float16, 64, "CUDA kernel"))

@@ -4,12 +4,14 @@ and the route each (dtype, width) takes on the card.
 Past 256, ``flash_attention`` zero-pads a head dim to the next multiple
 of 128, as the JAX package's ``_d_pad`` pads every head dim (zero columns
 add 0 to every product), and slices the outputs back; on the card every
-dtype there runs the CUDA-core kernels (``csrc/flash_simt.cu``), which
-split the width into 128-column panels, one block each, and cast as the
-plain versions run here do.  The JAX side runs
-``horovod_tpu.ops.pallas_kernels.flash_attention`` with its Pallas kernels
-in interpret mode, under both backward choices (``HVD_TPU_FLASH_BWD``,
-read by both packages).
+dtype's backward there runs the CUDA-core kernels
+(``csrc/flash_simt.cu``), which split the width into 128-column panels,
+one block each, and cast as the plain versions run here do; the forward
+runs on Hopper in bf16 and f16 (``csrc/flash_fwd.cu``: o in panels of
+256 columns and a last one of 128) and on the CUDA cores in f32.  The
+JAX side runs ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its
+Pallas kernels in interpret mode, under both backward choices
+(``HVD_TPU_FLASH_BWD``, read by both packages).
 
 Tolerances as ``test_torch_port_wide_heads.py`` holds D 192 and 256, per
 dtype: f32 2e-4 (summation order only); bf16 1.6e-2 relative and
@@ -61,10 +63,14 @@ def test_padded_head_dim_is_the_references_past_256(d):
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [384, 512, 640, 1024])
 def test_route_past_256(dtype, width):
-    """Every dtype at a multiple of 128 past 256: the four CUDA-core
-    kernels, each taking the dtype and the width."""
+    """Every dtype at a multiple of 128 past 256: dq, dk/dv and the
+    one-pass backward on the CUDA cores; the forward on Hopper in bf16 and
+    f16, on the CUDA cores in f32; each kernel taking the dtype and the
+    width."""
     route = fa._kernels_for(dtype, width)
-    assert route == fa.SIMT_KERNELS
+    fwd = (fa.flash_fwd_simt_kernel if dtype == torch.float32
+           else fa.flash_fwd_kernel)
+    assert route == (fwd,) + fa.SIMT_KERNELS[1:]
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths
 

@@ -43,7 +43,15 @@ run in f16 too, is held at the f16 units as well (the four kernels in
 f16 at the five attention shapes); four faults are f16's own: f16 read
 as bf16 (the tensor map's type and the products'), the same in dq alone
 and in dk/dv alone (their f16 entries launching the bf16 instances), and
-the forward's causal mask off by one in f16 only.  The first case, ``none``,
+the forward's causal mask off by one in f16 only.  A fault in the Hopper
+forward's sources (``flash_fwd.cu``, ``sm90.cuh``) is also held at its
+units from head dim 256 on (chip_smoke's HOPPER_FWD_SHAPES and
+WIDE_BH_D256_SHAPE in bf16 and f16; past 256 with the panel agreement,
+o's panels bit for bit against panel 0's on a V whose later panels copy
+its first); two faults are its own: the last 64-column chunk of Q K^T
+dropped at D 256, and past 256 the panel blocks after panel 0 streaming
+the score chunks in another order (and writing lse).  The first case,
+``none``,
 applies no edit; names on the command line run ``none`` and those faults
 only.
 
@@ -97,8 +105,8 @@ FAULTS = {
         "for infinities, where the reference gives NaN"),
     "fwd_diagonal_tile": (
         "flash_fwd.cu",
-        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
-        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
+        "  return CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
+        "  return CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
         "forward: the diagonal k tile skipped for q rows in the second half"),
     "dkv_last_q_tile": (
         _KV, _KV_P,
@@ -108,8 +116,8 @@ FAULTS = {
         "half"),
     "fwd_mask_off_by_one": (
         "flash_fwd.cu",
-        "            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
-        "            if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) "
+        "        if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
+        "        if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) "
         "sc[4 * j + e] = NEG_INF;",
         "forward: causal mask drops the diagonal key in the second half"),
     "fwd_lse_log2": (
@@ -119,8 +127,8 @@ FAULTS = {
         "forward: lse left in log2 units"),
     "fwd_v_transpose_bit": (
         "flash_fwd.cu",
-        "MmaRS<D, 1, T>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
-        "MmaRS<D, 0, T>::run(o, a, desc_mnmajor<D, BK>(sv, kk), 1);",
+        "MmaRS<N, 1, T>::run(o, a, desc_mnmajor<N, BK>(sv, kk), 1);",
+        "MmaRS<N, 0, T>::run(o, a, desc_mnmajor<N, BK>(sv, kk), 1);",
         "forward: V read K-major (its transpose bit flipped)"),
     "dq_mask_off_by_one": (
         "flash_bwd.cu",
@@ -265,8 +273,8 @@ FAULTS = {
         "what reads the bits)"),
     "fwd_f16_mask_off_by_one": (
         "flash_fwd.cu",
-        "            if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
-        "            if (!(col < S && (!CAUSAL || col < row + (2 * row < S || "
+        "        if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
+        "        if (!(col < S && (!CAUSAL || col < row + (2 * row < S || "
         "!Elem<T>::f16)))) sc[4 * j + e] = NEG_INF;",
         "f16 Hopper forward: causal mask drops the diagonal key in the "
         "second half (bf16 untouched)"),
@@ -294,6 +302,21 @@ FAULTS = {
               for t in _SIMT_PANELS),
         "CUDA-core kernels past 256: the second 128-column panel left out of "
         "the scores (S, and dP in the backward) in every kernel"),
+    "fwd_d256_last_chunk": (
+        "flash_fwd.cu",
+        "      for (int kk = 0; kk < D / 16; ++kk)",
+        "      for (int kk = 0; kk < D / 16 - 4 * (D == 256); ++kk)",
+        "Hopper forward at D 256: the last 64-column chunk of Q K^T left out "
+        "of the scores"),
+    "fwd_wide_panel_chunk_order": (
+        "flash_fwd.cu",
+        ("          const int s = n % SA, col = CW * c;",
+         "row_stats(m, l, lc, lse, bh, q0 + rl, S, lane % 4 == 0 && z == 0);"),
+        ("          const int s = n % SA, col = CW * ((c + z) % nc);",
+         "row_stats(m, l, lc, lse, bh, q0 + rl, S, lane % 4 == 0);"),
+        "Hopper forward past 256: a panel block other than panel 0 streams "
+        "the score chunks from chunk z on (S summed in another order, so P "
+        "off in its last bits) and writes lse too"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -328,6 +351,10 @@ SIMT_CAUSAL = ("BH32 S2048 D128 causal", "BH4 S200 D32 causal",
                "BH2 S130 D64 causal") + WIDE[:2] + WIDER[:2] + WIDER[3:4]
 SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128,
             "BH2 S130 D64 causal") + WIDE + WIDER
+# The Hopper forward's units from 256 on: chip_smoke's HOPPER_FWD_SHAPES
+# and WIDE_BH_D256_SHAPE in bf16 and f16.
+WIDE_BH_D256 = "BH65600 S64 D256 causal"
+WIDE_DTYPES = ("bfloat16", "float16")
 
 
 def simt_labels(shapes, dtypes=("float32", "float16", "bfloat16")):
@@ -337,6 +364,12 @@ def simt_labels(shapes, dtypes=("float32", "float16", "bfloat16")):
 def f16_labels(shapes):
     """The f16 Hopper kernels' units: FLASH_SHAPES in f16."""
     return {"%s float16 hopper" % shape for shape in shapes}
+
+
+def wide_labels(shapes):
+    """The Hopper forward's units from 256 on, in bf16 and f16."""
+    return {"%s %s hopper" % (shape, dtype) for shape in shapes
+            for dtype in WIDE_DTYPES}
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
@@ -371,7 +404,13 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "f16_read_as_bf16": f16_labels(ALL),
                 "dq_f16_read_as_bf16": f16_labels(ALL),
                 "dkv_f16_read_as_bf16": f16_labels(ALL),
-                "fwd_f16_mask_off_by_one": f16_labels(CAUSAL)}
+                "fwd_f16_mask_off_by_one": f16_labels(CAUSAL),
+                # every D 256 shape sums four chunks
+                "fwd_d256_last_chunk": wide_labels(WIDE + (WIDE_BH_D256,)),
+                # a last bit of P off shows in o's bf16 or f16 columns where
+                # thousands of rows hold thousands of keys: the decoder's
+                # shape, not the ragged ones
+                "fwd_wide_panel_chunk_order": wide_labels(WIDER[:1])}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -386,9 +425,11 @@ CODECS = "the codec check"
 CODEC_FAULTS = {"fp8_cast_saturates"}
 SIMT_SOURCE = "flash_simt.cu"
 # Sources of the kernels that also run in f16: a fault there is held at
-# the f16 units too.
+# the f16 units too; one in the Hopper forward's sources also at its units
+# from 256 on.
 F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
                "sm90.cuh"}
+WIDE_SOURCES = {"flash_fwd.cu", "sm90.cuh"}
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs
@@ -399,9 +440,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
 ns, nd = len(cs.SIMT_SHAPES), len(cs.SIMT_DTYPES)
+wide = cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)
 for unit in json.loads(sys.argv[1]):
     print("AT %d" % unit, flush=True)
-    if unit >= nf + nb + 2 + ns * nd:
+    if unit >= nf + nb + 2 + ns * nd + nf:
+        k = unit - (nf + nb + 2 + ns * nd + nf)
+        bh, s, d, causal = wide[k % len(wide)]
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, ("bfloat16", "float16")[
+                k // len(wide)]), causal)
+        res = {"errs": errs, "poisoned": poisoned}
+    elif unit >= nf + nb + 2 + ns * nd:
         bh, s, d, causal = cs.FLASH_SHAPES[unit - (nf + nb + 2 + ns * nd)]
         errs, poisoned, _, _ = cs.kernel_errors(
             fa, *cs.kernel_inputs(bh, s, d, "float16"), causal)
@@ -442,14 +491,19 @@ for unit in json.loads(sys.argv[1]):
 def unit_labels(cs):
     """The check units of a case, in the order a check process runs them:
     each attention shape, each BN shape, the model checks, the codec
-    check, the CUDA-core units (each dtype at each of SIMT_SHAPES), then
-    the f16 Hopper units (FLASH_SHAPES in f16)."""
+    check, the CUDA-core units (each dtype at each of SIMT_SHAPES), the
+    f16 Hopper units (FLASH_SHAPES in f16), then the Hopper forward's
+    units from 256 on (HOPPER_FWD_SHAPES and WIDE_BH_D256_SHAPE in bf16,
+    then in f16)."""
     return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
             + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS]
             + ["%s %s" % (cs.shape_label(*shape), dtype)
                for dtype in cs.SIMT_DTYPES for shape in cs.SIMT_SHAPES]
             + ["%s float16 hopper" % cs.shape_label(*shape)
-               for shape in cs.FLASH_SHAPES])
+               for shape in cs.FLASH_SHAPES]
+            + ["%s %s hopper" % (cs.shape_label(*shape), dtype)
+               for dtype in WIDE_DTYPES
+               for shape in cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)])
 
 
 def run_case(name, fault, labels, units=None):
@@ -581,9 +635,11 @@ def main(argv) -> int:
     flash_labels, bn_labels = labels[:nf], labels[nf:nf + nb]
     ns = len(cs.SIMT_SHAPES) * len(cs.SIMT_DTYPES)
     simt_units = list(range(nf + nb + 2, nf + nb + 2 + ns))
-    f16_units = list(range(nf + nb + 2 + ns, len(labels)))
+    f16_units = list(range(nf + nb + 2 + ns, nf + nb + 2 + ns + nf))
+    wide_units = list(range(nf + nb + 2 + ns + nf, len(labels)))
     simt_labels_ = [labels[u] for u in simt_units]
     f16_labels_ = [labels[u] for u in f16_units]
+    wide_labels_ = [labels[u] for u in wide_units]
     old_units = list(range(nf + nb + 2))
     ok = True
     for name, fault in FAULTS.items():
@@ -601,10 +657,12 @@ def main(argv) -> int:
             continue
         simt = fault is not None and fault[0] == SIMT_SOURCE
         f16 = fault is not None and fault[0] in F16_SOURCES
+        wide = fault is not None and fault[0] in WIDE_SOURCES
         readings, died = run_case(
             name, fault, labels,
             None if fault is None else simt_units if simt else
-            old_units + f16_units if f16 else old_units)
+            old_units + (f16_units if f16 else [])
+            + (wide_units if wide else []))
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
         cuda_deaths = set()
         for label, err in died.items():
@@ -622,8 +680,10 @@ def main(argv) -> int:
         bn_at, bn_max = check_family(readings, bn_labels)
         simt_at, _ = check_family(readings, simt_labels_)
         f16_at, _ = check_family(readings, f16_labels_)
+        wide_at, _ = check_family(readings, wide_labels_)
         flash_at |= cuda_deaths & set(flash_labels)
         f16_at |= cuda_deaths & set(f16_labels_)
+        wide_at |= cuda_deaths & set(wide_labels_)
         bn_at |= cuda_deaths & set(bn_labels)
         simt_at |= cuda_deaths & set(simt_labels_)
         if MODELS in readings:
@@ -633,33 +693,39 @@ def main(argv) -> int:
         print("  verdict: flash check %s (max-scaled rule %s), BN check %s "
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
               "check %s, scale_sum check %s, adasum check %s, CUDA-core "
-              "flash check %s, f16 Hopper flash check %s"
+              "flash check %s, f16 Hopper flash check %s, Hopper forward "
+              "from 256 on check %s"
               % tuple("fails" if f else "passes"
                       for f in (bool(flash_at), flash_max, bool(bn_at),
                                 bn_max) + models + (bool(simt_at),
-                                                    bool(f16_at))),
+                                                    bool(f16_at),
+                                                    bool(wide_at))),
               flush=True)
-        failed_at = flash_at | bn_at | simt_at | f16_at
+        failed_at = flash_at | bn_at | simt_at | f16_at | wide_at
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
             edge = readings.get(CODECS, {}).get("edge")
             print("  CUDA-core units held: %d of %d; f16 Hopper units held: "
-                  "%d of %d" % (len(set(simt_labels_) & set(readings)),
-                                len(simt_labels_),
-                                len(set(f16_labels_) & set(readings)),
-                                len(f16_labels_)))
+                  "%d of %d; Hopper forward units from 256 on held: %d of %d"
+                  % (len(set(simt_labels_) & set(readings)),
+                     len(simt_labels_),
+                     len(set(f16_labels_) & set(readings)),
+                     len(f16_labels_),
+                     len(set(wide_labels_) & set(readings)),
+                     len(wide_labels_)))
             print("  codec check: fp8 edge values off the reference's "
                   "bytes: %s" % edge)
             ok &= not (died or failed_at or any(models) or edge
                        or CODECS not in readings
                        or not set(simt_labels_) <= set(readings)
-                       or not set(f16_labels_) <= set(readings))
+                       or not set(f16_labels_) <= set(readings)
+                       or not set(wide_labels_) <= set(readings))
         elif fault[0] == "scale_sum.cu":
             ok &= models[3] and models[4]
         else:
             family_at = (bn_at if fault[0] == "batch_norm.cu" else
-                         simt_at if simt else flash_at | f16_at)
+                         simt_at if simt else flash_at | f16_at | wide_at)
             must = MUST_FAIL_AT.get(name, set())
             ok &= bool(family_at) and must <= family_at
             if must - family_at:

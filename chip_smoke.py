@@ -21,7 +21,9 @@
    and f16 at head dim 256 (the three shapes below, and untimed at BH
    65,600, S 64) and past it (the five shapes at 384 and 640 below, each
    also with V's later panels copies of its first, whose outputs must
-   agree bit for bit); the four BatchNorm
+   agree bit for bit); the Hopper dq and dk/dv in bf16 and f16 at head
+   dim 256 (the same three shapes, and untimed at BH 65,600); the four
+   BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
    ragged M 997, C 101), against ``F.batch_norm(training=True)``; the
@@ -41,8 +43,9 @@
 3. Holds three small models on the card against the same weights in f32
    on the CPU (plain versions): the decoder (bf16; at head_dim 128, at
    96, which ``flash_attention`` zero-pads to the Hopper kernels' 128,
-   at 192, which it zero-pads to 256, and at 320, padded to 384: the
-   Hopper forward and the CUDA-core backward),
+   at 192, which it zero-pads to 256 (the Hopper forward, dq and dk/dv),
+   and at 320, padded to 384: the Hopper forward and the CUDA-core
+   backward),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
    decoder at dtype float32 (the CUDA-core kernels) trained 3 Adam steps
@@ -76,8 +79,8 @@
    weights (24 launches each of the f16 Hopper forward and one-pass, then
    of the forward, dq and dk/dv); the decoder flagship with 4 heads of
    256 (Gemma 7B's head width) in bf16, one step under ``pallas`` (12
-   Hopper forwards at D 256, 12 CUDA-core dq and dk/dv, no CUDA-core
-   forward); each step's loss and gradients against the same model's on
+   Hopper forwards, dq and dk/dv at D 256, no CUDA-core kernel); each
+   step's loss and gradients against the same model's on
    the plain attention path on the card, then 5 more steps timed (under
    each choice for BERT).  Between the decoder and
    ResNet-50, the main path
@@ -143,9 +146,10 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (nineteen: the thirteen
-   kernels, the f16 forms of the four Hopper ones, and the Hopper forward
-   at D 256 and at D 384), then as the last line ``{"ok": true,
+5. Prints one JSON line of kernel records (twenty-one: the thirteen
+   kernels, the f16 forms of the four Hopper ones, the Hopper forward at
+   D 256 and at D 384, and the Hopper dq and dk/dv at D 256), then as the
+   last line ``{"ok": true,
    "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -225,8 +229,9 @@ F16_OFF_SHARE = 2 ** -6
 # Head dim 256 (Gemma 7B's attention, and any head dim in 129-255 padded
 # to it): the decoder's attention at that width, a ragged causal and a
 # ragged full shape (one-pass slots of four 32-row tiles, the last partly
-# past S).  The forward runs on Hopper in bf16 and f16 (64-row k tiles),
-# the backward on the CUDA cores, and everything in f32.
+# past S).  The forward, dq and dk/dv run on Hopper in bf16 and f16 (64-row
+# k tiles; dk/dv 64-row k blocks), the one-pass backward on the CUDA
+# cores, and everything in f32.
 WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
                     (4, 200, 256, False))
 # Past 256 (any head dim, padded to a multiple of 128) the CUDA-core
@@ -245,7 +250,9 @@ SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
                + WIDER_HEAD_SHAPES)
 # The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
 # family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
-# max), and untimed at WIDE_BH_SHAPE's BH and S at D 256.  Past 256 it is
+# max), and untimed at WIDE_BH_SHAPE's BH and S at D 256; at D 256 (the
+# first three shapes and WIDE_BH_D256_SHAPE) the Hopper dq and dk/dv too,
+# under the same limits and timed beside SDPA's backward.  Past 256 it is
 # also held to itself: with V's later panels copies of its first
 # (``panel_agreement``), every panel block must give o's columns bit for
 # bit as panel 0's block does, which it can only when all of them formed
@@ -256,9 +263,10 @@ WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
 # Held at head_dim 128 and at 96, which the Hopper kernels take
-# zero-padded to 128, at 192, zero-padded to 256, and at 320, zero-padded
-# to 384 (the Hopper forward, whose panels there are 256 and 128 columns,
-# and the CUDA-core backward, 128-column panels).
+# zero-padded to 128, at 192, zero-padded to 256 (the Hopper forward, dq
+# and dk/dv), and at 320, zero-padded to 384 (the Hopper forward, whose
+# panels there are 256 and 128 columns, and the CUDA-core backward,
+# 128-column panels).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
 # The small decoder at dtype float32 (the CUDA-core flash kernels) trained
@@ -455,8 +463,9 @@ def compare(got, want, rtol, atol):
 def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper" or "simt", the
     CUDA-core twins) that take inputs of ``dtype`` at head dim ``width``:
-    the four Hopper ones in bf16 and f16 up to 128 and the forward alone
-    from 256 on, the four CUDA-core ones in any dtype."""
+    the four Hopper ones in bf16 and f16 up to 128, the forward, dq and
+    dk/dv at 256 and the forward alone past it, the four CUDA-core ones in
+    any dtype."""
     import torch
     kernels = fa.HOPPER_KERNELS if family == "hopper" else fa.SIMT_KERNELS
     return {name: k for name, k in zip(FLASH_KERNELS, kernels)
@@ -869,7 +878,8 @@ def train_f32_flagship(torch):
 def check_model():
     """The small decoder at each of MODEL_HEAD_DIMS against the CPU, its
     flash launches counted -> {head_dim: counts}.  From head_dim 129 on,
-    bf16 takes the Hopper forward, never the CUDA-core one."""
+    bf16 takes the Hopper forward, never the CUDA-core one; padded to 256,
+    also the Hopper dq and dk/dv."""
     from horovod_tpu_torch.ops import flash_attention as fa
     counts = {}
     for head_dim in MODEL_HEAD_DIMS:
@@ -879,12 +889,16 @@ def check_model():
         if head_dim > 128:
             say("model check (head_dim %d): flash launches %s" % (
                 head_dim, {k: n for k, n in counts[head_dim].items() if n}))
-            if not (counts[head_dim]["flash_fwd_kernel"] == 2
-                    and counts[head_dim]["flash_fwd_simt_kernel"] == 0):
+            hopper = ("flash_fwd",) + (
+                ("flash_bwd_dq", "flash_bwd_dkv")
+                if fa.padded_head_dim(head_dim) == 256 else ())
+            if not all(counts[head_dim][n + "_kernel"] == 2
+                       and counts[head_dim][n + "_simt_kernel"] == 0
+                       for n in hopper):
                 raise AssertionError(
                     "the small decoder at head_dim %d did not take the Hopper "
-                    "forward in each of its 2 layers: %s"
-                    % (head_dim, counts[head_dim]))
+                    "%s in each of its 2 layers: %s"
+                    % (head_dim, ", ".join(hopper), counts[head_dim]))
         worst = max(leaves, key=leaves.get)
         say("model check (head_dim %d): loss relative error %.3g (tol %.3g); "
             "gradient relative norm error per parameter: worst %s %.3g (tol "
@@ -1261,7 +1275,8 @@ def print_ptxas(text: str):
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
             ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-            ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+            ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                               "flash_bwd_dkv_d256")),
             ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",)),
             ("bn_stats", ("bn_stats_",)),
             ("bn_apply", ("bn_apply_kernel",)),
@@ -1901,16 +1916,17 @@ def train_decoder_f16(torch):
 
 
 def train_decoder_hd256(torch):
-    """The Hopper forward's main path at head dim 256: the decoder flagship
-    (``train_flagship``'s configuration, bench.py:86-91, and its Adam) with
-    n_heads = n_kv_heads = d // 256 = 4 (Gemma 7B's head width), bf16, one
-    step through ``make_train_step`` and the engine under
-    HVD_TPU_FLASH_BWD=pallas, every launch count set to 0 just before it
-    and read just after: 12 Hopper forwards, 12 CUDA-core dq and dk/dv, no
-    CUDA-core forward.  Its loss and gradients are held against the same
-    model's on the plain attention path (HOROVOD_FLASH_ATTENTION=0) on the
-    card, from the same weights and data, by the flagship steps' rules
-    (``held_f16_step``); the logits take bf16 operands on both paths, so
+    """The main path of the Hopper forward, dq and dk/dv at head dim 256:
+    the decoder flagship (``train_flagship``'s configuration,
+    bench.py:86-91, and its Adam) with n_heads = n_kv_heads = d // 256 = 4
+    (Gemma 7B's head width), bf16, one step through ``make_train_step`` and
+    the engine under HVD_TPU_FLASH_BWD=pallas, every launch count set to 0
+    just before it and read just after: 12 Hopper forwards, 12 Hopper dq
+    and 12 Hopper dk/dv, no CUDA-core kernel.  Its loss and gradients are
+    held against the same model's on the plain attention path
+    (HOROVOD_FLASH_ATTENTION=0) on the card, from the same weights and
+    data, by the flagship steps' rules (``held_f16_step``); the logits take
+    bf16 operands on both paths, so
     that only attention differs.  Then STEPS more steps, timed, and one
     profiled.  -> the counts."""
     import horovod_tpu_torch as hvd
@@ -1954,9 +1970,8 @@ def train_decoder_hd256(torch):
         took = time.perf_counter() - t
     counts = fa.launch_counts()
     say("launches on the hd256 decoder path (1 step): %s" % counts)
-    check_counts(counts, {"flash_fwd_kernel": L,
-                          "flash_bwd_dq_simt_kernel": L,
-                          "flash_bwd_dkv_simt_kernel": L})
+    check_counts(counts, {"flash_fwd_kernel": L, "flash_bwd_dq_kernel": L,
+                          "flash_bwd_dkv_kernel": L})
     held_f16_step("hd256 decoder", took, got, want,
                   {n: p.grad for n, p in model.named_parameters()}, plain, L)
     del plain
@@ -3360,7 +3375,16 @@ def main() -> int:
                   shape_label(*HOPPER_FWD_SHAPES[0]),
                   shape_label(*WIDER_HEAD_SHAPES[0]),
                   hd256_counts["flash_fwd_kernel"],
-                  model_counts[320]["flash_fwd_kernel"]))
+                  model_counts[320]["flash_fwd_kernel"]) + "; " +
+        "flash_bwd_dq_d256 and flash_bwd_dkv_d256 (the Hopper dq and dk/dv "
+        "at 256, bf16 and f16) held at %s and %s (phase 2; their records "
+        "bf16 at %s, SDPA's bf16 backward their library_ms), launched %d "
+        "and %d times in the hd256 decoder step (phase 4)" % (
+            ", ".join(shape_label(*s) for s in WIDE_HEAD_SHAPES),
+            shape_label(*WIDE_BH_D256_SHAPE),
+            shape_label(*WIDE_HEAD_SHAPES[0]),
+            hd256_counts["flash_bwd_dq_kernel"],
+            hd256_counts["flash_bwd_dkv_kernel"]))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -3400,15 +3424,19 @@ def main() -> int:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})
-    for name, shape, launches in (
-            ("flash_fwd_d256", HOPPER_FWD_SHAPES[0],
+    for name, kern, shape, launches in (
+            ("flash_fwd_d256", "flash_fwd", HOPPER_FWD_SHAPES[0],
              hd256_counts["flash_fwd_kernel"]),
-            ("flash_fwd_d384", WIDER_HEAD_SHAPES[0],
-             model_counts[320]["flash_fwd_kernel"])):
-        rec = flash[shape]["flash_fwd"]
+            ("flash_fwd_d384", "flash_fwd", WIDER_HEAD_SHAPES[0],
+             model_counts[320]["flash_fwd_kernel"]),
+            ("flash_bwd_dq_d256", "flash_bwd_dq", WIDE_HEAD_SHAPES[0],
+             hd256_counts["flash_bwd_dq_kernel"]),
+            ("flash_bwd_dkv_d256", "flash_bwd_dkv", WIDE_HEAD_SHAPES[0],
+             hd256_counts["flash_bwd_dkv_kernel"])):
+        rec = flash[shape][kern]
         out.append({"name": name, "route": "cuda",
-                    "source": sources["flash_fwd"][0],
-                    "replaces": sources["flash_fwd"][1], "launches": launches,
+                    "source": sources[kern][0],
+                    "replaces": sources[kern][1], "launches": launches,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],

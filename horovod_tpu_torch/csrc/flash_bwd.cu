@@ -25,9 +25,10 @@
 //
 // Design: the TPU kernels ran the reduction axis in grid order and carried
 // the sums in VMEM scratch.  Here the reduction is a loop inside the
-// block, no block writes what another block reads (no atomics), and both
-// kernels put bh on gridDim.x, which takes 2^31 - 1 blocks (the dk/dv
-// kernel's 1-D lse and delta maps take BH S below 2^31 rows).  Each block
+// block, no block writes what another block reads (no atomics), and every
+// kernel puts bh on gridDim.x, which takes 2^31 - 1 blocks (the dk/dv
+// kernels' 1-D lse and delta maps take BH S below 2^31 rows), and its
+// tile on gridDim.y, longest causal work first.  Each block
 // is three warpgroups: a producer that gives up registers (setmaxnreg) and
 // starts TMA loads from one thread through an mbarrier ring ("full": the
 // bytes landed; "empty": both consumers are done with the stage), and two
@@ -54,11 +55,49 @@
 // head's rows.  Both kernels are templates on T: sm90.cuh's Elem<T> names
 // the maps' element type and the wgmma kind, and pack<T> rounds dS and P.
 //
+// At D 256 (Gemma 7B's head width, and every head dim in 129-255 padded to
+// it) neither plan fits: a dk/dv consumer would hold dK and dV for 64 rows
+// of 256 columns (256 f32 registers a thread, over the 255 a thread has),
+// and K and V at 128 rows beside a two-stage ring of Q and dO (256 KB), or
+// dq's resident Q and dO beside a ring of 128-row K and V tiles (384 KB),
+// pass the 227 KB a block may hold.  Bound at the hd256 decoder's shape
+// (BH 32, S 2048, D 256, causal): 103.1 + 137.5 GFLOP, 104 + 139 us.
+// Blocks start in gridDim.x order, so the card's first blocks span every
+// head at the longest tile.  A head-major order (a head's blocks side by
+// side, sharing its re-read tiles in L2) took longer in both kernels at
+// the hd256 decoder's shape (PERF.md §6; tools/chip_simt_probe.py
+// --wide-bwd against --wide-bwd --head-major).
+//   dk/dv (flash_bwd_dkv_d256_kernel): one block per (bh, 64-row k tile),
+//          and its two consumers split the products, not the rows: per
+//          64-row q tile consumer 0 forms S^T = K Q^T, P^T (masked) and
+//          dV += P^T dO, consumer 1 dP^T = V dO^T, dS^T = P^T (dP^T -
+//          delta) and dK += dS^T Q; each owns one m64n256 f32 accumulator
+//          (128 registers) and does half the products.  P^T crosses in f32
+//          through a 16 KB exchange tile under two mbarriers (written,
+//          read), each thread's values where the other consumer's same
+//          thread holds dP^T's, so consumer 1 forms dS^T from P as the
+//          plain version does.  Shared memory: K and V 32 KB each, a
+//          two-stage ring of Q and dO 128 KB, the exchange 16 KB, lse and
+//          delta 2 KB: 210 KB.  dv leaves through K's tile and dk through
+//          V's, each the tile only its consumer read.
+//   dq     (flash_bwd_dq_kernel's wide plan, dqtile::Plan): the kernel
+//          above with 64-row K and V tiles, one to a slot of a ring of
+//          three 32 KB slots beside the resident Q and dO (128 KB), V_i
+//          before K_i: dP frees V's slot early in a tile and dS K frees K's
+//          at its end, so each slot is refilled a tile ahead of its use
+//          (224 KB).  A consumer owns 64 q rows and all 256 columns of dq
+//          (128 registers, S and dP 32 each, packed dS 16); dq leaves from
+//          registers straight to the rows below S, since no 64 KB f32 tile
+//          a consumer fits beside the ring.
+// Both dk/dv kernels mask P by kv::dead (flash_bwd_kv.cuh).
+//
 // Left on the table: overlap inside a consumer of one tile's elementwise
 // work with the next tile's products (each tile now runs products,
 // softmax, products in series), ping-pong of the two consumers, a
 // persistent grid (at BERT's S 384 a dq block walks three k tiles and a
-// dk/dv block six q tiles), and 128-row q tiles in the dk/dv kernel.
+// dk/dv block six q tiles), and 128-row q tiles in the dk/dv kernel; at
+// D 256 the dk/dv consumer 1 waits each tile for consumer 0's P^T, which a
+// second exchange tile would hide (no room for it beside the ring now).
 #include "flash_bwd_kv.cuh"
 
 namespace hvdflash {
@@ -70,20 +109,27 @@ using namespace sm90;
 namespace dqtile {
 
 constexpr int BQ = 128;  // q rows per block, 64 per consumer warpgroup
-constexpr int BK = 128;  // k rows per tile
-constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
 
+// The two plans of the header.  Up to D 128: 128-row K and V tiles, a
+// ring slot holding a tile's K and V, two slots, dq out through the ring.
+// At D 256: 64-row tiles, a slot holding V_i or K_i (V_0, K_0, V_1, ...),
+// three slots, dq out from registers.
 template <typename T, int D>
-struct Smem {
+struct Plan {
+  static constexpr bool WIDE = D == 256;
+  static constexpr int BK = WIDE ? 64 : 128;  // k rows per tile
+  static constexpr int PER = WIDE ? 2 : 1;    // ring slots a k tile takes
+  static constexpr int SLOTS = WIDE ? 3 : 2;
   static constexpr size_t qtile = BQ * D * sizeof(T);
   static constexpr size_t ktile = BK * D * sizeof(T);
+  static constexpr size_t slot = 2 / PER * ktile;
   static constexpr size_t q = 0;             // BQ x D
   static constexpr size_t g = q + qtile;     // BQ x D
-  static constexpr size_t ring = g + qtile;  // STAGES x (K, V); then the dq tile
-  static constexpr size_t bar = ring + STAGES * 2 * ktile;
-  static constexpr size_t bytes = bar + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
-  static_assert(BQ * D * sizeof(float) <= STAGES * 2 * ktile,
+  static constexpr size_t ring = g + qtile;  // SLOTS x slot; then the dq tile
+  static constexpr size_t bar = ring + SLOTS * slot;
+  static constexpr size_t bytes = bar + 8 * (1 + 2 * SLOTS) + 1024;  // + alignment
+  static_assert(bytes <= 232448, "a block's shared memory");
+  static_assert(WIDE || BQ * D * sizeof(float) <= SLOTS * slot,
                 "the f32 dq tile fits in the ring");
 };
 
@@ -96,19 +142,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mv,
                     const __grid_constant__ CUtensorMap mg,
                     const __grid_constant__ CUtensorMap mdq,
-                    const float* __restrict__ lse,
+                    float* __restrict__ dq, const float* __restrict__ lse,
                     const float* __restrict__ delta, int S) {
-  using L = dqtile::Smem<T, D>;
+  using L = dqtile::Plan<T, D>;
   using PB = Panels<D>;     // (rows, D) tiles of T
   using PF = Panels<D, 4>;  // a consumer's f32 (64, D) dq tile
-  constexpr int BQ = dqtile::BQ, BK = dqtile::BK, STAGES = dqtile::STAGES;
-  constexpr float LOG2E = dqtile::LOG2E;
+  constexpr int BQ = dqtile::BQ, BK = L::BK, PER = L::PER, SLOTS = L::SLOTS;
+  constexpr float LOG2E = kv::LOG2E;
   extern __shared__ unsigned char raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + L::bar);
   uint64_t* full = qg_full + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + SLOTS;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
@@ -120,7 +166,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
 
   if (threadIdx.x == 0) {
     mbar_init(qg_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < SLOTS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);  // every consumer thread
     }
@@ -128,7 +174,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
   }
   __syncthreads();
 
-  if (wg == 2) {  // producer
+  if (wg == 2) {  // producer: Q and dO once, then K and V by k tile
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
       mbar_arrive_expect_tx(qg_full, 2 * L::qtile);
@@ -136,15 +182,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
         tma_load_3d(smem + L::q + p * BQ * PB::SWZ, mq, qg_full, p * PB::PC, q0, bh);
         tma_load_3d(smem + L::g + p * BQ * PB::SWZ, mg, qg_full, p * PB::PC, q0, bh);
       }
-      for (int i = 0; i < kend; ++i) {
-        const int s = i % STAGES;
-        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * L::ktile);
-        unsigned char* sk = smem + L::ring + s * 2 * L::ktile;
+      for (int j = 0; j < PER * kend; ++j) {  // slot load j: k tile j / PER
+        const int s = j % SLOTS, k0 = j / PER * BK;
+        mbar_wait(&empty[s], ((j / SLOTS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], L::slot);
+        unsigned char* dst = smem + L::ring + s * L::slot;
         for (int p = 0; p < PB::NP; ++p) {
-          tma_load_3d(sk + p * BK * PB::SWZ, mk, &full[s], p * PB::PC, i * BK, bh);
-          tma_load_3d(sk + L::ktile + p * BK * PB::SWZ, mv, &full[s], p * PB::PC,
-                      i * BK, bh);
+          if (L::WIDE) {  // V for an even j, K for an odd one
+            tma_load_3d(dst + p * BK * PB::SWZ, (j & 1) ? mk : mv, &full[s],
+                        p * PB::PC, k0, bh);
+          } else {
+            tma_load_3d(dst + p * BK * PB::SWZ, mk, &full[s], p * PB::PC, k0, bh);
+            tma_load_3d(dst + L::ktile + p * BK * PB::SWZ, mv, &full[s], p * PB::PC,
+                        k0, bh);
+          }
         }
       }
     }
@@ -171,26 +222,30 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
 
     mbar_wait(qg_full, 0);
     for (int i = 0; i < kend; ++i) {
-      const int s = i % STAGES, k0 = i * BK;
-      mbar_wait(&full[s], (i / STAGES) & 1);
-      const unsigned char* sk = smem + L::ring + s * 2 * L::ktile;
-      const unsigned char* sv = sk + L::ktile;
+      // the slot loads of V and K (one load up to D 128)
+      const int k0 = i * BK, jv = PER * i, jk = jv + PER - 1;
+      mbar_wait(&full[jv % SLOTS], (jv / SLOTS) & 1);
+      if (L::WIDE) mbar_wait(&full[jk % SLOTS], (jk / SLOTS) & 1);
+      const unsigned char* sk = smem + L::ring + (jk % SLOTS) * L::slot;
+      const unsigned char* sv =
+          L::WIDE ? smem + L::ring + (jv % SLOTS) * L::slot : sk + L::ktile;
 
       // S = Q K^T and dP = dO V^T: rows rl, rl + 8 of BK k columns
       float sc[BK / 2], dp[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)  // S, over every 64-column panel
         MmaSS<BK, 0, 0, T>::run(sc, desc_kmajor<D, BQ>(sq, kk),
                                 desc_kmajor<D, BK>(sk, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)  // dP
         MmaSS<BK, 0, 0, T>::run(dp, desc_kmajor<D, BQ>(sg, kk),
                                 desc_kmajor<D, BK>(sv, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
+      if (L::WIDE) mbar_arrive(&empty[jv % SLOTS]);  // V's own slot: dP is formed
 
       // dS = P (dP - delta), packed to pairs of T in the accumulator's layout
       const bool mask = (CAUSAL && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S;
@@ -225,27 +280,43 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      mbar_arrive(&empty[s]);
+      mbar_arrive(&empty[jk % SLOTS]);
     }
 
-    // Epilogue: dq in f32 through this consumer's half of the ring, once
-    // both consumers are done with it, then one TMA store of its rows.
-    named_sync(1, 256);
-    unsigned char* so = smem + L::ring + wg * (64 * D * sizeof(float));
-    const int qr = rl - 64 * wg;
+    if constexpr (L::WIDE) {
+      // Epilogue at 256: dq in f32 from registers straight to the rows
+      // below S (no 64 KB f32 tile a consumer fits beside the ring).
+      float* out = dq + (size_t)bh * S * D + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + rl + 8 * h;
+        if (row < S) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(so + panel_offset<D, 64, 4>(qr + 8 * h, 8 * j + c2)) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    fence_proxy_async();
-    named_sync(2 + wg, 128);
-    if (t == 0 && q0 + 64 * wg < S) {
-      for (int p = 0; p < PF::NP; ++p)
-        tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, q0 + 64 * wg, bh);
-      tma_store_commit();
-      tma_store_wait_read<0>();
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<float2*>(out + (size_t)row * D + 8 * j) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    } else {
+      // Epilogue: dq in f32 through this consumer's half of the ring, once
+      // both consumers are done with it, then one TMA store of its rows.
+      named_sync(1, 256);
+      unsigned char* so = smem + L::ring + wg * (64 * D * sizeof(float));
+      const int qr = rl - 64 * wg;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(so + panel_offset<D, 64, 4>(qr + 8 * h, 8 * j + c2)) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
+      if (t == 0 && q0 + 64 * wg < S) {
+        for (int p = 0; p < PF::NP; ++p)
+          tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, q0 + 64 * wg, bh);
+        tma_store_commit();
+        tma_store_wait_read<0>();
+      }
     }
   }
 }
@@ -254,21 +325,22 @@ template <typename T, int D, bool CAUSAL>
 static cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* g,
                              const float* lse, const float* delta, float* dq,
                              int bh, int s, cudaStream_t stream) {
-  using L = dqtile::Smem<T, D>;
-  CUtensorMap mq, mk, mv, mg, mdq;
+  using L = dqtile::Plan<T, D>;
+  CUtensorMap mq, mk, mv, mg, mdq{};  // at 256 dq leaves without a map
   cudaError_t err;
   if ((err = panel_map<D>(&mq, q, s, bh, dqtile::BQ)) != cudaSuccess ||
       (err = panel_map<D>(&mg, g, s, bh, dqtile::BQ)) != cudaSuccess ||
-      (err = panel_map<D>(&mk, k, s, bh, dqtile::BK)) != cudaSuccess ||
-      (err = panel_map<D>(&mv, v, s, bh, dqtile::BK)) != cudaSuccess ||
-      (err = panel_map<D>(&mdq, dq, s, bh, 64)) != cudaSuccess)
+      (err = panel_map<D>(&mk, k, s, bh, L::BK)) != cudaSuccess ||
+      (err = panel_map<D>(&mv, v, s, bh, L::BK)) != cudaSuccess)
     return err;
+  if constexpr (!L::WIDE)
+    if ((err = panel_map<D>(&mdq, dq, s, bh, 64)) != cudaSuccess) return err;
   auto kernel = flash_bwd_dq_kernel<T, D, CAUSAL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (s + dqtile::BQ - 1) / dqtile::BQ);
-  kernel<<<grid, 384, L::bytes, stream>>>(mq, mk, mv, mg, mdq, lse, delta, s);
+  kernel<<<grid, 384, L::bytes, stream>>>(mq, mk, mv, mg, mdq, dq, lse, delta, s);
   return cudaGetLastError();
 }
 
@@ -307,16 +379,255 @@ static cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------- dkv kernel at D 256
+
+namespace kv256 {
+
+constexpr int BQ = 64;  // q rows per ring tile
+constexpr int BK = 64;  // k rows per block
+constexpr int STAGES = 2;
+
+template <typename T>
+struct Smem {
+  static constexpr size_t tile = 64 * 256 * sizeof(T);      // 32 KB
+  static constexpr size_t k = 0;                            // BK x 256
+  static constexpr size_t v = k + tile;                     // BK x 256
+  static constexpr size_t ring = v + tile;                  // STAGES x (Q, dO)
+  static constexpr size_t xp = ring + STAGES * 2 * tile;    // P^T, BK x BQ f32
+  static constexpr size_t rows = xp + BK * BQ * sizeof(float);  // STAGES x (lse, delta)
+  static constexpr size_t bar = rows + STAGES * 2 * kv::ROWS_STRIDE * sizeof(float);
+  static constexpr size_t bytes = bar + 8 * (3 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+
+}  // namespace kv256
+
+template <typename T, int D, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mg,
+                          const __grid_constant__ CUtensorMap mlse,
+                          const __grid_constant__ CUtensorMap mdelta,
+                          const __grid_constant__ CUtensorMap mdk,
+                          const __grid_constant__ CUtensorMap mdv, int S) {
+  static_assert(D == 256, "the D 256 plan");
+  using L = kv256::Smem<T>;
+  using PB = Panels<D>;
+  constexpr int BQ = kv256::BQ, BK = kv256::BK, STAGES = kv256::STAGES;
+  constexpr int RS = kv::ROWS_STRIDE;
+  constexpr float LOG2E = kv::LOG2E;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* xfull = empty + STAGES;  // P^T written (consumer 0's 128 threads)
+  uint64_t* xempty = xfull + 1;      // P^T read (consumer 1's 128 threads)
+  float* srows = reinterpret_cast<float*>(smem + L::rows);
+  float* xp = reinterpret_cast<float*>(smem + L::xp);
+
+  // bh on gridDim.x, so the blocks start with every head's longest causal
+  // k tile
+  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
+  const int nq = (S + BQ - 1) / BQ;
+  // q tiles before qstart lie wholly above the causal diagonal of this k tile
+  const int qstart = CAUSAL ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    mbar_init(xfull, 128);
+    mbar_init(xempty, 128);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: K and V once, then Q, dO, lse, delta by q tile
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::tile);
+      for (int p = 0; p < PB::NP; ++p) {
+        tma_load_3d(smem + L::k + p * BK * PB::SWZ, mk, kv_full, p * PB::PC, k0, bh);
+        tma_load_3d(smem + L::v + p * BK * PB::SWZ, mv, kv_full, p * PB::PC, k0, bh);
+      }
+      for (int i = 0; i < nq - qstart; ++i) {
+        const int s = i % STAGES, q0 = (qstart + i) * BQ;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::tile + 2 * kv::ROWS_BOX * sizeof(float));
+        unsigned char* sq = smem + L::ring + s * 2 * L::tile;
+        for (int p = 0; p < PB::NP; ++p) {
+          tma_load_3d(sq + p * BQ * PB::SWZ, mq, &full[s], p * PB::PC, q0, bh);
+          tma_load_3d(sq + L::tile + p * BQ * PB::SWZ, mg, &full[s], p * PB::PC, q0,
+                      bh);
+        }
+        // lse and delta as (BH S) vectors from a 16-byte boundary: rows
+        // past S read the next head's values (or zeros), which P's mask drops
+        const int r0 = (bh * S + q0) & ~3;
+        tma_load_1d(srows + s * 2 * RS, mlse, &full[s], r0);
+        tma_load_1d(srows + s * 2 * RS + RS, mdelta, &full[s], r0);
+      }
+    }
+  } else {  // consumers of k rows [k0, k0 + 64): 0 owns dV, 1 owns dK
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 16 * (t / 32) + lane / 4;  // first k row in the tile; +8
+    const int c2 = 2 * (lane % 4);            // first q column of a pair
+    unsigned char* sk = smem + L::k;
+    unsigned char* sv = smem + L::v;
+    float acc[D / 2];  // dV (consumer 0) or dK (consumer 1): rows rl, rl + 8
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < nq - qstart; ++i) {
+      const int s = i % STAGES, q0 = (qstart + i) * BQ;
+      mbar_wait(full + s, (i / STAGES) & 1);
+      const unsigned char* sq = smem + L::ring + s * 2 * L::tile;
+      const unsigned char* sg = sq + L::tile;
+      const float* slse = srows + s * 2 * RS + ((bh * S + q0) & 3);
+      const float* sdelta = slse + RS;
+
+      // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T.  Rows rl, rl + 8
+      // (k) of BQ q columns, each summed over four 64-column panels.
+      float st[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        MmaSS<BQ, 0, 0, T>::run(st, desc_kmajor<D, BK>(wg ? sv : sk, kk),
+                                desc_kmajor<D, BQ>(wg ? sg : sq, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+
+      // Consumer 0: P^T, masked, to the exchange tile in f32 (thread t's
+      // values at [x][t], the layout consumer 1's thread t holds dP^T in)
+      // and packed to T.  Consumer 1: dS^T = P^T (dP^T - delta) from it,
+      // packed to T.
+      uint32_t pa[BQ / 4];
+      if (wg == 0) {
+        const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 ls = make_float2(slse[8 * j + c2], slse[8 * j + c2 + 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * h + e;
+              st[x] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));
+              if (masked && kv::dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
+                st[x] = 0.f;
+            }
+            pa[2 * j + h] = pack<T>(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+          }
+        }
+        mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
+#pragma unroll
+        for (int x = 0; x < BQ / 2; ++x) xp[x * 128 + t] = st[x];
+        mbar_arrive(xfull);
+      } else {
+        mbar_wait(xfull, i & 1);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dl = make_float2(sdelta[8 * j + c2], sdelta[8 * j + c2 + 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * h + e;
+              d[e] = xp[x * 128 + t] * (st[x] - (e ? dl.y : dl.x));
+            }
+            pa[2 * j + h] = pack<T>(d[0], d[1]);
+          }
+        }
+        mbar_arrive(xempty);
+      }
+
+      // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q.  A from
+      // registers, dO or Q MN-major.
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {  // every 16 q rows of the tile
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                               pa[4 * kk + 3]};
+        MmaRS<D, 1, T>::run(acc, a, desc_mnmajor<D, BQ>(wg ? sq : sg, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: dv (consumer 0) over K's tile and dk (consumer 1) over V's,
+    // each the tile only that consumer read, then one TMA store each.
+    unsigned char* so = wg ? sv : sk;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(so + panel_offset<D, BK>(rl + 8 * h, 8 * j + c2)) =
+            pack<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (t == 0 && k0 < S) {
+      for (int p = 0; p < PB::NP; ++p)
+        tma_store_3d(wg ? mdk : mdv, so + p * BK * PB::SWZ, p * PB::PC, k0, bh);
+      tma_store_commit();
+      tma_store_wait_read<0>();
+    }
+  }
+}
+
+template <typename T, bool CAUSAL>
+static cudaError_t launch_dkv_d256(const T* q, const T* k, const T* v, const T* g,
+                                   const float* lse, const float* delta, T* dk,
+                                   T* dv, int bh, int s, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg, mlse, mdelta, mdk, mdv;
+  cudaError_t err = kv::ktile_maps<T, 256>(&mq, &mk, &mv, &mg, &mlse, &mdelta, &mdk,
+                                           &mdv, q, k, v, g, lse, delta, dk, dv, bh,
+                                           s, kv256::BK);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dkv_d256_kernel<T, 256, CAUSAL>;
+  const size_t bytes = kv256::Smem<T>::bytes;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (s + kv256::BK - 1) / kv256::BK);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mg, mlse, mdelta, mdk, mdv, s);
+  return cudaGetLastError();
+}
+
+// dk/dv by width: at 256 the plan above, up to 128 the k-tile body.
+template <typename T, int D, bool CAUSAL>
+static cudaError_t run_dkv(const T* q, const T* k, const T* v, const T* g,
+                           const float* lse, const float* delta, T* dk, T* dv,
+                           int bh, int s, cudaStream_t stream) {
+  if constexpr (D == 256)
+    return launch_dkv_d256<T, CAUSAL>(q, k, v, g, lse, delta, dk, dv, bh, s, stream);
+  else
+    return launch_dkv<T, D, CAUSAL>(q, k, v, g, lse, delta, dk, dv, bh, s, stream);
+}
+
 }  // namespace hvdflash
 
-// dtype: 1 float16, 2 bfloat16 (the codes of flash_simt.cu).  d: 32, 64 or
-// 128.  Each returns a cudaError_t (cudaErrorInvalidValue for a dtype or d
-// it does not take).
+// dtype: 1 float16, 2 bfloat16 (the codes of flash_simt.cu).  d: 32, 64,
+// 128 or 256.  Each returns a cudaError_t (cudaErrorInvalidValue for a
+// dtype or d it does not take).
 #define HVD_BWD_WIDTHS(CASE, T) \
   switch (d) {                  \
     CASE(T, 32)                 \
     CASE(T, 64)                 \
     CASE(T, 128)                \
+    CASE(T, 256)                \
     default:                    \
       return (int)cudaErrorInvalidValue; \
   }
@@ -336,7 +647,7 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
     auto K = static_cast<const T*>(k);                                       \
     auto V = static_cast<const T*>(v);                                       \
     auto G = static_cast<const T*>(g);                                       \
-    return causal ? launch_dq<T, DD, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, st) \
+    return causal ? launch_dq<T, DD, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, st)  \
                   : launch_dq<T, DD, false>(Q, K, V, G, LSE, DEL, DQ, bh, s, st); \
   }
   if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)
@@ -362,8 +673,8 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     auto DK = static_cast<T*>(dk);                                            \
     auto DV = static_cast<T*>(dv);                                            \
     return causal                                                             \
-        ? launch_dkv<T, DD, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st)    \
-        : launch_dkv<T, DD, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st);  \
+        ? run_dkv<T, DD, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st)       \
+        : run_dkv<T, DD, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st);     \
   }
   if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __half)
   if (dtype == 2) HVD_BWD_WIDTHS(HVD_DKV, __nv_bfloat16)

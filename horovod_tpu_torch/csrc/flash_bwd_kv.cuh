@@ -78,6 +78,15 @@ struct Smem {
   static_assert(2 * out_buf == 2 * BK * D * sizeof(T), "dk/dv tiles");
 };
 
+// Whether P of q row q and k row k is masked to 0: a row at or past S,
+// or, causal, k after q.  The dk/dv kernels (this body's, and
+// flash_bwd.cu's at D 256) ask it only on a tile that crosses the
+// diagonal or S, so that the other tiles skip the index work.
+template <bool CAUSAL>
+__device__ __forceinline__ bool dead(int q, int k, int S) {
+  return !(q < S && k < S && (!CAUSAL || k <= q));
+}
+
 // The block of k tile blockIdx.y of head blockIdx.x (gridDim.y = nk).
 // Without PARTIALS, mdqp and dqp are not read.
 template <typename T, int D, bool CAUSAL, bool PARTIALS>
@@ -198,10 +207,8 @@ __device__ __forceinline__ void ktile_body(
           for (int e = 0; e < 2; ++e) {
             const int x = 4 * j + 2 * h + e;
             p[e] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));
-            if (mask) {
-              const int q = q0 + 8 * j + c2 + e, kr = k0 + rl + 8 * h;
-              if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;
-            }
+            if (mask && dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
+              p[e] = 0.f;
             d[e] = p[e] * (dpt[x] - (e ? dl.y : dl.x));
           }
           pp[2 * j + h] = pack<T>(p[0], p[1]);
@@ -314,7 +321,8 @@ __device__ __forceinline__ void ktile_body(
 }
 
 // The tensor maps of the inputs and of dk, dv: (D, S, BH) tiles of T and
-// the (BH S) lse and delta vectors.
+// the (BH S) lse and delta vectors.  K and V load as boxes of `kbox` rows
+// (the block's k rows: BK here, 64 in flash_bwd.cu's D 256 kernel).
 template <typename T, int D>
 inline cudaError_t ktile_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
                               CUtensorMap* mg, CUtensorMap* mlse,
@@ -322,14 +330,14 @@ inline cudaError_t ktile_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
                               CUtensorMap* mdv, const T* q, const T* k,
                               const T* v, const T* g, const float* lse,
                               const float* delta, T* dk, T* dv, int bh,
-                              int s) {
+                              int s, uint32_t kbox = BK) {
   const uint64_t rows_dim[1] = {(uint64_t)bh * s};
   const uint32_t rows_box[1] = {ROWS_BOX};
   cudaError_t err;
   if ((err = panel_map<D>(mq, q, s, bh, BQ)) != cudaSuccess ||
       (err = panel_map<D>(mg, g, s, bh, BQ)) != cudaSuccess ||
-      (err = panel_map<D>(mk, k, s, bh, BK)) != cudaSuccess ||
-      (err = panel_map<D>(mv, v, s, bh, BK)) != cudaSuccess ||
+      (err = panel_map<D>(mk, k, s, bh, kbox)) != cudaSuccess ||
+      (err = panel_map<D>(mv, v, s, bh, kbox)) != cudaSuccess ||
       (err = panel_map<D>(mdk, (const T*)dk, s, bh, 64)) != cudaSuccess ||
       (err = panel_map<D>(mdv, (const T*)dv, s, bh, 64)) != cudaSuccess ||
       (err = encode_map(mlse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, lse, rows_dim,

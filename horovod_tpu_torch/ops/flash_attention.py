@@ -25,12 +25,13 @@ version only for tensors on the CPU; on CUDA they launch the kernels that
 ``_kernels_for`` names for the inputs' dtype and padded width, which
 raise on anything they do not take.  The Hopper kernels take bf16 and
 f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
-128, 256 and every multiple of 128 past 256), dq, dk/dv
-(``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
-at 32, 64 and 128.  Their CUDA-core twins (``csrc/flash_simt.cu``,
-``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
-whatever the Hopper kernels do not: f32, and the backward in every dtype
-from 256 on.  Any other dtype raises.
+128, 256 and every multiple of 128 past 256), dq and dk/dv
+(``flash_bwd.cu``) at 32, 64, 128 and 256, and the one-pass backward
+(``flash_bwd_onepass.cu``) at 32, 64 and 128.  Their CUDA-core twins
+(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at
+every padded width, and run whatever the Hopper kernels do not: f32,
+the one-pass backward in every dtype from 256 on, and dq and dk/dv past
+256.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -45,10 +46,8 @@ from . import _build
 
 NEG_INF = -1e30
 # the kernels' widths up to 256, flash_attention pads a head dim to one
-# (past 256, to a multiple of 128); the Hopper backward kernels take the
-# first three
+# (past 256, to a multiple of 128)
 _HEAD_DIMS = (32, 64, 128, 256)
-HOPPER_WIDTHS = _HEAD_DIMS[:3]
 
 
 class _PaddedWidths:
@@ -210,7 +209,8 @@ def flash_fwd_kernel(q, k, v, causal: bool):
 
 
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dq (``csrc/flash_bwd.cu``), bf16 or f16 -> dq f32,
+    """Hopper dq (``csrc/flash_bwd.cu``), bf16 or f16, up to 256 (at 256
+    its wide plan: 64-row K and V tiles in three ring slots) -> dq f32,
     pre-scaled units."""
     bh, s, d = _check_kernel_args(flash_bwd_dq_kernel, (q, k, v, g),
                                   (lse, delta))
@@ -225,8 +225,9 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
 
 
 def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dk/dv (``csrc/flash_bwd.cu``), bf16 or f16 -> (dk, dv) in
-    k's dtype."""
+    """Hopper dk/dv (``csrc/flash_bwd.cu``), bf16 or f16, up to 256 (at
+    256 its own plan: 64-row k blocks whose consumers own dV and dK) ->
+    (dk, dv) in k's dtype."""
     bh, s, d = _check_kernel_args(flash_bwd_dkv_kernel, (q, k, v, g),
                                   (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -325,11 +326,15 @@ HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
                 flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS
+# The Hopper forward takes every padded width, dq and dk/dv those up to
+# 256, the one-pass those up to 128.
+for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
+                                   _HEAD_DIMS[:3])):
+    _k.widths, _k.dtypes = _w, HOPPER_DTYPES
+for _k in SIMT_KERNELS:
+    _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
 for _k in KERNELS:
     _k.launches = 0
-    _k.widths = (PADDED_WIDTHS if _k in SIMT_KERNELS or _k is flash_fwd_kernel
-                 else HOPPER_WIDTHS)
-    _k.dtypes = SIMT_DTYPES if _k in SIMT_KERNELS else HOPPER_DTYPES
 
 
 def reset_launch_counts():
@@ -346,9 +351,10 @@ def _kernels_for(dtype, width: int):
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes its Hopper kernel where that
     kernel takes the dtype and the width, else its CUDA-core twin: bf16 and
-    f16 at up to 128 run all four on Hopper, and from 256 on the forward on
-    Hopper and dq, dk/dv and the one-pass backward on the CUDA cores; f32
-    runs all four on the CUDA cores at every width."""
+    f16 at up to 128 run all four on Hopper, at 256 the forward, dq and
+    dk/dv on Hopper and the one-pass backward on the CUDA cores, and past
+    256 the forward on Hopper and the three backward kernels on the CUDA
+    cores; f32 runs all four on the CUDA cores at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)

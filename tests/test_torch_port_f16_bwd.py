@@ -3,8 +3,9 @@
 On the card, f16 at head dims up to 128 runs all four Hopper flash
 kernels (``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``,
 each templated on bf16 and f16, the element type passed to the C entry as
-a dtype code), and from 256 on the CUDA-core ones.  Here on the CPU:
-the route, the wrappers' dtypes and the code each passes to its entry
+a dtype code); at 256 the Hopper forward, dq and dk/dv and the
+CUDA-core one-pass; past 256 the Hopper forward and the CUDA-core
+backward.  Here on the CPU: the route, the wrappers' dtypes and the code each passes to its entry
 (through a stand-in library), ``make_train_step(grad_scaler=)`` on a tiny
 f32 decoder (a power-of-two scale leaves the steps bit for bit, an
 overflowing one skips them and backs off), and a small f16 decoder on the
@@ -51,21 +52,22 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384])
 def test_f16_route(width):
-    """f16 at up to 128: the four Hopper kernels; at 256 and past it the
-    Hopper forward and the three CUDA-core backward kernels, as bf16
-    goes."""
-    want = fa.HOPPER_KERNELS if width <= 128 else (
-        (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:])
+    """f16 at up to 128: the four Hopper kernels; at 256 the Hopper
+    forward, dq and dk/dv and the CUDA-core one-pass; past it the Hopper
+    forward and the three CUDA-core backward kernels, as bf16 goes."""
+    want = (fa.HOPPER_KERNELS if width <= 128 else
+            fa.HOPPER_KERNELS[:3] + fa.SIMT_KERNELS[3:] if width == 256 else
+            (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:])
     assert fa._kernels_for(torch.float16, width) == want
     assert fa._kernels_for(torch.bfloat16, width) == want
 
 
 def test_hopper_backward_takes_f16():
     """The Hopper dq and dk/dv wrappers take f16 and bf16 (the check
-    before the device passes them) and no f32."""
+    before the device passes them) and no f32, at widths up to 256."""
     for kern in (fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel):
         assert set(kern.dtypes) == {torch.float16, torch.bfloat16}
-        assert tuple(kern.widths) == (32, 64, 128)
+        assert tuple(kern.widths) == (32, 64, 128, 256)
 
 
 def test_signatures_carry_the_dtype_code():

@@ -5,7 +5,8 @@ heads against the JAX package's.
 ``flash_fwd_kernel`` (``csrc/flash_fwd.cu``) takes bf16 and f16 at every
 width ``padded_head_dim`` gives: 32, 64, 128, 256 and each multiple of 128
 past 256.  So on the card bf16 and f16 run the forward on Hopper at every
-width, and from 256 on dq, dk/dv and the one-pass backward on the CUDA
+width, dq and dk/dv on Hopper up to 256 (``csrc/flash_bwd.cu``), and the
+one-pass backward from 256 on and dq and dk/dv past 256 on the CUDA
 cores; f32 runs all four on the CUDA cores.  Here, on the CPU, the
 wrappers raise on what they do not take before they look at the device,
 and the decoder runs the plain versions.
@@ -50,12 +51,13 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384, 512, 640, 1024])
 def test_forward_takes_every_padded_width(width):
-    """The Hopper forward's widths are ``PADDED_WIDTHS``; its backward
-    kernels keep 32, 64 and 128."""
+    """The Hopper forward's widths are ``PADDED_WIDTHS``; its dq and dk/dv
+    take 32, 64, 128 and 256, its one-pass 32, 64 and 128."""
     assert fa.flash_fwd_kernel.widths is fa.PADDED_WIDTHS
     assert width in fa.flash_fwd_kernel.widths
-    for kern in fa.HOPPER_KERNELS[1:]:
-        assert (width in kern.widths) == (width <= 128)
+    for kern in fa.HOPPER_KERNELS[1:3]:
+        assert (width in kern.widths) == (width <= 256)
+    assert (width in fa.flash_bwd_onepass_kernel.widths) == (width <= 128)
 
 
 @pytest.mark.parametrize("width", [257, 300])
@@ -83,13 +85,16 @@ def test_forward_refuses_f32_before_the_device():
                                    torch.bfloat16])
 def test_route_table(dtype, width):
     """(fwd, dq, dk/dv, one-pass) by dtype and padded width: f32 all on the
-    CUDA cores; bf16 and f16 all on Hopper up to 128, and from 256 on the
-    forward on Hopper and the backward on the CUDA cores."""
+    CUDA cores; bf16 and f16 all on Hopper up to 128, at 256 the forward,
+    dq and dk/dv on Hopper and the one-pass on the CUDA cores, and past
+    256 the forward on Hopper and the backward on the CUDA cores."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
         want = fa.SIMT_KERNELS
     elif width <= 128:
         want = fa.HOPPER_KERNELS
+    elif width == 256:
+        want = fa.HOPPER_KERNELS[:3] + fa.SIMT_KERNELS[3:]
     else:
         want = (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:]
     assert route == want

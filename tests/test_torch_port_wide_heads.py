@@ -4,8 +4,9 @@ and the route each (dtype, width) takes on the card.
 ``flash_attention`` zero-pads a head dim in 129-255 to 256 (the JAX
 package pads any to a multiple of 128: zero columns add 0 to every
 product) and slices the outputs back; on the card, bf16 and f16 at 256
-run the Hopper forward (``csrc/flash_fwd.cu``) and the CUDA-core
-backward kernels (``csrc/flash_simt.cu``), f32 all four CUDA-core ones;
+run the Hopper forward, dq and dk/dv (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) and the CUDA-core one-pass backward
+(``csrc/flash_simt.cu``), f32 all four CUDA-core ones;
 here the plain versions run.  The JAX side runs
 ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its Pallas kernels
 in interpret mode, under both backward choices (``HVD_TPU_FLASH_BWD``,
@@ -168,13 +169,14 @@ SIMT = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.SIMT_KERNELS))
 @pytest.mark.parametrize("width", [32, 64, 128, 256])
 def test_route_by_dtype_and_width(dtype, width):
     """bf16 and f16 at up to 128: the four Hopper kernels, and at 256 the
-    Hopper forward with the CUDA-core backward kernels; f32: the four
-    CUDA-core kernels.  Each kernel routed to takes the dtype and width."""
+    Hopper forward, dq and dk/dv with the CUDA-core one-pass; f32: the
+    four CUDA-core kernels.  Each kernel routed to takes the dtype and
+    width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))
-    want = SIMT if width == 256 or dtype == torch.float32 else HOPPER
-    if dtype != torch.float32:
-        want = dict(want, fwd=HOPPER["fwd"])
+    want = SIMT if dtype == torch.float32 else HOPPER
+    if dtype != torch.float32 and width == 256:
+        want = dict(want, onepass=SIMT["onepass"])
     assert route == want
     for kern in route.values():
         assert dtype in kern.dtypes and width in kern.widths

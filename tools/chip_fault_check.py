@@ -50,7 +50,16 @@ WIDE_BH_D256_SHAPE in bf16 and f16; past 256 with the panel agreement,
 o's panels bit for bit against panel 0's on a V whose later panels copy
 its first); two faults are its own: the last 64-column chunk of Q K^T
 dropped at D 256, and past 256 the panel blocks after panel 0 streaming
-the score chunks in another order (and writing lse).  The first case,
+the score chunks in another order (and writing lse).  The Hopper dq and
+dk/dv at D 256 (the dq kernel's wide plan and ``flash_bwd.cu``'s own
+dk/dv kernel, both taking P from ``flash_bwd_kv.cuh``) run at the D 256
+ones of those units, so a fault in either file is held there too; two
+faults are theirs alone and must fail every D 256 unit and nothing else
+(``ONLY_AT``): the last 64-column chunk of Q K^T dropped from dq's
+scores, and the last 16 q rows of every tile left out of dK.  The older
+dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
+rows past S, the last q tile, f16 read as bf16) lie in code that both
+widths run, or are planted in both dk/dv kernels.  The first case,
 ``none``,
 applies no edit; names on the command line run ``none`` and those faults
 only.
@@ -85,11 +94,16 @@ WORK = REPO / "build" / "fault_check"
 # a fault of several edits gives tuples of texts, and a tuple of sources
 # where they lie in more than one file
 _KV = "flash_bwd_kv.cuh"
-_KV_MASK = "if (!(q < S && kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"
-_KV_P = "p[e] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));"
+# the mask of both dk/dv kernels and the one-pass (kv::dead), and the
+# dk/dv kernels' P (in both files)
+_KV_MASK = "return !(q < S && k < S && (!CAUSAL || k <= q));"
+_KV_P = "exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));"
 _DQ_STORE = ("tma_store_3d(mdq, so + p * 64 * PF::SWZ, p * PF::PC, "
              "q0 + 64 * wg, bh);")
 _DQ_MAP = "panel_map<D>(&mdq, dq, s, bh, 64)"
+# dq's row stores at D 256
+_DQ256_STORE = ("        if (row < S) {\n#pragma unroll\n"
+                "          for (int j = 0; j < D / 8; ++j)")
 # the CUDA-core kernels' loops over the 128-column panels of the scores
 _SIMT_PANELS = tuple("for (int p = 0; p < np; ++p) {  // " + c for c in (
     "S = Q K^T over every panel", "S again, V's panel with the last",
@@ -109,11 +123,11 @@ FAULTS = {
         "  return CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
         "forward: the diagonal k tile skipped for q rows in the second half"),
     "dkv_last_q_tile": (
-        _KV, _KV_P,
-        _KV_P[:-1] + " * (CAUSAL && 2 * k0 < S && qstart + i + 1 == nq "
-        "? 0.f : 1.f);",
-        "dk/dv: the last q tile dropped (its P zero) for k rows in the first "
-        "half"),
+        (_KV, "flash_bwd.cu"), (_KV_P,) * 2,
+        (_KV_P[:-1] + " * (CAUSAL && 2 * k0 < S && qstart + i + 1 == nq "
+         "? 0.f : 1.f);",) * 2,
+        "dk/dv (both bodies): the last q tile dropped (its P zero) for k "
+        "rows in the first half"),
     "fwd_mask_off_by_one": (
         "flash_fwd.cu",
         "        if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
@@ -134,35 +148,59 @@ FAULTS = {
         "flash_bwd.cu",
         "if (!(col < S && (!CAUSAL || col <= row))) p = 0.f;",
         "if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) p = 0.f;",
-        "dq: causal mask drops the diagonal key in the second half"),
+        "dq (both plans): causal mask drops the diagonal key in the second "
+        "half"),
     "dkv_mask_off_by_one": (
         _KV, _KV_MASK,
-        "if (!(q < S && kr < S && (!CAUSAL || kr < q + (2 * q < S)))) "
-        "p[e] = 0.f;",
-        "dk/dv: causal mask drops the diagonal key in the second half"),
+        "return !(q < S && k < S && (!CAUSAL || k < q + (2 * q < S)));",
+        "dk/dv (both kernels) and one-pass (one mask, kv::dead): causal mask "
+        "drops the diagonal key in the second half"),
     "dq_diagonal_tile": (
         "flash_bwd.cu",
         "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;",
-        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
-        "dq: the diagonal k tile skipped for q rows in the second half"),
+        # after the cap, which S 130 at D 256 reaches
+        "  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) - (2 * q0 >= S) "
+        ": nk;",
+        "dq (both plans): the diagonal k tile skipped for q rows in the "
+        "second half"),
     "dq_k_transpose_bit": (
         "flash_bwd.cu",
         "MmaRS<D, 1, T>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
         "MmaRS<D, 0, T>::run(acc, a, desc_mnmajor<D, BK>(sk, kk), 1);",
-        "dq: K read K-major in dS K (its transpose bit flipped)"),
+        "dq (both plans): K read K-major in dS K (its transpose bit "
+        "flipped)"),
+    "dq_d256_last_chunk": (
+        "flash_bwd.cu",
+        "      for (int kk = 0; kk < D / 16; ++kk)  // S, over every 64-column panel",
+        "      for (int kk = 0; kk < D / 16 - 4 * L::WIDE; ++kk)  // S, over every "
+        "64-column panel",
+        "dq at D 256: the last 64-column chunk of Q K^T left out of the "
+        "scores"),
+    "dkv_d256_dk_last_rows": (
+        "flash_bwd.cu",
+        "      for (int kk = 0; kk < BQ / 16; ++kk) {  // every 16 q rows of the tile",
+        "      for (int kk = 0; kk < BQ / 16 - wg; ++kk) {  // every 16 q rows of the tile",
+        "dk/dv at D 256: the last 16 q rows of every q tile left out of dK "
+        "(consumer 1's last k-step)"),
     "dq_stale_ring_stage": (
         "flash_bwd.cu",
-        "      mbar_wait(&full[s], (i / STAGES) & 1);",
-        "      mbar_wait(&full[s], ((i / STAGES) & 1) ^ (i >= STAGES));",
-        "dq: a ring stage read again before its next k tile lands (wrong "
-        "parity)"),
+        "      mbar_wait(&full[jv % SLOTS], (jv / SLOTS) & 1);",
+        # the narrower plan's: the D 256 ring hands a slot over a tile's
+        # time before its use, so there a stale parity reads landed data
+        "      mbar_wait(&full[jv % SLOTS], ((jv / SLOTS) & 1) ^ (!L::WIDE && jv >= "
+        "SLOTS));",
+        "dq up to D 128: a ring stage read again before its next k tile "
+        "lands (wrong parity)"),
     "dq_ragged_rows_written": (
         "flash_bwd.cu",
-        (_DQ_MAP, _DQ_STORE, "dl[h] = row < S ? delta[at] : 0.f;"),
+        (_DQ_MAP, _DQ_STORE, "dl[h] = row < S ? delta[at] : 0.f;",
+         _DQ256_STORE),
         ("panel_map<D>(&mdq, dq, (uint64_t)s * bh, 1, 64)",
          _DQ_STORE.replace("q0 + 64 * wg, bh);", "bh * S + q0 + 64 * wg, 0);"),
-         "dl[h] = row < S ? delta[at] : 1.f;"),
-        "dq: rows past S written (dq's map flattened, so the next head's "
+         "dl[h] = row < S ? delta[at] : 1.f;",
+         _DQ256_STORE.replace("row < S", "bh * S + row < (int)gridDim.x * S")),
+        "dq (both plans): rows past S written (dq's map flattened, or the "
+        "D 256 row stores bounded by the tensor's end, so the next head's "
         "first rows take them; their delta 1, so that they are not zeros)"),
     "onepass_dead_tiles_not_zeroed": (
         _KV,
@@ -198,7 +236,7 @@ FAULTS = {
         ("static_cast<const float*>(dqp),\n"
          "                              (uint64_t)s * bh * nk, 1, kv::BQ, D)",
          "(bh * nk + kt) * S + q0,\n                         0);",
-         "if (!(kr < S && (!CAUSAL || kr <= q))) p[e] = 0.f;"),
+         "return !(k < S && (!CAUSAL || k <= q));"),
         "one-pass: partial rows past S written (the partials' map flattened, "
         "so the next slot takes them; the rows past S unmasked, so that "
         "they are not zeros)"),
@@ -366,23 +404,39 @@ def f16_labels(shapes):
     return {"%s float16 hopper" % shape for shape in shapes}
 
 
-def wide_labels(shapes):
-    """The Hopper forward's units from 256 on, in bf16 and f16."""
+def wide_labels(shapes, dtypes=WIDE_DTYPES):
+    """The Hopper units from 256 on (the forward's, and at 256 dq's and
+    dk/dv's too), in bf16 and f16."""
     return {"%s %s hopper" % (shape, dtype) for shape in shapes
-            for dtype in WIDE_DTYPES}
+            for dtype in dtypes}
+
+
+# The Hopper dq and dk/dv at 256: the D 256 units, and the causal ones.
+D256 = WIDE + (WIDE_BH_D256,)
+D256_CAUSAL = WIDE[:2] + (WIDE_BH_D256,)
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
                 "fwd_mask_off_by_one": CAUSAL,
                 "fwd_lse_log2": ALL,
                 "fwd_v_transpose_bit": ALL,
-                "dq_mask_off_by_one": CAUSAL,
-                "dq_diagonal_tile": CAUSAL,
-                "dq_k_transpose_bit": ALL,
+                # the mask: at every causal D 256 unit too (S 64's rows
+                # 32-63 hold the diagonal the plant drops)
+                "dq_mask_off_by_one": CAUSAL | wide_labels(D256_CAUSAL),
+                "dkv_mask_off_by_one": CAUSAL | wide_labels(D256_CAUSAL),
+                # S 64 has one q tile, at q0 0: nothing to skip there
+                "dq_diagonal_tile": CAUSAL | wide_labels(WIDE[:2]),
+                "dq_k_transpose_bit": ALL | wide_labels(D256),
                 "dq_stale_ring_stage": {DECODER, BERT},
-                "dq_ragged_rows_written": {RAGGED32},
-                "dkv_last_q_tile": CAUSAL,
-                "dkv_mask_off_by_one": CAUSAL,
+                # at S 130 the block of head 0's last q tile (3 k tiles)
+                # writes past S into head 1's first, whose block (2 k tiles)
+                # ends first
+                "dq_ragged_rows_written": {RAGGED32} | wide_labels(WIDE[1:2]),
+                "dkv_last_q_tile": CAUSAL | wide_labels(D256_CAUSAL),
+                # every D 256 unit sums four chunks, and every one has q
+                # rows 48-63 in some tile
+                "dq_d256_last_chunk": wide_labels(D256),
+                "dkv_d256_dk_last_rows": wide_labels(D256),
                 "onepass_dead_tiles_not_zeroed": CAUSAL,
                 "onepass_dead_slot_last_tile": CAUSAL,
                 "onepass_dkv_last_q_tile": ALL,
@@ -402,8 +456,10 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # every shape past 256 has three panels or more
                 "simt_wide_panel_skipped": simt_labels(WIDER),
                 "f16_read_as_bf16": f16_labels(ALL),
-                "dq_f16_read_as_bf16": f16_labels(ALL),
-                "dkv_f16_read_as_bf16": f16_labels(ALL),
+                "dq_f16_read_as_bf16": f16_labels(ALL)
+                | wide_labels(D256, ("float16",)),
+                "dkv_f16_read_as_bf16": f16_labels(ALL)
+                | wide_labels(D256, ("float16",)),
                 "fwd_f16_mask_off_by_one": f16_labels(CAUSAL),
                 # every D 256 shape sums four chunks
                 "fwd_d256_last_chunk": wide_labels(WIDE + (WIDE_BH_D256,)),
@@ -411,6 +467,9 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # thousands of rows hold thousands of keys: the decoder's
                 # shape, not the ragged ones
                 "fwd_wide_panel_chunk_order": wide_labels(WIDER[:1])}
+# Faults that must fail nowhere but at these units: the D 256 code's own.
+ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
+           "dkv_d256_dk_last_rows": wide_labels(D256)}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -425,11 +484,17 @@ CODECS = "the codec check"
 CODEC_FAULTS = {"fp8_cast_saturates"}
 SIMT_SOURCE = "flash_simt.cu"
 # Sources of the kernels that also run in f16: a fault there is held at
-# the f16 units too; one in the Hopper forward's sources also at its units
-# from 256 on.
+# the f16 units too; one in the sources of the Hopper kernels from 256 on
+# (the forward's, and dq's and dk/dv's at 256, whose P is the k-tile
+# body's) also at those units.
 F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
                "sm90.cuh"}
-WIDE_SOURCES = {"flash_fwd.cu", "sm90.cuh"}
+WIDE_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "sm90.cuh"}
+
+
+def fault_sources(fault):
+    """The sources a fault edits."""
+    return set(fault[0]) if isinstance(fault[0], tuple) else {fault[0]}
 
 CHILD = """
 import json, sys, torch, chip_smoke as cs
@@ -656,8 +721,8 @@ def main(argv) -> int:
             ok &= bool(edge) and not died
             continue
         simt = fault is not None and fault[0] == SIMT_SOURCE
-        f16 = fault is not None and fault[0] in F16_SOURCES
-        wide = fault is not None and fault[0] in WIDE_SOURCES
+        f16 = fault is not None and bool(fault_sources(fault) & F16_SOURCES)
+        wide = fault is not None and bool(fault_sources(fault) & WIDE_SOURCES)
         readings, died = run_case(
             name, fault, labels,
             None if fault is None else simt_units if simt else
@@ -730,6 +795,12 @@ def main(argv) -> int:
             ok &= bool(family_at) and must <= family_at
             if must - family_at:
                 print("  MISSED at: %s" % ", ".join(sorted(must - family_at)))
+            if name in ONLY_AT:
+                stray = failed_at - ONLY_AT[name]
+                ok &= not stray
+                if stray:
+                    print("  FAILED OUTSIDE its units at: %s"
+                          % ", ".join(sorted(stray)))
     shutil.rmtree(WORK, ignore_errors=True)
     print("fault check: %s" % ("ok" if ok else "FAILED"))
     return 0 if ok else 1

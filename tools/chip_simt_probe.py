@@ -5,7 +5,9 @@
 (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) in f16 and
 bf16, on one GPU.
 
-    python3 tools/chip_simt_probe.py [--wide-fwd] [--sdpa-kernels] [--watchdog]
+    python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--sdpa-kernels]
+                                     [--watchdog] [--head-major]
+    python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
 
 Builds the kernels, prints the card, the build time and ``nvcc``'s
 register and spill report for those four sources, then each kernel's
@@ -23,6 +25,11 @@ error; it judges nothing (``chip_smoke.py`` does).
 HOPPER_FWD_SHAPES (past 256 with the panel agreement) and
 WIDE_BH_D256_SHAPE (``worst`` against chip_smoke's Hopper limits), and at the decoder's shape at 256 and 384 the device
 ms of the Hopper forward, its CUDA-core twin and SDPA (20 calls each).
+``--wide-bwd`` probes the Hopper dq and dk/dv at head dim 256 alone:
+``flash_bwd.cu``'s report, their readings in bf16 and f16 at
+WIDE_HEAD_SHAPES and WIDE_BH_D256_SHAPE (``worst`` against chip_smoke's
+Hopper limits), and at the decoder's shape at 256 the device ms of each,
+its CUDA-core twin and SDPA's whole backward (20 calls each).
 ``--sdpa-kernels`` names the kernels that the yardstick, SDPA (forward
 and backward, one call each under ``torch.profiler``), launches in f32
 and bf16 at the decoder's shape at head dims 128 and 256, with their
@@ -32,7 +39,18 @@ mbarrier waits trap after seconds (``HVD_SM90_WATCHDOG``), so that a
 new kernel's lost arrival ends its launch with an error instead of
 hanging the card; its ptxas report and times are the watchdog build's
 (whose clock spills the producer's 24 registers), not the shipped
-kernels'.
+kernels'.  ``--head-major`` runs on a copy under
+``build/probe-head-major/`` whose dq and dk/dv blocks at D 256 take
+their (bh, tile) head-major (block b in launch order: head b div tiles,
+tile b mod tiles) instead of bh first (head b mod BH, tile b div BH);
+with ``--wide-bwd`` it times that order in a build that is the shipped
+one in all else.  A copy keeps its build from one run to the next.
+
+``--narrow-bwd`` times only the Hopper dq, dk/dv and one-pass in bf16
+and f16 at the decoder's shape (D 128) and BERT's (D 64), 20 calls each,
+with no readings and no report; ``--tree DIR`` takes ``chip_smoke.py``
+and the package from another checkout (an unpacked parent commit, say,
+under ``build/``), so that one call can time two trees in turns.
 """
 
 import json
@@ -46,20 +64,37 @@ PROBED = (("hopper", "float16"), ("hopper", "bfloat16"), ("simt", "float32"),
 SOURCES = ("flash_simt", "flash_fwd", "flash_bwd", "flash_bwd_onepass")
 
 
-def watchdog_copy(repo):
-    """A copy of the package and chip_smoke.py under build/probe/ whose
-    sm90.cuh defines HVD_SM90_WATCHDOG -> the copy's root."""
-    work = os.path.join(repo, "build", "probe")
-    shutil.rmtree(work, ignore_errors=True)
+# flash_bwd.cu's block decodes (dq's, then dk/dv's at D 256), bh first,
+# and head-major in their place: block b = x + BH y in launch order
+BH_FIRST = ("  const int bh = blockIdx.x;\n"
+            "  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;",
+            "  const int bh = blockIdx.x, k0 = blockIdx.y * BK;")
+_HM = "  const int b = blockIdx.x + gridDim.x * blockIdx.y, bh = b / gridDim.y"
+HEAD_MAJOR = (_HM + ";\n  const int q0 = (gridDim.y - 1 - b % gridDim.y) * BQ;",
+              _HM + ", k0 = b % gridDim.y * BK;")
+
+
+def probe_copy(repo, name, source, old, new):
+    """A copy of the package and chip_smoke.py under build/<name>/ with
+    each text of `old` replaced by its twin in `new` in csrc/<source> ->
+    the copy's root.  The copy's own build directory stays, so an
+    unchanged copy builds once."""
+    work = os.path.join(repo, "build", name)
     shutil.copytree(os.path.join(repo, "horovod_tpu_torch"),
                     os.path.join(work, "horovod_tpu_torch"),
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+                    ignore=shutil.ignore_patterns("build", "__pycache__"),
+                    dirs_exist_ok=True)
     shutil.copy(os.path.join(repo, "chip_smoke.py"), work)
-    header = os.path.join(work, "horovod_tpu_torch", "csrc", "sm90.cuh")
-    with open(header) as f:
+    path = os.path.join(work, "horovod_tpu_torch", "csrc", source)
+    with open(path) as f:
         text = f.read()
-    with open(header, "w") as f:
-        f.write("#define HVD_SM90_WATCHDOG 1\n" + text)
+    for o, n in zip(old, new):
+        if text.count(o) != 1:
+            raise SystemExit("chip_simt_probe: %r is not in %s once"
+                             % (o, source))
+        text = text.replace(o, n)
+    with open(path, "w") as f:
+        f.write(text)
     return work
 
 
@@ -93,6 +128,67 @@ def wide_fwd(cs, fa, torch):
             print("times forward", dtype, cs.shape_label(bh, s, d, causal),
                   times, flush=True)
             del q, k, v, q4, k4, v4
+            torch.cuda.empty_cache()
+
+
+def wide_bwd(cs, fa, torch):
+    """The Hopper dq and dk/dv at 256: readings, then times beside their
+    CUDA-core twins and SDPA's backward."""
+    import torch.nn.functional as F
+    for dtype in ("bfloat16", "float16"):
+        for bh, s, d, causal in (list(cs.WIDE_HEAD_SHAPES)
+                                 + [cs.WIDE_BH_D256_SHAPE]):
+            errs, _, _, _ = cs.kernel_errors(
+                fa, *cs.kernel_inputs(bh, s, d, dtype), causal)
+            torch.cuda.synchronize()
+            print("hopper", dtype, cs.shape_label(bh, s, d, causal),
+                  json.dumps({n: {o: {k: float("%.3g" % x)
+                                      for k, x in e.items()}
+                                  for o, e in errs[n].items()}
+                              for n in ("flash_bwd_dq", "flash_bwd_dkv")}),
+                  flush=True)
+            torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float16"):
+        bh, s, d, causal = cs.WIDE_HEAD_SHAPES[0]
+        q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
+        o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, causal)
+        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=1.0)
+        do4 = do.view(1, bh, s, d)
+        times = {name: cs.time_ms(lambda f=f: f(*bwd), reps=reps)
+                 for name, f, reps in (
+                     ("dq", fa.flash_bwd_dq_kernel, 20),
+                     ("dkv", fa.flash_bwd_dkv_kernel, 20),
+                     ("dq_simt", fa.flash_bwd_dq_simt_kernel, 3),
+                     ("dkv_simt", fa.flash_bwd_dkv_simt_kernel, 3))}
+        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+        print("times backward", dtype, cs.shape_label(bh, s, d, causal),
+              times, flush=True)
+        del q, k, v, do, o, q4, k4, v4, out4, do4
+        torch.cuda.empty_cache()
+
+
+def narrow_bwd(cs, fa, torch):
+    """The Hopper backward kernels up to D 128: device ms, nothing else
+    (every name used here is in the trees it compares)."""
+    for dtype in ("bfloat16", "float16"):
+        for bh, s, d, causal in (cs.DECODER_SHAPE, cs.BERT_SHAPE):
+            q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
+            o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, causal)
+            times = {name: cs.time_ms(lambda f=f: f(*bwd), reps=20)
+                     for name, f in (("dq", fa.flash_bwd_dq_kernel),
+                                     ("dkv", fa.flash_bwd_dkv_kernel),
+                                     ("onepass", fa.flash_bwd_onepass_kernel))}
+            print("times narrow", dtype, "BH%d S%d D%d %s" % (
+                bh, s, d, "causal" if causal else "full"), times, flush=True)
+            del q, k, v, do, o, lse, delta, bwd
             torch.cuda.empty_cache()
 
 
@@ -141,8 +237,15 @@ def sdpa_kernels(cs, torch):
 
 def main(argv) -> int:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, watchdog_copy(repo) if "--watchdog" in argv
-                    else repo)
+    if "--watchdog" in argv:  # sm90.cuh's first line
+        repo = probe_copy(repo, "probe", "sm90.cuh", ("#pragma once",),
+                          ("#pragma once\n#define HVD_SM90_WATCHDOG 1",))
+    if "--head-major" in argv:
+        repo = probe_copy(repo, "probe-head-major", "flash_bwd.cu", BH_FIRST,
+                          HEAD_MAJOR)
+    if "--tree" in argv:
+        repo = os.path.abspath(argv[argv.index("--tree") + 1])
+    sys.path.insert(0, repo)
     import torch
     if not torch.cuda.is_available():
         print("chip_simt_probe: no CUDA device", file=sys.stderr)
@@ -159,10 +262,19 @@ def main(argv) -> int:
         return 0
     t0 = time.perf_counter()
     print("build", _build.build_all(), time.perf_counter() - t0, flush=True)
-    for src in ("flash_fwd",) if "--wide-fwd" in argv else SOURCES:
+    if "--narrow-bwd" in argv:
+        print("tree", repo, flush=True)
+        narrow_bwd(cs, fa, torch)
+        return 0
+    wide = [a for a in ("--wide-fwd", "--wide-bwd") if a in argv]
+    for src in ([{"--wide-fwd": "flash_fwd", "--wide-bwd": "flash_bwd"}[a]
+                 for a in wide] or SOURCES):
         cs.print_ptxas((_build.build_dir() / ("%s.log" % src)).read_text())
     if "--wide-fwd" in argv:
         wide_fwd(cs, fa, torch)
+    if "--wide-bwd" in argv:
+        wide_bwd(cs, fa, torch)
+    if wide:
         return 0
     # Readings, not verdicts: no limit.
     cs.SIMT_TOL = dict.fromkeys(cs.SIMT_DTYPES, (1.0, 1.0))

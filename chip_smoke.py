@@ -21,8 +21,9 @@
    and f16 at head dim 256 (the three shapes below, and untimed at BH
    65,600, S 64) and past it (the five shapes at 384 and 640 below, each
    also with V's later panels copies of its first, whose outputs must
-   agree bit for bit); the Hopper dq and dk/dv in bf16 and f16 at head
-   dim 256 (the same three shapes, and untimed at BH 65,600); the four
+   agree bit for bit); the Hopper dq, dk/dv and one-pass (64-row dq
+   partial slots, held slot by slot) in bf16 and f16 at head dim 256 (the
+   same three shapes, and untimed at BH 65,600); the four
    BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
@@ -78,11 +79,12 @@
    ``make_bert_train_step`` under each backward choice from the same
    weights (24 launches each of the f16 Hopper forward and one-pass, then
    of the forward, dq and dk/dv); the decoder flagship with 4 heads of
-   256 (Gemma 7B's head width) in bf16, one step under ``pallas`` (12
-   Hopper forwards, dq and dk/dv at D 256, no CUDA-core kernel); each
-   step's loss and gradients against the same model's on
+   256 (Gemma 7B's head width) in bf16, one step under each backward
+   choice from the same weights (12 Hopper forwards, then 12 Hopper dq
+   and dk/dv or 12 Hopper one-pass backwards at D 256, no CUDA-core
+   kernel); each step's loss and gradients against the same model's on
    the plain attention path on the card, then 5 more steps timed (under
-   each choice for BERT).  Between the decoder and
+   each choice for BERT and the hd256 decoder).  Between the decoder and
    ResNet-50, the main path
    of the CUDA-core kernels: the decoder at the same width and depth at
    dtype float32, one step through ``make_train_step`` under each
@@ -146,11 +148,10 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (twenty-one: the thirteen
+5. Prints one JSON line of kernel records (twenty-two: the thirteen
    kernels, the f16 forms of the four Hopper ones, the Hopper forward at
-   D 256 and at D 384, and the Hopper dq and dk/dv at D 256), then as the
-   last line ``{"ok": true,
-   "device": {...}}``.
+   D 256 and at D 384, and the Hopper dq, dk/dv and one-pass at D 256),
+   then as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
 and the rest of the repository beside this file.
@@ -177,11 +178,16 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # ds are rounded to bf16 before a product at another running max in the
 # kernel than in the plain version, which moves a sum by a fraction of
 # its row's scale rather than of its own value, hence the row term; rtol
-# is one bf16 ulp.  lse is f32 throughout.  The limits sit above the
+# is one bf16 ulp.  lse is f32 throughout.  The Hopper kernels' backward
+# outputs are held to the plain version with dP - delta formed in f64
+# (``exact_dp``): where it cancels to nothing (q row 0 of a causal head,
+# one live key) an f32 plain version keeps only its own rounding noise,
+# in another summation order than the tensor cores'.  The limits sit above the
 # readings of the correct kernels and far below planted faults
 # (tools/chip_fault_check.py, PERF.md).
 # The one-pass kernel's dq partials ("dqp") are held slot by slot, a row
-# being one (bh, k tile, position) vector, under dq's limits.
+# being one (bh, k block, position) vector, under dq's limits (a slot per
+# ``fa.onepass_block_k(D)`` rows of k: 128, and 64 at D 256).
 KERNEL_TOL = {"o": (2 ** -7, 2 ** -5), "lse": (2 ** -16, 2 ** -16),
               "dq": (2 ** -7, 2 ** -5), "dqp": (2 ** -7, 2 ** -5),
               "dk": (2 ** -7, 2 ** -5), "dv": (2 ** -7, 2 ** -5)}
@@ -228,10 +234,10 @@ SIMT_TOL = {"float32": (2 ** -16, 2 ** -16), "float16": (2 ** -10, 2 ** -10),
 F16_OFF_SHARE = 2 ** -6
 # Head dim 256 (Gemma 7B's attention, and any head dim in 129-255 padded
 # to it): the decoder's attention at that width, a ragged causal and a
-# ragged full shape (one-pass slots of four 32-row tiles, the last partly
-# past S).  The forward, dq and dk/dv run on Hopper in bf16 and f16 (64-row
-# k tiles; dk/dv 64-row k blocks), the one-pass backward on the CUDA
-# cores, and everything in f32.
+# ragged full shape (64-row one-pass slots, the last partly past S: 2 rows
+# of S 130's third, 8 of S 200's fourth; two 32-row tiles each on the CUDA
+# cores).  All four run on Hopper in bf16 and f16 (64-row k tiles; dk/dv
+# and the one-pass 64-row k blocks), and on the CUDA cores in f32.
 WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
                     (4, 200, 256, False))
 # Past 256 (any head dim, padded to a multiple of 128) the CUDA-core
@@ -251,8 +257,8 @@ SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
 # The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
 # family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
 # max), and untimed at WIDE_BH_SHAPE's BH and S at D 256; at D 256 (the
-# first three shapes and WIDE_BH_D256_SHAPE) the Hopper dq and dk/dv too,
-# under the same limits and timed beside SDPA's backward.  Past 256 it is
+# first three shapes and WIDE_BH_D256_SHAPE) the Hopper dq, dk/dv and
+# one-pass too, under the same limits and timed beside SDPA's backward.  Past 256 it is
 # also held to itself: with V's later panels copies of its first
 # (``panel_agreement``), every panel block must give o's columns bit for
 # bit as panel 0's block does, which it can only when all of them formed
@@ -463,9 +469,8 @@ def compare(got, want, rtol, atol):
 def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper" or "simt", the
     CUDA-core twins) that take inputs of ``dtype`` at head dim ``width``:
-    the four Hopper ones in bf16 and f16 up to 128, the forward, dq and
-    dk/dv at 256 and the forward alone past it, the four CUDA-core ones in
-    any dtype."""
+    the four Hopper ones in bf16 and f16 up to 256 and the forward alone
+    past it, the four CUDA-core ones in any dtype."""
     import torch
     kernels = fa.HOPPER_KERNELS if family == "hopper" else fa.SIMT_KERNELS
     return {name: k for name, k in zip(FLASH_KERNELS, kernels)
@@ -518,14 +523,19 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     bwd = (q, k, v, do, lse_ref, delta, causal)
     o, lse = kern["flash_fwd"](q, k, v, causal)
     outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)}}
+    # The Hopper kernels sum dP in the tensor cores' order, so they are
+    # held to dP - delta formed in f64 (``exact_dp``); the CUDA-core twins
+    # follow the f32 plain version's order and are held to it.
+    exact = family == "hopper"
     if "flash_bwd_dq" in kern:
-        dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(*bwd)
+        dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(*bwd, exact_dp=exact)
         outputs["flash_bwd_dq"] = {"dq": (kern["flash_bwd_dq"](*bwd), dq_ref)}
         dk, dv = kern["flash_bwd_dkv"](*bwd)
         outputs["flash_bwd_dkv"] = {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}
     poisoned = None
     if "flash_bwd_onepass" in kern:
-        dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(*bwd)
+        dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(
+            *bwd, exact_dp=exact)
         # Poison the allocator: the partials' block comes back full of
         # NaN, so a slot the kernel leaves unwritten reads NaN, not a stale
         # zero.
@@ -621,7 +631,7 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
                                        shape_label(bh, s, d, causal), family)
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     io, rows = bh * s * d * q.element_size(), bh * s * 4
-    partials = bh * -(-s // fa.BLOCK_K) * s * d * 4
+    partials = bh * -(-s // fa.onepass_block_k(d)) * s * d * 4
     work = {  # (FLOP, bytes): each input read once, each output written once
         "flash_fwd": (4 * d * pairs, 4 * io + rows),
         "flash_bwd_dq": (6 * d * pairs, 4 * io + 2 * rows + 2 * io),
@@ -1277,7 +1287,8 @@ FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
             ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                                "flash_bwd_dkv_d256")),
-            ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",)),
+            ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",
+                                   "flash_bwd_onepass_d256")),
             ("bn_stats", ("bn_stats_",)),
             ("bn_apply", ("bn_apply_kernel",)),
             ("bn_bwd_red", ("bn_bwd_red_",)),
@@ -1916,19 +1927,22 @@ def train_decoder_f16(torch):
 
 
 def train_decoder_hd256(torch):
-    """The main path of the Hopper forward, dq and dk/dv at head dim 256:
-    the decoder flagship (``train_flagship``'s configuration,
-    bench.py:86-91, and its Adam) with n_heads = n_kv_heads = d // 256 = 4
-    (Gemma 7B's head width), bf16, one step through ``make_train_step`` and
-    the engine under HVD_TPU_FLASH_BWD=pallas, every launch count set to 0
-    just before it and read just after: 12 Hopper forwards, 12 Hopper dq
-    and 12 Hopper dk/dv, no CUDA-core kernel.  Its loss and gradients are
-    held against the same model's on the plain attention path
-    (HOROVOD_FLASH_ATTENTION=0) on the card, from the same weights and
-    data, by the flagship steps' rules (``held_f16_step``); the logits take
-    bf16 operands on both paths, so
-    that only attention differs.  Then STEPS more steps, timed, and one
-    profiled.  -> the counts."""
+    """The main path of the Hopper kernels at head dim 256: the decoder
+    flagship (``train_flagship``'s configuration, bench.py:86-91, and its
+    Adam) with n_heads = n_kv_heads = d // 256 = 4 (Gemma 7B's head
+    width), bf16, one step through ``make_train_step`` and the engine under
+    HVD_TPU_FLASH_BWD=pallas (12 Hopper forwards, 12 Hopper dq and 12
+    Hopper dk/dv), STEPS more timed and one profiled, then one step from
+    the same weights under pallas_onepass (12 Hopper forwards and 12
+    Hopper one-pass backwards, their 64-row dq partial slots summed), STEPS
+    more timed and one profiled; every launch count set to 0 just before
+    each held step and read just after, no CUDA-core kernel.  Each held
+    step's loss and gradients are held against the same model's on the
+    plain attention path (HOROVOD_FLASH_ATTENTION=0) on the card, from the
+    same weights and data, by the flagship steps' rules
+    (``held_f16_step``); the logits take bf16 operands on both paths, so
+    that only attention differs.  -> {backward choice: its step's
+    counts}."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
@@ -1945,6 +1959,7 @@ def train_decoder_hd256(torch):
         cfg, lambda ps: torch.optim.Adam(ps, 1e-3))
     params = init_params(cfg, seed=0)
     step, model, _ = build(params)
+    start = [p.detach().clone() for p in model.parameters()]
     data = shard_batch(synthetic_batch(cfg, batch, seed=0))
     # The plain path on a copy of the weights with no gradient hooks.
     ref = params_from_jax(params, cfg, next(model.parameters()).device)
@@ -1962,27 +1977,37 @@ def train_decoder_hd256(torch):
         "set-up and the plain path's loss and gradients %.1f s"
         % (d, L, cfg.n_heads, cfg.head_dim, seq, batch,
            time.perf_counter() - t0))
-    fa.reset_launch_counts()
-    with flash_bwd_env("pallas"):
-        t = time.perf_counter()
-        got = step(data).item()
-        torch.cuda.synchronize()
-        took = time.perf_counter() - t
-    counts = fa.launch_counts()
-    say("launches on the hd256 decoder path (1 step): %s" % counts)
-    check_counts(counts, {"flash_fwd_kernel": L, "flash_bwd_dq_kernel": L,
-                          "flash_bwd_dkv_kernel": L})
-    held_f16_step("hd256 decoder", took, got, want,
-                  {n: p.grad for n, p in model.named_parameters()}, plain, L)
-    del plain
-    times, last, frozen = timed_steps(torch, step, data, "pallas")
-    med = statistics.median(times)
-    say("hd256 decoder: %d more steps (pallas), ms %s, median step_ms %.2f, "
-        "tok/s %.1f, %d of them frozen, last loss %.6f" % (
-            STEPS, ["%.2f" % x for x in times], med, batch * seq / med * 1e3,
-            frozen, last))
-    with flash_bwd_env("pallas"):
-        profile_step(torch, step, data, med)
+    expected = {"pallas": {"flash_fwd_kernel": L, "flash_bwd_dq_kernel": L,
+                           "flash_bwd_dkv_kernel": L},
+                "pallas_onepass": {"flash_fwd_kernel": L,
+                                   "flash_bwd_onepass_kernel": L}}
+    counts = {}
+    for choice, want_counts in expected.items():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), start):
+                p.copy_(p0)
+        fa.reset_launch_counts()
+        with flash_bwd_env(choice):
+            t = time.perf_counter()
+            got = step(data).item()
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t
+        counts[choice] = fa.launch_counts()
+        say("launches on the hd256 decoder path (1 step, %s): %s"
+            % (choice, counts[choice]))
+        check_counts(counts[choice], want_counts)
+        held_f16_step("hd256 decoder (%s)" % choice, took, got, want,
+                      {n: p.grad for n, p in model.named_parameters()},
+                      plain, L)
+        times, last, frozen = timed_steps(torch, step, data, choice)
+        med = statistics.median(times)
+        say("hd256 decoder: %d more steps (%s), ms %s, median step_ms %.2f, "
+            "tok/s %.1f, %d of them frozen, last loss %.6f" % (
+                STEPS, choice, ["%.2f" % x for x in times], med,
+                batch * seq / med * 1e3, frozen, last))
+        with flash_bwd_env(choice):
+            profile_step(torch, step, data, med)
+    del plain, start
     hvd.shutdown()
     return counts
 
@@ -3267,6 +3292,7 @@ def main() -> int:
     f16_counts = train_bert_f16(torch)
     torch.cuda.empty_cache()
     hd256_counts = train_decoder_hd256(torch)
+    hd256_fwd = sum(c["flash_fwd_kernel"] for c in hd256_counts.values())
     torch.cuda.empty_cache()
     with flash_bwd_env("pallas_onepass"):
         adasum_counts, adasum_prof = train_bert_adasum(torch)
@@ -3367,24 +3393,26 @@ def main() -> int:
         "flash_fwd_d256 and flash_fwd_d384 (the Hopper forward from 256 on, "
         "bf16 and f16) held at %s and %s (phase 2; their records bf16 at %s "
         "and %s, SDPA in bf16 their library_ms), launched %d times in the "
-        "hd256 decoder step (phase 4; flash_fwd_d256's launches) and %d "
-        "times in the small decoder at head_dim 320 (phase 3, padded to 384; "
-        "flash_fwd_d384's launches: no phase-4 path runs a head dim past "
-        "256)" % (", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
-                  shape_label(*WIDE_BH_D256_SHAPE),
-                  shape_label(*HOPPER_FWD_SHAPES[0]),
-                  shape_label(*WIDER_HEAD_SHAPES[0]),
-                  hd256_counts["flash_fwd_kernel"],
-                  model_counts[320]["flash_fwd_kernel"]) + "; " +
-        "flash_bwd_dq_d256 and flash_bwd_dkv_d256 (the Hopper dq and dk/dv "
-        "at 256, bf16 and f16) held at %s and %s (phase 2; their records "
-        "bf16 at %s, SDPA's bf16 backward their library_ms), launched %d "
-        "and %d times in the hd256 decoder step (phase 4)" % (
-            ", ".join(shape_label(*s) for s in WIDE_HEAD_SHAPES),
-            shape_label(*WIDE_BH_D256_SHAPE),
-            shape_label(*WIDE_HEAD_SHAPES[0]),
-            hd256_counts["flash_bwd_dq_kernel"],
-            hd256_counts["flash_bwd_dkv_kernel"]))
+        "hd256 decoder's two steps (phase 4; flash_fwd_d256's launches) and "
+        "%d times in the small decoder at head_dim 320 (phase 3, padded to "
+        "384; flash_fwd_d384's launches: no phase-4 path runs a head dim "
+        "past 256)" % (", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
+                       shape_label(*WIDE_BH_D256_SHAPE),
+                       shape_label(*HOPPER_FWD_SHAPES[0]),
+                       shape_label(*WIDER_HEAD_SHAPES[0]),
+                       hd256_fwd, model_counts[320]["flash_fwd_kernel"])
+        + "; flash_bwd_dq_d256, flash_bwd_dkv_d256 and "
+        "flash_bwd_onepass_d256 (the Hopper dq, dk/dv and one-pass at 256, "
+        "bf16 and f16; the one-pass's partials in 64-row slots) held at %s "
+        "and %s (phase 2; their records bf16 at %s, SDPA's bf16 backward "
+        "their library_ms), launched %d and %d times in the hd256 decoder "
+        "step under pallas and %d in its step under pallas_onepass (phase "
+        "4)" % (", ".join(shape_label(*s) for s in WIDE_HEAD_SHAPES),
+                shape_label(*WIDE_BH_D256_SHAPE),
+                shape_label(*WIDE_HEAD_SHAPES[0]),
+                hd256_counts["pallas"]["flash_bwd_dq_kernel"],
+                hd256_counts["pallas"]["flash_bwd_dkv_kernel"],
+                hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"]))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -3425,14 +3453,16 @@ def main() -> int:
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})
     for name, kern, shape, launches in (
-            ("flash_fwd_d256", "flash_fwd", HOPPER_FWD_SHAPES[0],
-             hd256_counts["flash_fwd_kernel"]),
+            ("flash_fwd_d256", "flash_fwd", HOPPER_FWD_SHAPES[0], hd256_fwd),
             ("flash_fwd_d384", "flash_fwd", WIDER_HEAD_SHAPES[0],
              model_counts[320]["flash_fwd_kernel"]),
             ("flash_bwd_dq_d256", "flash_bwd_dq", WIDE_HEAD_SHAPES[0],
-             hd256_counts["flash_bwd_dq_kernel"]),
+             hd256_counts["pallas"]["flash_bwd_dq_kernel"]),
             ("flash_bwd_dkv_d256", "flash_bwd_dkv", WIDE_HEAD_SHAPES[0],
-             hd256_counts["flash_bwd_dkv_kernel"])):
+             hd256_counts["pallas"]["flash_bwd_dkv_kernel"]),
+            ("flash_bwd_onepass_d256", "flash_bwd_onepass",
+             WIDE_HEAD_SHAPES[0],
+             hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"])):
         rec = flash[shape][kern]
         out.append({"name": name, "route": "cuda",
                     "source": sources[kern][0],

@@ -67,19 +67,15 @@
 // side, sharing its re-read tiles in L2) took longer in both kernels at
 // the hd256 decoder's shape (PERF.md §6; tools/chip_simt_probe.py
 // --wide-bwd against --wide-bwd --head-major).
-//   dk/dv (flash_bwd_dkv_d256_kernel): one block per (bh, 64-row k tile),
-//          and its two consumers split the products, not the rows: per
-//          64-row q tile consumer 0 forms S^T = K Q^T, P^T (masked) and
-//          dV += P^T dO, consumer 1 dP^T = V dO^T, dS^T = P^T (dP^T -
-//          delta) and dK += dS^T Q; each owns one m64n256 f32 accumulator
-//          (128 registers) and does half the products.  P^T crosses in f32
-//          through a 16 KB exchange tile under two mbarriers (written,
-//          read), each thread's values where the other consumer's same
-//          thread holds dP^T's, so consumer 1 forms dS^T from P as the
-//          plain version does.  Shared memory: K and V 32 KB each, a
-//          two-stage ring of Q and dO 128 KB, the exchange 16 KB, lse and
-//          delta 2 KB: 210 KB.  dv leaves through K's tile and dk through
-//          V's, each the tile only its consumer read.
+//   dk/dv (flash_bwd_dkv_d256_kernel, body flash_bwd_kv.cuh's
+//          kv256::kblock_body, which the one-pass kernel at 256 shares):
+//          one block per (bh, 64-row k block), and its two consumers split
+//          the products, not the rows: per 64-row q tile consumer 0 forms
+//          S^T = K Q^T, P^T (masked) and dV += P^T dO, consumer 1 dP^T =
+//          V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q; each owns
+//          one m64n256 f32 accumulator (128 registers) and does half the
+//          products.  P^T crosses in f32 through a 16 KB exchange tile
+//          under two mbarriers (written, read).  Shared memory: 210 KB.
 //   dq     (flash_bwd_dq_kernel's wide plan, dqtile::Plan): the kernel
 //          above with 64-row K and V tiles, one to a slot of a ring of
 //          three 32 KB slots beside the resident Q and dO (128 KB), V_i
@@ -381,27 +377,6 @@ static cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
 
 // ---------------------------------------------------- dkv kernel at D 256
 
-namespace kv256 {
-
-constexpr int BQ = 64;  // q rows per ring tile
-constexpr int BK = 64;  // k rows per block
-constexpr int STAGES = 2;
-
-template <typename T>
-struct Smem {
-  static constexpr size_t tile = 64 * 256 * sizeof(T);      // 32 KB
-  static constexpr size_t k = 0;                            // BK x 256
-  static constexpr size_t v = k + tile;                     // BK x 256
-  static constexpr size_t ring = v + tile;                  // STAGES x (Q, dO)
-  static constexpr size_t xp = ring + STAGES * 2 * tile;    // P^T, BK x BQ f32
-  static constexpr size_t rows = xp + BK * BQ * sizeof(float);  // STAGES x (lse, delta)
-  static constexpr size_t bar = rows + STAGES * 2 * kv::ROWS_STRIDE * sizeof(float);
-  static constexpr size_t bytes = bar + 8 * (3 + 2 * STAGES) + 1024;  // + alignment
-  static_assert(bytes <= 232448, "a block's shared memory");
-};
-
-}  // namespace kv256
-
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap mq,
@@ -413,178 +388,9 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mdk,
                           const __grid_constant__ CUtensorMap mdv, int S) {
   static_assert(D == 256, "the D 256 plan");
-  using L = kv256::Smem<T>;
-  using PB = Panels<D>;
-  constexpr int BQ = kv256::BQ, BK = kv256::BK, STAGES = kv256::STAGES;
-  constexpr int RS = kv::ROWS_STRIDE;
-  constexpr float LOG2E = kv::LOG2E;
-  extern __shared__ unsigned char raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + STAGES;
-  uint64_t* xfull = empty + STAGES;  // P^T written (consumer 0's 128 threads)
-  uint64_t* xempty = xfull + 1;      // P^T read (consumer 1's 128 threads)
-  float* srows = reinterpret_cast<float*>(smem + L::rows);
-  float* xp = reinterpret_cast<float*>(smem + L::xp);
-
-  // bh on gridDim.x, so the blocks start with every head's longest causal
-  // k tile
-  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
-  const int nq = (S + BQ - 1) / BQ;
-  // q tiles before qstart lie wholly above the causal diagonal of this k tile
-  const int qstart = CAUSAL ? k0 / BQ : 0;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);  // every consumer thread
-    }
-    mbar_init(xfull, 128);
-    mbar_init(xempty, 128);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {  // producer: K and V once, then Q, dO, lse, delta by q tile
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(kv_full, 2 * L::tile);
-      for (int p = 0; p < PB::NP; ++p) {
-        tma_load_3d(smem + L::k + p * BK * PB::SWZ, mk, kv_full, p * PB::PC, k0, bh);
-        tma_load_3d(smem + L::v + p * BK * PB::SWZ, mv, kv_full, p * PB::PC, k0, bh);
-      }
-      for (int i = 0; i < nq - qstart; ++i) {
-        const int s = i % STAGES, q0 = (qstart + i) * BQ;
-        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], 2 * L::tile + 2 * kv::ROWS_BOX * sizeof(float));
-        unsigned char* sq = smem + L::ring + s * 2 * L::tile;
-        for (int p = 0; p < PB::NP; ++p) {
-          tma_load_3d(sq + p * BQ * PB::SWZ, mq, &full[s], p * PB::PC, q0, bh);
-          tma_load_3d(sq + L::tile + p * BQ * PB::SWZ, mg, &full[s], p * PB::PC, q0,
-                      bh);
-        }
-        // lse and delta as (BH S) vectors from a 16-byte boundary: rows
-        // past S read the next head's values (or zeros), which P's mask drops
-        const int r0 = (bh * S + q0) & ~3;
-        tma_load_1d(srows + s * 2 * RS, mlse, &full[s], r0);
-        tma_load_1d(srows + s * 2 * RS + RS, mdelta, &full[s], r0);
-      }
-    }
-  } else {  // consumers of k rows [k0, k0 + 64): 0 owns dV, 1 owns dK
-    setmaxnreg_inc<240>();
-    const int t = threadIdx.x % 128, lane = t % 32;
-    const int rl = 16 * (t / 32) + lane / 4;  // first k row in the tile; +8
-    const int c2 = 2 * (lane % 4);            // first q column of a pair
-    unsigned char* sk = smem + L::k;
-    unsigned char* sv = smem + L::v;
-    float acc[D / 2];  // dV (consumer 0) or dK (consumer 1): rows rl, rl + 8
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-    mbar_wait(kv_full, 0);
-    for (int i = 0; i < nq - qstart; ++i) {
-      const int s = i % STAGES, q0 = (qstart + i) * BQ;
-      mbar_wait(full + s, (i / STAGES) & 1);
-      const unsigned char* sq = smem + L::ring + s * 2 * L::tile;
-      const unsigned char* sg = sq + L::tile;
-      const float* slse = srows + s * 2 * RS + ((bh * S + q0) & 3);
-      const float* sdelta = slse + RS;
-
-      // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T.  Rows rl, rl + 8
-      // (k) of BQ q columns, each summed over four 64-column panels.
-      float st[BQ / 2];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        MmaSS<BQ, 0, 0, T>::run(st, desc_kmajor<D, BK>(wg ? sv : sk, kk),
-                                desc_kmajor<D, BQ>(wg ? sg : sq, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-
-      // Consumer 0: P^T, masked, to the exchange tile in f32 (thread t's
-      // values at [x][t], the layout consumer 1's thread t holds dP^T in)
-      // and packed to T.  Consumer 1: dS^T = P^T (dP^T - delta) from it,
-      // packed to T.
-      uint32_t pa[BQ / 4];
-      if (wg == 0) {
-        const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const float2 ls = make_float2(slse[8 * j + c2], slse[8 * j + c2 + 1]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * h + e;
-              st[x] = exp2f(fmaf(st[x], LOG2E, -(e ? ls.y : ls.x) * LOG2E));
-              if (masked && kv::dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
-                st[x] = 0.f;
-            }
-            pa[2 * j + h] = pack<T>(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
-          }
-        }
-        mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
-#pragma unroll
-        for (int x = 0; x < BQ / 2; ++x) xp[x * 128 + t] = st[x];
-        mbar_arrive(xfull);
-      } else {
-        mbar_wait(xfull, i & 1);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const float2 dl = make_float2(sdelta[8 * j + c2], sdelta[8 * j + c2 + 1]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float d[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * h + e;
-              d[e] = xp[x * 128 + t] * (st[x] - (e ? dl.y : dl.x));
-            }
-            pa[2 * j + h] = pack<T>(d[0], d[1]);
-          }
-        }
-        mbar_arrive(xempty);
-      }
-
-      // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q.  A from
-      // registers, dO or Q MN-major.
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {  // every 16 q rows of the tile
-        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                               pa[4 * kk + 3]};
-        MmaRS<D, 1, T>::run(acc, a, desc_mnmajor<D, BQ>(wg ? sq : sg, kk), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      mbar_arrive(&empty[s]);
-    }
-
-    // Epilogue: dv (consumer 0) over K's tile and dk (consumer 1) over V's,
-    // each the tile only that consumer read, then one TMA store each.
-    unsigned char* so = wg ? sv : sk;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(so + panel_offset<D, BK>(rl + 8 * h, 8 * j + c2)) =
-            pack<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    fence_proxy_async();
-    named_sync(2 + wg, 128);
-    if (t == 0 && k0 < S) {
-      for (int p = 0; p < PB::NP; ++p)
-        tma_store_3d(wg ? mdk : mdv, so + p * BK * PB::SWZ, p * PB::PC, k0, bh);
-      tma_store_commit();
-      tma_store_wait_read<0>();
-    }
-  }
+  // no partials: the body does not read dqp
+  kv256::kblock_body<T, CAUSAL, false>(mq, mk, mv, mg, mlse, mdelta, mdk, mdv,
+                                       nullptr, S);
 }
 
 template <typename T, bool CAUSAL>
@@ -597,7 +403,7 @@ static cudaError_t launch_dkv_d256(const T* q, const T* k, const T* v, const T* 
                                            s, kv256::BK);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dkv_d256_kernel<T, 256, CAUSAL>;
-  const size_t bytes = kv256::Smem<T>::bytes;
+  const size_t bytes = kv256::Smem<T, false>::bytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;

@@ -1,7 +1,7 @@
 // Flash attention in float32, float16 and bfloat16 on the CUDA cores
 // (sm_90a): the four flash kernels of flash_fwd.cu, flash_bwd.cu and
 // flash_bwd_onepass.cu for what the Hopper versions do not take: f32 at
-// any width, and every dtype at head dim 256 and past it.
+// any width, and the backward in every dtype past head dim 256.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_attn_kernel (via
 // _flash_attention_fwd_flat), _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel
@@ -16,8 +16,8 @@
 // lse and delta are f32 (BH, S) rows.  Under f32 every cast is the
 // identity.  Outputs: O in T and the f32 row log-sum-exp (natural log); dq
 // f32 in the pre-scaled units; dk, dv in T; the one-pass kernel's dq
-// partials f32, one (S, W) slot per 128 rows of k, a slot the causal mask
-// kills all zeros.  No conversion flushes an f16 subnormal to zero.
+// partials f32, one (S, W) slot per 128 rows of k (per 64 at D 256, as the
+// Hopper one-pass there), a slot the causal mask kills all zeros.  No conversion flushes an f16 subnormal to zero.
 //
 // Bound on the H100 SXM: operations.  Exact f32 products are not tensor-core
 // work (TF32 keeps about three decimal digits and would no longer compute
@@ -51,15 +51,15 @@
 // kernel and its plain version cast the same values and differ only by
 // the order of f32 sums, which lets the check on the card see a missing
 // cast.  The price is S = Q K^T computed twice.  The one-pass kernel's
-// block owns a 128-row k tile, the dq partial slot's rows, as 128 / M
-// tiles one after the other: the first writes each q tile's partial, each
-// later one adds its own to it (the same thread, the same element), so no
-// atomics and a fixed order.  Every output element has one writer.
+// block owns the k rows of one dq partial slot (128, or 64 at D 256), as
+// 128 / M or 64 / M tiles one after the other: the first writes each q
+// tile's partial, each later one adds its own to it (the same thread, the
+// same element), so no atomics and a fixed order.  Every output element has one writer.
 //
 // Left on the table: register tiles fed by vector loads from shared
 // memory, more blocks per SM at D 128, an online softmax (one pass) once a
 // tolerance for it is set, the scores formed once for all panels past 256,
-// and a Hopper plan at D 256 and past it.
+// and a Hopper backward past 256.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -67,7 +67,10 @@
 namespace hvdsimt {
 
 constexpr int NT = 256;          // threads a block: 16 x 16
-constexpr int ONEPASS_BK = 128;  // rows of k per dq partial slot
+// rows of k per dq partial slot: 128, and 64 at D 256 (the Hopper
+// one-pass's slots there); past 256 the panel instances are D 128's
+template <int D>
+__host__ __device__ constexpr int onepass_bk() { return D == 256 ? 64 : 128; }
 constexpr float NEG_INF = -1e30f;
 
 // The tiles at head dim D: M rows, a row stride of LP in an M x M score
@@ -473,8 +476,9 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        smem);
 }
 
-// grid (BH, ceil(S / 128), W / D): block y owns dq partial slot y, k rows
-// [128y, 128y + 128), as 128 / M tiles of M rows, one after the other.
+// grid (BH, ceil(S / BK), W / D), BK = onepass_bk<D>(): block y owns dq
+// partial slot y, k rows [BK y, BK y + BK), as BK / M tiles of M rows, one
+// after the other.
 template <typename T, int D, bool CAUSAL, bool PANELS>
 __global__ void __launch_bounds__(NT)
 onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -482,10 +486,10 @@ onepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dqp, T* __restrict__ dk,
                T* __restrict__ dv, int S, int W) {
-  constexpr int M = Tile<D>::M, parts = ONEPASS_BK / M;
+  constexpr int M = Tile<D>::M, BK = onepass_bk<D>(), parts = BK / M;
   extern __shared__ float smem[];
   if constexpr (!PANELS) W = D;
-  const int k0 = blockIdx.y * ONEPASS_BK, c0 = PANELS ? blockIdx.z * D : 0;
+  const int k0 = blockIdx.y * BK, c0 = PANELS ? blockIdx.z * D : 0;
   float* slot = dqp + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * S * W;
   if (CAUSAL)  // q rows before k0: the mask kills the whole slot there
     for (size_t i = threadIdx.x; i < (size_t)k0 * D; i += NT)
@@ -541,7 +545,7 @@ template <typename T, int D, bool C, bool P>
 int onepass(const void* q, const void* k, const void* v, const void* g,
             const void* lse, const void* delta, void* dqp, void* dk, void* dv,
             int bh, int s, int w, cudaStream_t st) {
-  return launch(onepass_kernel<T, D, C, P>, grid<D>(bh, s, w, ONEPASS_BK),
+  return launch(onepass_kernel<T, D, C, P>, grid<D>(bh, s, w, onepass_bk<D>()),
                 kv_smem<D>(), st, (const T*)q, (const T*)k, (const T*)v,
                 (const T*)g, (const float*)lse, (const float*)delta,
                 (float*)dqp, (T*)dk, (T*)dv, s, w);
@@ -610,6 +614,7 @@ extern "C" int hvd_simt_flash_bwd_onepass(const void* q, const void* k,
                                           int block_k, int dtype,
                                           void* stream) {
   // the caller allocates one partial slot per block_k rows of k
-  if (block_k != hvdsimt::ONEPASS_BK) return (int)cudaErrorInvalidValue;
+  const int slot = d == 256 ? hvdsimt::onepass_bk<256>() : hvdsimt::onepass_bk<128>();
+  if (block_k != slot) return (int)cudaErrorInvalidValue;
   HVD_SIMT_DISPATCH(onepass, q, k, v, g, lse, delta, dqp, dk, dv, bh, s);
 }

@@ -15,7 +15,8 @@ add 0 to every product) and the outputs sliced back;
 The backward is chosen as the JAX package chooses it, by
 ``HVD_TPU_FLASH_BWD`` read when the backward runs: ``pallas`` (the
 default) runs the dq and dk/dv kernels, ``pallas_onepass`` the one-pass
-kernel, whose f32 dq partials (one per 128-row k tile) are summed here
+kernel, whose f32 dq partials (one per block of ``onepass_block_k(width)``
+k rows: 64 at width 256, 128 at every other) are summed here
 (``partials.sum(1)``, the XLA reduce outside the TPU kernel).
 
 Each kernel has a wrapper (``*_kernel``) that launches it and counts its
@@ -26,12 +27,11 @@ version only for tensors on the CPU; on CUDA they launch the kernels that
 raise on anything they do not take.  The Hopper kernels take bf16 and
 f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
 128, 256 and every multiple of 128 past 256), dq and dk/dv
-(``flash_bwd.cu``) at 32, 64, 128 and 256, and the one-pass backward
-(``flash_bwd_onepass.cu``) at 32, 64 and 128.  Their CUDA-core twins
-(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at
-every padded width, and run whatever the Hopper kernels do not: f32,
-the one-pass backward in every dtype from 256 on, and dq and dk/dv past
-256.  Any other dtype raises.
+(``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
+at 32, 64, 128 and 256.  Their CUDA-core twins (``csrc/flash_simt.cu``,
+``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
+whatever the Hopper kernels do not: f32, and the three backward kernels
+in every dtype past 256.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -63,8 +63,9 @@ class _PaddedWidths:
 
 
 PADDED_WIDTHS = _PaddedWidths()
-# rows of k per one-pass tile, hence per dq partial; passed to the kernel,
-# which refuses a value other than its own
+# rows of k per one-pass tile, hence per dq partial, at every width but
+# 256 (``onepass_block_k``); passed to the kernel, which refuses a value
+# other than its own
 BLOCK_K = 128
 BWD_CHOICES = ("pallas", "pallas_onepass", "chunked")
 
@@ -90,6 +91,15 @@ def _lib(name: str):
     return _build.load(name, _SIGNATURES[name])
 
 
+def onepass_block_k(width: int) -> int:
+    """Rows of k per one-pass dq partial slot at padded head dim
+    ``width``: 64 at 256, where a Hopper block holds only 64 rows of K and
+    V beside its ring (the JAX package's smallest k block), and BLOCK_K
+    (128) at every other width.  The Hopper and CUDA-core one-pass kernels
+    and the plain version all take it."""
+    return 64 if width == 256 else BLOCK_K
+
+
 # ---------------------------------------------------------------------------
 # plain versions (f32 arithmetic, the kernels' casts)
 # ---------------------------------------------------------------------------
@@ -111,41 +121,49 @@ def flash_fwd_reference(q, k, v, causal: bool):
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _bwd_common(q, k, v, g, lse, delta, causal: bool):
+def _bwd_common(q, k, v, g, lse, delta, causal: bool, exact_dp=False):
     """ds = p * (g v^T - delta) (f32, p = 0 where masked), dk and dv f32:
-    what both backward forms compute alike."""
+    what both backward forms compute alike.  With ``exact_dp``, g v^T -
+    delta is formed in f64 and rounded once: where it cancels to nothing
+    (a row with one live key), f32 keeps only its own summation noise,
+    which a kernel that sums in another order cannot match."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     p = torch.exp(s - lse[..., None])
     if causal:
         p = p.masked_fill(~_causal_keep(q.shape[1], q.device), 0.0)
     dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), g.float())
-    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
-    ds = p * (dp - delta[..., None])
+    wide = torch.float64 if exact_dp else torch.float32
+    dp = torch.matmul(g.to(wide), v.to(wide).transpose(-1, -2))
+    ds = p * (dp - delta[..., None].to(wide)).float()
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return ds, dk, dv
 
 
-def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool):
+def flash_bwd_reference(q, k, v, g, lse, delta, causal: bool,
+                        exact_dp=False):
     """-> (dq f32 in q's pre-scaled units, dk in k's dtype, dv in v's)."""
-    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal)
+    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal, exact_dp)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float())
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool):
+def flash_bwd_onepass_reference(q, k, v, g, lse, delta, causal: bool,
+                                exact_dp=False):
     """-> (dq partials f32 (BH, nk, S, D), dk, dv): partial t is
-    ``ds[:, :, k tile t] @ k[k tile t]`` over BLOCK_K-row k tiles (nk =
-    ceil(S / BLOCK_K)), so that their sum is ``flash_bwd_reference``'s dq.  A
-    tile the causal mask kills is exactly 0."""
+    ``ds[:, :, k tile t] @ k[k tile t]`` over k tiles of ``bk =
+    onepass_block_k(D)`` rows (nk = ceil(S / bk)), so that their sum is
+    ``flash_bwd_reference``'s dq.  A tile the causal mask kills is exactly
+    0."""
     bh, s, d = q.shape
-    nk = -(-s // BLOCK_K)
-    pad = nk * BLOCK_K - s
-    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal)
+    bk = onepass_block_k(d)
+    nk = -(-s // bk)
+    pad = nk * bk - s
+    ds, dk, dv = _bwd_common(q, k, v, g, lse, delta, causal, exact_dp)
     ds_tiles = torch.nn.functional.pad(ds.to(k.dtype).float(), (0, pad))
     k_tiles = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
     partials = torch.matmul(
-        ds_tiles.view(bh, s, nk, BLOCK_K).transpose(1, 2),
-        k_tiles.view(bh, nk, BLOCK_K, d))
+        ds_tiles.view(bh, s, nk, bk).transpose(1, 2),
+        k_tiles.view(bh, nk, bk, d))
     return partials, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -242,16 +260,19 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
 
 def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     """Hopper one-pass backward (``csrc/flash_bwd_onepass.cu``), bf16 or
-    f16 -> (dq partials f32 (BH, nk, S, D), dk, dv in k's dtype)."""
+    f16, up to 256 (at 256 64-row k blocks whose consumers split the
+    products, as dk/dv's there) -> (dq partials f32 (BH, nk, S, D), one
+    slot per ``onepass_block_k(D)`` rows of k, dk, dv in k's dtype)."""
     bh, s, d = _check_kernel_args(flash_bwd_onepass_kernel, (q, k, v, g),
                                   (lse, delta))
-    partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
+    bk = onepass_block_k(d)
+    partials = torch.empty(bh, -(-s // bk), s, d, dtype=torch.float32,
                            device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(_lib("flash_bwd_onepass").hvd_flash_bwd_onepass(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, DTYPE_CODES[q.dtype],
+        dv.data_ptr(), bh, s, d, int(causal), bk, DTYPE_CODES[q.dtype],
         _stream(q)), "flash_bwd_onepass_kernel")
     flash_bwd_onepass_kernel.launches += 1
     return partials, dk, dv
@@ -304,16 +325,18 @@ def flash_bwd_dkv_simt_kernel(q, k, v, g, lse, delta, causal: bool):
 
 def flash_bwd_onepass_simt_kernel(q, k, v, g, lse, delta, causal: bool):
     """CUDA-core one-pass backward (``csrc/flash_simt.cu``) -> (dq
-    partials f32 (BH, nk, S, D), dk, dv)."""
+    partials f32 (BH, nk, S, D), one slot per ``onepass_block_k(D)`` rows
+    of k, dk, dv)."""
     bh, s, d, code = _simt_args(flash_bwd_onepass_simt_kernel,
                                 (q, k, v, g), (lse, delta))
-    partials = torch.empty(bh, -(-s // BLOCK_K), s, d, dtype=torch.float32,
+    bk = onepass_block_k(d)
+    partials = torch.empty(bh, -(-s // bk), s, d, dtype=torch.float32,
                            device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _build.check(_lib("flash_simt").hvd_simt_flash_bwd_onepass(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partials.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, s, d, int(causal), BLOCK_K, code, _stream(q)),
+        dv.data_ptr(), bh, s, d, int(causal), bk, code, _stream(q)),
         "flash_bwd_onepass_simt_kernel")
     flash_bwd_onepass_simt_kernel.launches += 1
     return partials, dk, dv
@@ -326,10 +349,10 @@ HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
                 flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS
-# The Hopper forward takes every padded width, dq and dk/dv those up to
-# 256, the one-pass those up to 128.
+# The Hopper forward takes every padded width, dq, dk/dv and the one-pass
+# those up to 256.
 for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
-                                   _HEAD_DIMS[:3])):
+                                   _HEAD_DIMS)):
     _k.widths, _k.dtypes = _w, HOPPER_DTYPES
 for _k in SIMT_KERNELS:
     _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
@@ -351,10 +374,9 @@ def _kernels_for(dtype, width: int):
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes its Hopper kernel where that
     kernel takes the dtype and the width, else its CUDA-core twin: bf16 and
-    f16 at up to 128 run all four on Hopper, at 256 the forward, dq and
-    dk/dv on Hopper and the one-pass backward on the CUDA cores, and past
-    256 the forward on Hopper and the three backward kernels on the CUDA
-    cores; f32 runs all four on the CUDA cores at every width."""
+    f16 at up to 256 run all four on Hopper, and past 256 the forward on
+    Hopper and the three backward kernels on the CUDA cores; f32 runs all
+    four on the CUDA cores at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)

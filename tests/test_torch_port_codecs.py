@@ -622,9 +622,20 @@ def _clean_env(**extra):
 
 def _worlds(out, p: int):
     """Run the reference's p processes and the port's 2p ranks at once:
-    ([reference results by process], [port results by rank])."""
+    ([reference results by process], [port results by rank]).
+
+    The port's ranks meet at a store this process hosts on a port the OS
+    picks while binding it, which every rank joins as a client (torch's
+    agent-store convention, ``TORCHELASTIC_USE_AGENT_STORE``): a port
+    found free and bound later by rank 0 could be taken in between by
+    another world on the machine, and a rank would then meet the wrong
+    store or none.  The reference's coordinator (two nodes only) still
+    binds a port found free."""
     me = os.path.abspath(__file__)
-    ref_port, port = _free_port(), _free_port()
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                       wait_for_workers=False)
+    port = store.port
+    ref_port = _free_port() if p > 1 else 0
     xla = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
                    if "device_count" not in f)
     ref_env = _clean_env(
@@ -636,7 +647,9 @@ def _worlds(out, p: int):
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for c in range(p)]
     procs += [subprocess.Popen([sys.executable, me, "port", str(r), str(p),
-                                str(port), str(out)], env=_clean_env(),
+                                str(port), str(out)],
+                               env=_clean_env(
+                                   TORCHELASTIC_USE_AGENT_STORE="True"),
                                stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT)
               for r in range(2 * p)]
@@ -652,6 +665,7 @@ def _worlds(out, p: int):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        del store
     for proc, log in zip(procs, logs):
         assert proc.returncode == 0, log[-4000:]
     return ([dict(np.load(out / ("reference%d.npz" % c))) for c in range(p)],

@@ -1,10 +1,9 @@
 """f16 on the Hopper dq and dk/dv kernels, and the loss-scaled decoder step.
 
-On the card, f16 at head dims up to 128 runs all four Hopper flash
+On the card, f16 at head dims up to 256 runs all four Hopper flash
 kernels (``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``,
 each templated on bf16 and f16, the element type passed to the C entry as
-a dtype code); at 256 the Hopper forward, dq and dk/dv and the
-CUDA-core one-pass; past 256 the Hopper forward and the CUDA-core
+a dtype code); past 256 the Hopper forward and the CUDA-core
 backward.  Here on the CPU: the route, the wrappers' dtypes and the code each passes to its entry
 (through a stand-in library), ``make_train_step(grad_scaler=)`` on a tiny
 f32 decoder (a power-of-two scale leaves the steps bit for bit, an
@@ -52,11 +51,9 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384])
 def test_f16_route(width):
-    """f16 at up to 128: the four Hopper kernels; at 256 the Hopper
-    forward, dq and dk/dv and the CUDA-core one-pass; past it the Hopper
+    """f16 at up to 256: the four Hopper kernels; past it the Hopper
     forward and the three CUDA-core backward kernels, as bf16 goes."""
-    want = (fa.HOPPER_KERNELS if width <= 128 else
-            fa.HOPPER_KERNELS[:3] + fa.SIMT_KERNELS[3:] if width == 256 else
+    want = (fa.HOPPER_KERNELS if width <= 256 else
             (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:])
     assert fa._kernels_for(torch.float16, width) == want
     assert fa._kernels_for(torch.bfloat16, width) == want

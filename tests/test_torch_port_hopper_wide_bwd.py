@@ -8,11 +8,10 @@ with the other kernels' (``test_torch_port_hopper_wide_fwd.py``,
 take bf16 and f16 at 32, 64, 128 and 256 (at 256 the dq kernel's wide
 plan, 64-row K and V tiles in three ring slots, and a dk/dv kernel of
 64-row k blocks whose two consumers own dV and dK); the Hopper one-pass
-keeps 32, 64 and 128.
-So on the card bf16 and f16 at 256 run the forward, dq and dk/dv on
-Hopper and the one-pass backward on the CUDA cores; past 256 the forward
-on Hopper and the backward on the CUDA cores; f32 all four on the CUDA
-cores.  Here, on the CPU, the wrappers raise on what they do not take
+takes the same widths (``test_torch_port_hopper_wide_onepass.py``).
+So on the card bf16 and f16 at 256 run all four on Hopper; past 256 the
+forward on Hopper and the backward on the CUDA cores; f32 all four on the
+CUDA cores.  Here, on the CPU, the wrappers raise on what they do not take
 before they look at the device, and the plain versions run.
 
 The plain dq, dk and dv at D 256 in f16 (what the kernels compute, and

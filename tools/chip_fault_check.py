@@ -50,13 +50,19 @@ WIDE_BH_D256_SHAPE in bf16 and f16; past 256 with the panel agreement,
 o's panels bit for bit against panel 0's on a V whose later panels copy
 its first); two faults are its own: the last 64-column chunk of Q K^T
 dropped at D 256, and past 256 the panel blocks after panel 0 streaming
-the score chunks in another order (and writing lse).  The Hopper dq and
-dk/dv at D 256 (the dq kernel's wide plan and ``flash_bwd.cu``'s own
-dk/dv kernel, both taking P from ``flash_bwd_kv.cuh``) run at the D 256
-ones of those units, so a fault in either file is held there too; two
-faults are theirs alone and must fail every D 256 unit and nothing else
+the score chunks in another order (and writing lse).  The Hopper dq,
+dk/dv and one-pass at D 256 (the dq kernel's wide plan, and the dk/dv and
+one-pass kernels on ``flash_bwd_kv.cuh``'s ``kv256::kblock_body``) run at
+the D 256 ones of those units, so a fault in any of their sources is held
+there too; six faults are theirs alone and must fail nowhere else
 (``ONLY_AT``): the last 64-column chunk of Q K^T dropped from dq's
-scores, and the last 16 q rows of every tile left out of dK.  The older
+scores, the last 16 q rows of every tile left out of dK (in dk/dv and
+the one-pass), and four in the one-pass's dq partials at 256, which must
+also fail no kernel but the one-pass (``ONLY_KERNEL``): a block's partial
+stored into the next block's slot, dS^T read without consumer 1's
+barrier (a race, held at the decoder's shape), consumer 1's 128 columns
+left unwritten, and a slot's rows above the causal diagonal left
+unwritten.  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
 rows past S, the last q tile, f16 read as bf16) lie in code that both
 widths run, or are planted in both dk/dv kernels.  The first case,
@@ -123,11 +129,11 @@ FAULTS = {
         "  return CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1 - (2 * q0 >= S)) : nk;",
         "forward: the diagonal k tile skipped for q rows in the second half"),
     "dkv_last_q_tile": (
-        (_KV, "flash_bwd.cu"), (_KV_P,) * 2,
-        (_KV_P[:-1] + " * (CAUSAL && 2 * k0 < S && qstart + i + 1 == nq "
-         "? 0.f : 1.f);",) * 2,
-        "dk/dv (both bodies): the last q tile dropped (its P zero) for k "
-        "rows in the first half"),
+        _KV, ("p[e] = " + _KV_P, "st[x] = " + _KV_P),
+        tuple(lhs + _KV_P[:-1] + " * (CAUSAL && 2 * k0 < S && qstart + i + 1 "
+              "== nq ? 0.f : 1.f);" for lhs in ("p[e] = ", "st[x] = ")),
+        "dk/dv and one-pass (both bodies): the last q tile dropped (its P "
+        "zero) for k rows in the first half"),
     "fwd_mask_off_by_one": (
         "flash_fwd.cu",
         "        if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
@@ -177,11 +183,33 @@ FAULTS = {
         "dq at D 256: the last 64-column chunk of Q K^T left out of the "
         "scores"),
     "dkv_d256_dk_last_rows": (
-        "flash_bwd.cu",
+        _KV,
         "      for (int kk = 0; kk < BQ / 16; ++kk) {  // every 16 q rows of the tile",
         "      for (int kk = 0; kk < BQ / 16 - wg; ++kk) {  // every 16 q rows of the tile",
-        "dk/dv at D 256: the last 16 q rows of every q tile left out of dK "
-        "(consumer 1's last k-step)"),
+        "dk/dv and one-pass at D 256: the last 16 q rows of every q tile "
+        "left out of dK (consumer 1's last k-step)"),
+    "onepass_d256_neighbour_slot": (
+        _KV, "        float* out = slot + (size_t)q0 * D + c2;",
+        "        float* out = slot + (size_t)(q0 + S * (kt + 1 < nk)) * D + c2;",
+        "one-pass at D 256: a k block's dq partial stored into the next "
+        "64-row block's slot (the last block's into its own)"),
+    "onepass_d256_ds_before_barrier": (
+        _KV, "        mbar_wait(dsfull, i & 1);",
+        "        if (wg == 1) mbar_wait(dsfull, i & 1);",
+        "one-pass at D 256: consumer 0 reads the dS^T tile without waiting "
+        "for consumer 1's barrier (a race: the last tile's dS, or a half "
+        "written one)"),
+    "onepass_d256_last_chunk": (
+        _KV, "            for (int j = 0; j < PN / 8; ++j)",
+        "            for (int j = 0; j < PN / 8 - 8 * wg; ++j)",
+        "one-pass at D 256: the last 64-column chunk of the dq partial "
+        "(consumer 1's store of columns 192-255) left unwritten"),
+    "onepass_d256_dead_rows": (
+        _KV,
+        "      const size_t dead = (size_t)qstart * BQ * D / 4;  // in float4s",
+        "      const size_t dead = (size_t)0 * BQ * D / 4;  // in float4s",
+        "one-pass at D 256: the rows of a slot above the causal diagonal "
+        "left unwritten"),
     "dq_stale_ring_stage": (
         "flash_bwd.cu",
         "      mbar_wait(&full[jv % SLOTS], (jv / SLOTS) & 1);",
@@ -321,7 +349,7 @@ FAULTS = {
         "  for (int h = 0; h < parts && k0 + h * M < S; ++h)",
         "  for (int h = 0; h < parts - (D > 128) && k0 + h * M < S; ++h)",
         "CUDA-core one-pass at D 256: the last 32-row k tile of each "
-        "128-row slot skipped (its dk, dv unwritten, its partial left out)"),
+        "64-row slot skipped (its dk, dv unwritten, its partial left out)"),
     "dq_f16_read_as_bf16": (
         "flash_bwd.cu",
         "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)",
@@ -437,6 +465,12 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # rows 48-63 in some tile
                 "dq_d256_last_chunk": wide_labels(D256),
                 "dkv_d256_dk_last_rows": wide_labels(D256),
+                # S 64 has one slot: no neighbour, no dead rows
+                "onepass_d256_neighbour_slot": wide_labels(WIDE),
+                # a race: it shows where thousands of blocks run
+                "onepass_d256_ds_before_barrier": wide_labels(WIDE[:1]),
+                "onepass_d256_last_chunk": wide_labels(D256),
+                "onepass_d256_dead_rows": wide_labels(WIDE[:2]),
                 "onepass_dead_tiles_not_zeroed": CAUSAL,
                 "onepass_dead_slot_last_tile": CAUSAL,
                 "onepass_dkv_last_q_tile": ALL,
@@ -451,7 +485,7 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # an identity cast under f32
                 "simt_p_not_cast": simt_labels(SIMT_ALL,
                                                ("float16", "bfloat16")),
-                # every D 256 shape has a slot of four tiles
+                # every D 256 shape has a slot of two 32-row tiles
                 "simt_d256_last_tile": simt_labels(WIDE),
                 # every shape past 256 has three panels or more
                 "simt_wide_panel_skipped": simt_labels(WIDER),
@@ -467,9 +501,16 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # thousands of rows hold thousands of keys: the decoder's
                 # shape, not the ragged ones
                 "fwd_wide_panel_chunk_order": wide_labels(WIDER[:1])}
-# Faults that must fail nowhere but at these units: the D 256 code's own.
+# Faults that must fail nowhere but at these units: the D 256 code's own;
+# the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
-           "dkv_d256_dk_last_rows": wide_labels(D256)}
+           "dkv_d256_dk_last_rows": wide_labels(D256),
+           "onepass_d256_neighbour_slot": wide_labels(D256),
+           "onepass_d256_ds_before_barrier": wide_labels(D256),
+           "onepass_d256_last_chunk": wide_labels(D256),
+           "onepass_d256_dead_rows": wide_labels(D256)}
+ONLY_KERNEL = {name: "flash_bwd_onepass" for name in ONLY_AT
+               if name.startswith("onepass_d256")}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -489,7 +530,7 @@ SIMT_SOURCE = "flash_simt.cu"
 # body's) also at those units.
 F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
                "sm90.cuh"}
-WIDE_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "sm90.cuh"}
+WIDE_SOURCES = F16_SOURCES
 
 
 def fault_sources(fault):
@@ -627,10 +668,11 @@ def run_case(name, fault, labels, units=None):
     return readings, died
 
 
-def check_family(readings, labels):
+def check_family(readings, labels, failed_kernels=None):
     """Print each kernel output's readings at ``labels``; -> (the labels
     where an output is past its limit, whether an output would also fail
-    the max-scaled rule)."""
+    the max-scaled rule).  The kernels with an output past its limit are
+    added to ``failed_kernels`` when given."""
     failed_at, max_rule_fail = set(), False
     for label in labels:
         if label not in readings:
@@ -641,6 +683,8 @@ def check_family(readings, labels):
                 max_rule_fail |= not e["max_abs_err"] <= max_rule
                 if not e["worst"] <= 1.0:
                     failed_at.add(label)
+                    if failed_kernels is not None:
+                        failed_kernels.add(kern)
                 print("  %s %s at %s: worst %.4g, max abs err %.4g, "
                       "max-scaled limit %.4g" % (kern, out, label, e["worst"],
                                                  e["max_abs_err"], max_rule))
@@ -744,8 +788,9 @@ def main(argv) -> int:
         flash_at, flash_max = check_family(readings, flash_labels)
         bn_at, bn_max = check_family(readings, bn_labels)
         simt_at, _ = check_family(readings, simt_labels_)
+        failed_kernels = set()
         f16_at, _ = check_family(readings, f16_labels_)
-        wide_at, _ = check_family(readings, wide_labels_)
+        wide_at, _ = check_family(readings, wide_labels_, failed_kernels)
         flash_at |= cuda_deaths & set(flash_labels)
         f16_at |= cuda_deaths & set(f16_labels_)
         wide_at |= cuda_deaths & set(wide_labels_)
@@ -801,6 +846,12 @@ def main(argv) -> int:
                 if stray:
                     print("  FAILED OUTSIDE its units at: %s"
                           % ", ".join(sorted(stray)))
+            if name in ONLY_KERNEL:
+                others = failed_kernels - {ONLY_KERNEL[name]}
+                ok &= not others
+                print("  kernels failing at its units: %s%s" % (
+                    ", ".join(sorted(failed_kernels)) or "none",
+                    "; FAILED OUTSIDE its kernel" if others else ""))
     shutil.rmtree(WORK, ignore_errors=True)
     print("fault check: %s" % ("ok" if ok else "FAILED"))
     return 0 if ok else 1

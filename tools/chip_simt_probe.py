@@ -5,8 +5,9 @@
 (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) in f16 and
 bf16, on one GPU.
 
-    python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--sdpa-kernels]
-                                     [--watchdog] [--head-major]
+    python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wide-onepass]
+                                     [--sdpa-kernels] [--watchdog]
+                                     [--head-major]
     python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
 
 Builds the kernels, prints the card, the build time and ``nvcc``'s
@@ -30,6 +31,13 @@ ms of the Hopper forward, its CUDA-core twin and SDPA (20 calls each).
 WIDE_HEAD_SHAPES and WIDE_BH_D256_SHAPE (``worst`` against chip_smoke's
 Hopper limits), and at the decoder's shape at 256 the device ms of each,
 its CUDA-core twin and SDPA's whole backward (20 calls each).
+``--wide-onepass`` probes the Hopper one-pass at head dim 256 alone (64-row
+partial slots): ``flash_bwd_onepass.cu``'s report, its readings in bf16
+and f16 at WIDE_HEAD_SHAPES and WIDE_BH_D256_SHAPE (``worst`` against
+chip_smoke's Hopper limits, the partials in a NaN-poisoned block), and at
+the decoder's shape at 256 the device ms of the kernel, of the kernel
+with the partials' sum (``flash_bwd`` under ``pallas_onepass``), of its
+CUDA-core twin and of SDPA's whole backward.
 ``--sdpa-kernels`` names the kernels that the yardstick, SDPA (forward
 and backward, one call each under ``torch.profiler``), launches in f32
 and bf16 at the decoder's shape at head dims 128 and 256, with their
@@ -173,6 +181,49 @@ def wide_bwd(cs, fa, torch):
         torch.cuda.empty_cache()
 
 
+def wide_onepass(cs, fa, torch):
+    """The Hopper one-pass at 256: readings, then times beside the
+    variant with the partials' sum, its CUDA-core twin and SDPA's
+    backward."""
+    import torch.nn.functional as F
+    for dtype in ("bfloat16", "float16"):
+        for bh, s, d, causal in (list(cs.WIDE_HEAD_SHAPES)
+                                 + [cs.WIDE_BH_D256_SHAPE]):
+            errs, poisoned, _, _ = cs.kernel_errors(
+                fa, *cs.kernel_inputs(bh, s, d, dtype), causal)
+            torch.cuda.synchronize()
+            print("hopper", dtype, cs.shape_label(bh, s, d, causal),
+                  "poisoned", poisoned,
+                  json.dumps({o: {k: float("%.3g" % x) for k, x in e.items()}
+                              for o, e in errs["flash_bwd_onepass"].items()}),
+                  flush=True)
+            torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float16"):
+        bh, s, d, causal = cs.WIDE_HEAD_SHAPES[0]
+        q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
+        o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, causal)
+        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=1.0)
+        do4 = do.view(1, bh, s, d)
+        times = {"onepass": cs.time_ms(
+            lambda: fa.flash_bwd_onepass_kernel(*bwd), reps=20)}
+        with cs.flash_bwd_env("pallas_onepass"):
+            times["onepass_and_sum"] = cs.time_ms(lambda: fa.flash_bwd(*bwd),
+                                                  reps=20)
+        times["onepass_simt"] = cs.time_ms(
+            lambda: fa.flash_bwd_onepass_simt_kernel(*bwd), reps=3)
+        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+        print("times one-pass", dtype, cs.shape_label(bh, s, d, causal),
+              times, flush=True)
+        del q, k, v, do, o, q4, k4, v4, out4, do4, bwd
+        torch.cuda.empty_cache()
+
+
 def narrow_bwd(cs, fa, torch):
     """The Hopper backward kernels up to D 128: device ms, nothing else
     (every name used here is in the trees it compares)."""
@@ -266,14 +317,14 @@ def main(argv) -> int:
         print("tree", repo, flush=True)
         narrow_bwd(cs, fa, torch)
         return 0
-    wide = [a for a in ("--wide-fwd", "--wide-bwd") if a in argv]
-    for src in ([{"--wide-fwd": "flash_fwd", "--wide-bwd": "flash_bwd"}[a]
-                 for a in wide] or SOURCES):
+    wide = {"--wide-fwd": ("flash_fwd", wide_fwd),
+            "--wide-bwd": ("flash_bwd", wide_bwd),
+            "--wide-onepass": ("flash_bwd_onepass", wide_onepass)}
+    wide = [wide[a] for a in wide if a in argv]
+    for src in [src for src, _ in wide] or SOURCES:
         cs.print_ptxas((_build.build_dir() / ("%s.log" % src)).read_text())
-    if "--wide-fwd" in argv:
-        wide_fwd(cs, fa, torch)
-    if "--wide-bwd" in argv:
-        wide_bwd(cs, fa, torch)
+    for _, probe in wide:
+        probe(cs, fa, torch)
     if wide:
         return 0
     # Readings, not verdicts: no limit.

@@ -35,7 +35,11 @@
    and the two ragged ones at 640 (128-column panels), and untimed at
    BH 65,600,
    against SDPA in the same dtype (f16 and bf16 outputs also by the share
-   of elements off the plain version's); the
+   of elements off the plain version's); the f32 forward on Hopper
+   (``csrc/flash_fwd_f32.cu``, split TF32) at the same shapes as those
+   twins and untimed at BH 65,600, under their f32 limits, past 256 also
+   with o's panels bit for bit on a V whose panels repeat, against SDPA
+   in f32; the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
    word-embedding gradient, three coefficient pairs and three dtypes,
    aligned and offset by one element, with an inf and a NaN and with
@@ -49,9 +53,11 @@
    backward),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
-   decoder at dtype float32 (the CUDA-core kernels) trained 3 Adam steps
-   through ``make_train_step`` on a one-rank world under each backward
-   choice, against the same steps in f32 on the CPU.
+   decoder at dtype float32 (the Hopper f32 forward, the CUDA-core
+   backward) with 2 heads of 128, of 192 (padded to 256) and of 320
+   (padded to 384), trained 3 Adam steps (one step past 128) through
+   ``make_train_step`` on a one-rank world under each backward choice,
+   against the same steps in f32 on the CPU.
 4. The main paths, each run with every launch count set to 0 just
    before it and read just after, from numpy seeds at full width and
    depth.  Through ``hvd.init()`` (a one-rank NCCL world),
@@ -86,11 +92,12 @@
    the plain attention path on the card, then 5 more steps timed (under
    each choice for BERT and the hd256 decoder).  Between the decoder and
    ResNet-50, the main path
-   of the CUDA-core kernels: the decoder at the same width and depth at
-   dtype float32, one step through ``make_train_step`` under each
-   backward choice from the same weights (flash forward 2 x 12 launches,
-   dq, dk/dv and one-pass 12 each), each step's loss and gradients
-   against the same model's on the plain attention path on the card.
+   of the f32 kernels: the decoder at the same width and depth at dtype
+   float32, one step through ``make_train_step`` under each backward
+   choice from the same weights (the Hopper f32 forward 2 x 12 launches,
+   the CUDA-core forward none; the CUDA-core dq, dk/dv and one-pass 12
+   each), each step's loss and gradients against the same model's on the
+   plain attention path on the card.
    Then BERT-Large Adasum fine-tuning, the in-process
    form of Adasum allreduce: the gradients of four 8-row shards of the
    same batch 32, one after another, stacked and reduced by
@@ -148,9 +155,10 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (twenty-two: the thirteen
+5. Prints one JSON line of kernel records (twenty-five: the thirteen
    kernels, the f16 forms of the four Hopper ones, the Hopper forward at
-   D 256 and at D 384, and the Hopper dq, dk/dv and one-pass at D 256),
+   D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256, and the
+   f32 forward on Hopper at D 128, 256 and 384),
    then as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -170,6 +178,10 @@ import traceback
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores
+# TF32 products per f32 product in the split-TF32 f32 forward
+# (csrc/flash_fwd_f32.cu: a_lo b_hi + a_hi b_lo + a_hi b_hi)
+SPLIT_TF32_TERMS = 3
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Each kernel output against its plain version, element by element:
 #   |got - plain| <= rtol * |plain| + atol * scale(plain's row)
@@ -237,7 +249,8 @@ F16_OFF_SHARE = 2 ** -6
 # ragged full shape (64-row one-pass slots, the last partly past S: 2 rows
 # of S 130's third, 8 of S 200's fourth; two 32-row tiles each on the CUDA
 # cores).  All four run on Hopper in bf16 and f16 (64-row k tiles; dk/dv
-# and the one-pass 64-row k blocks), and on the CUDA cores in f32.
+# and the one-pass 64-row k blocks); in f32 the forward on Hopper (split
+# TF32, two 128-column panels) and the backward on the CUDA cores.
 WIDE_HEAD_SHAPES = ((32, 2048, 256, True), (2, 130, 256, True),
                     (4, 200, 256, False))
 # Past 256 (any head dim, padded to a multiple of 128) the CUDA-core
@@ -254,6 +267,12 @@ WIDER_HEAD_SHAPES = ((32, 2048, 384, True), (2, 130, 384, True),
                      (4, 200, 640, False))
 SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
                + WIDER_HEAD_SHAPES)
+# The f32 forward on Hopper (``flash_fwd_f32_kernel``, split TF32) against
+# the f32 plain version at the CUDA-core twins' shapes under their f32
+# limits (SIMT_TOL["float32"]: each product within about 2^-19 of its f32
+# value, the rest the order of f32 sums), untimed at WIDE_BH_SHAPE, and
+# past 256 also held to itself panel against panel (``panel_agreement``).
+F32_FWD_SHAPES = SIMT_SHAPES
 # The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
 # family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
 # max), and untimed at WIDE_BH_SHAPE's BH and S at D 256; at D 256 (the
@@ -275,12 +294,22 @@ WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 # 128-column panels).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
-# The small decoder at dtype float32 (the CUDA-core flash kernels) trained
-# on the card through make_train_step (Adam, a one-rank world) against
-# the same steps in f32 on the CPU (plain versions, torch.optim.Adam):
-# each step's loss and the last step's gradients, relative, under each
-# backward choice.  f32 on both sides: summation order only.
+# The small decoder at dtype float32 (the Hopper f32 forward, the CUDA-core
+# backward kernels) trained on the card through make_train_step (Adam, a
+# one-rank world) against the same steps in f32 on the CPU (plain
+# versions, torch.optim.Adam): each step's loss and the last step's
+# gradients, relative, under each backward choice.  f32 on both sides:
+# summation order and the split-TF32 products' 2^-19.  At 2 heads of 128
+# F32_STEPS steps; at 2 heads of 192 (padded to 256) and of 320 (padded to
+# 384: three O panels) one step, whose loss and gradients are the
+# kernels' alone: Adam's first step moves each weight by lr times the
+# sign of its gradient, so an element whose gradient is near zero moves
+# the other way under any rounding difference, and by the third step
+# those flips, not the kernels, set the worst leaf (at 320 it read
+# 1.43e-4 and 1.45e-4 on the card, with every f32 forward reading at most
+# 0.55 of its limits in phase 2).
 F32_STEPS = 3
+F32_HEAD_DIMS = (128, 192, 320)
 F32_LOSS_TOL, F32_LEAF_TOL = 1e-5, 1e-4
 # The decoder flagship's width and depth at dtype float32: one step under
 # each backward choice from the same weights, through make_train_step,
@@ -467,12 +496,14 @@ def compare(got, want, rtol, atol):
 
 
 def flash_kernels(fa, dtype, family="hopper", width=128):
-    """FLASH_KERNELS' wrappers of ``family`` ("hopper" or "simt", the
-    CUDA-core twins) that take inputs of ``dtype`` at head dim ``width``:
-    the four Hopper ones in bf16 and f16 up to 256 and the forward alone
-    past it, the four CUDA-core ones in any dtype."""
+    """FLASH_KERNELS' wrappers of ``family`` ("hopper", "simt", the
+    CUDA-core twins, or "hopper_f32", the f32 forward on Hopper) that take
+    inputs of ``dtype`` at head dim ``width``: the four Hopper ones in bf16
+    and f16 up to 256 and the forward alone past it, the four CUDA-core
+    ones in any dtype, the f32 forward in f32 at every padded width."""
     import torch
-    kernels = fa.HOPPER_KERNELS if family == "hopper" else fa.SIMT_KERNELS
+    kernels = {"hopper": fa.HOPPER_KERNELS, "simt": fa.SIMT_KERNELS,
+               "hopper_f32": fa.F32_KERNELS}[family]
     return {name: k for name, k in zip(FLASH_KERNELS, kernels)
             if getattr(torch, dtype) in k.dtypes and width in k.widths}
 
@@ -480,7 +511,7 @@ def flash_kernels(fa, dtype, family="hopper", width=128):
 def flash_tol(dtype, family="hopper"):
     """(rtol, atol) per output for ``family``'s kernels on inputs of
     ``dtype``."""
-    if family == "simt":
+    if family in ("simt", "hopper_f32"):
         return dict.fromkeys(KERNEL_TOL, SIMT_TOL[dtype])
     return KERNEL_TOL if dtype == "bfloat16" else F16_HOPPER_TOL
 
@@ -489,8 +520,9 @@ def dtype_name(t) -> str:
     return str(t.dtype).split(".")[-1]
 
 
-def panel_agreement(fa, q, k, v, causal):
-    """The Hopper forward past 256 against itself: v's columns from 256 on
+def panel_agreement(fwd, q, k, v, causal):
+    """A Hopper forward past 256 (``fwd``) against itself: v's columns from
+    256 on
     replaced by copies of its first ones (panel z's column j is column j
     of panel 0), so every O panel block must give o's columns bit for bit
     as panel 0's block does, which it does only when all of them formed
@@ -499,7 +531,7 @@ def panel_agreement(fa, q, k, v, causal):
     import torch
     width, n = v.shape[-1], -(-v.shape[-1] // 256)
     v = torch.cat([v[..., :256]] * n, -1)[..., :width].contiguous()
-    o, _ = fa.flash_fwd_kernel(q, k, v, causal)
+    o, _ = fwd(q, k, v, causal)
     base = torch.cat([o[..., :256]] * n, -1)[..., :width]
     off = (o != base).sum().item()
     return {"max_abs_err": (o.float() - base.float()).abs().max().item(),
@@ -509,7 +541,7 @@ def panel_agreement(fa, q, k, v, causal):
 
 def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     """The outputs of each of ``family``'s kernels that take the inputs'
-    dtype and width against its plain version on the same inputs (and the
+    dtype and width against its plain version on the same inputs (and a
     Hopper forward past 256 against itself, ``panel_agreement``, as its
     output "panels"): ({kernel: {output: compare(...)}}, whether the
     one-pass partials landed in a NaN-poisoned block, None where the
@@ -553,8 +585,9 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     errs = {name: {out: compare(got, want, *tol[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
-    if family == "hopper" and q.shape[-1] > 256:
-        errs["flash_fwd"]["panels"] = panel_agreement(fa, q, k, v, causal)
+    if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
+        errs["flash_fwd"]["panels"] = panel_agreement(kern["flash_fwd"], q, k,
+                                                      v, causal)
     if family == "simt":
         for name, outs in outputs.items():
             for out, (got, want) in outs.items():
@@ -618,14 +651,17 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
     record per kernel, whose ``launches`` counts this check's launches
     (not the main path's), and the variants' times (empty without
     backward kernels).  Bounds: bf16 and f16 at the tensor cores' 989
-    TFLOP/s, f32 at the CUDA cores' 67 (exact f32 products are not
-    tensor-core work); the forward's is the function's (4 d FLOP a live
-    pair), whatever the kernel recomputes."""
+    TFLOP/s; f32 on the CUDA cores at their 67; the f32 forward on Hopper
+    at the TF32 tensor cores' 495 for its SPLIT_TF32_TERMS TF32 products
+    per f32 one (the least time for the f32 function on this card: an
+    exact f32 product is not tensor-core work); the forward's is the
+    function's (4 d FLOP a live pair), whatever the kernel recomputes."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d, dtype)
     wrappers = flash_kernels(fa, dtype, family, d)
-    peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    peak = (PEAK_TF32_FLOPS / SPLIT_TF32_TERMS if family == "hopper_f32"
+            else PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS)
     fa.reset_launch_counts()
     errs, lse_ref, delta = held_errors(fa, q, k, v, do, causal,
                                        shape_label(bh, s, d, causal), family)
@@ -690,12 +726,14 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
 def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
     """``family``'s flash kernels for ``dtype`` at their shapes (on Hopper
     FLASH_SHAPES, and HOPPER_FWD_SHAPES for the forward; SIMT_SHAPES on
-    the CUDA cores) -> {shape: records}, then held at WIDE_BH_SHAPE (on
-    Hopper also at WIDE_BH_D256_SHAPE)."""
+    the CUDA cores; F32_FWD_SHAPES for the f32 forward on Hopper) ->
+    {shape: records}, then held at WIDE_BH_SHAPE (on Hopper also at
+    WIDE_BH_D256_SHAPE)."""
     import torch
     out = {}
     hopper = family == "hopper"
-    shapes = FLASH_SHAPES + HOPPER_FWD_SHAPES if hopper else SIMT_SHAPES
+    shapes = {"hopper": FLASH_SHAPES + HOPPER_FWD_SHAPES,
+              "simt": SIMT_SHAPES, "hopper_f32": F32_FWD_SHAPES}[family]
     for bh, s, d, causal in shapes:
         label = "%s %s %s" % (shape_label(bh, s, d, causal), dtype, family)
         records, variants = check_kernels(fa, bh, s, d, causal, dtype,
@@ -750,23 +788,34 @@ def model_errors(head_dim=128):
 
 
 def train_f32_decoder(torch):
-    """The CUDA-core kernels' main path: the small decoder (2 heads of 128,
-    2 layers) at dtype float32 takes F32_STEPS Adam steps through
+    """The f32 kernels' main path at small size: the small decoder (2
+    heads of each of F32_HEAD_DIMS, 2 layers) at dtype float32 takes
+    Adam steps (F32_STEPS at 128, one past it) through
     ``make_train_step`` on a one-rank world on the card, under each
     backward choice, and the same steps run in f32 on the CPU; every
-    launch count set to 0 just before, read just after -> the counts."""
+    launch count set to 0 just before each head dim's steps, read just
+    after -> {head_dim: counts}."""
     import horovod_tpu_torch as hvd
+    hvd.init()
+    counts = {hd: f32_decoder_steps(torch, hd) for hd in F32_HEAD_DIMS}
+    hvd.shutdown()
+    return counts
+
+
+def f32_decoder_steps(torch, head_dim):
+    """``train_f32_decoder``'s steps at one head dim (in a world already
+    initialised) -> the launch counts."""
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.train import make_train_step, synthetic_batch
 
-    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+    cfg = TransformerConfig(vocab_size=512, d_model=2 * head_dim, n_layers=2,
                             n_heads=2, n_kv_heads=1, d_ff=512, max_seq=256,
                             dtype="float32", logits_dtype="f32")
     params, batch = init_params(cfg, seed=1), synthetic_batch(cfg, 2, seed=1)
     adam = lambda ps: torch.optim.Adam(ps, 1e-3)  # noqa: E731
-    hvd.init()
+    steps = F32_STEPS if head_dim == 128 else 1
     fa.reset_launch_counts()
     bad = []
     for choice in ("pallas", "pallas_onepass"):
@@ -774,12 +823,12 @@ def train_f32_decoder(torch):
             build, shard_batch = make_train_step(cfg, adam)
             step, model, _ = build(params)
             data = shard_batch(batch)
-            card = [step(data).item() for _ in range(F32_STEPS)]
+            card = [step(data).item() for _ in range(steps)]
             ref = params_from_jax(params, cfg, "cpu")
             opt = adam(ref.parameters())
             b = {k: torch.as_tensor(v) for k, v in batch.items()}
             cpu = []
-            for _ in range(F32_STEPS):
+            for _ in range(steps):
                 opt.zero_grad()
                 loss = loss_fn(ref, b)
                 loss.backward()
@@ -790,31 +839,34 @@ def train_f32_decoder(torch):
         leaves = {n: ((got[n].grad.cpu() - p.grad).norm() / p.grad.norm())
                   .item() for n, p in ref.named_parameters()}
         worst = max(leaves, key=leaves.get)
-        say("f32 decoder training (%s): %d Adam steps on the card against the "
-            "CPU, loss relative errors %s (tol %.3g); last step's gradients' "
-            "relative norm error: worst %s %.3g (tol %.3g)"
-            % (choice, F32_STEPS, ["%.3g" % e for e in losses], F32_LOSS_TOL,
-               worst, leaves[worst], F32_LEAF_TOL))
+        say("f32 decoder training (head_dim %d, %s): %d Adam steps on the "
+            "card against the CPU, loss relative errors %s (tol %.3g); last "
+            "step's gradients' relative norm error: worst %s %.3g (tol %.3g)"
+            % (head_dim, choice, steps, ["%.3g" % e for e in losses],
+               F32_LOSS_TOL, worst, leaves[worst], F32_LEAF_TOL))
         if max(losses) > F32_LOSS_TOL or leaves[worst] > F32_LEAF_TOL:
             bad.append(choice)
     counts = fa.launch_counts()
-    hvd.shutdown()
-    say("launches on the f32 decoder path: %s" % counts)
-    n = cfg.n_layers * F32_STEPS
-    check_counts(counts, {"flash_fwd_simt_kernel": 2 * n,
+    say("launches on the f32 decoder path (head_dim %d): %s"
+        % (head_dim, counts))
+    n = cfg.n_layers * steps
+    check_counts(counts, {"flash_fwd_f32_kernel": 2 * n,
+                          "flash_fwd_simt_kernel": 0,
                           "flash_bwd_dq_simt_kernel": n,
                           "flash_bwd_dkv_simt_kernel": n,
                           "flash_bwd_onepass_simt_kernel": n})
     if bad:
-        raise AssertionError("the f32 decoder on the card disagrees with the "
-                             "CPU under %s" % bad)
+        raise AssertionError("the f32 decoder (head_dim %d) on the card "
+                             "disagrees with the CPU under %s"
+                             % (head_dim, bad))
     return counts
 
 
 def train_f32_flagship(torch):
-    """The CUDA-core kernels' main path at the decoder flagship's width
-    (bench.py:86-91, as ``train_flagship``) in float32: every launch count
-    set to 0 just before its two steps, read just after -> the counts."""
+    """The f32 kernels' main path at the decoder flagship's width
+    (bench.py:86-91, as ``train_flagship``) in float32, the Hopper f32
+    forward and the CUDA-core backward: every launch count set to 0 just
+    before its two steps, read just after -> the counts."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
@@ -875,7 +927,8 @@ def train_f32_flagship(torch):
     counts = fa.launch_counts()
     hvd.shutdown()
     say("launches on the f32 flagship path (2 steps): %s" % counts)
-    check_counts(counts, {"flash_fwd_simt_kernel": 2 * L,
+    check_counts(counts, {"flash_fwd_f32_kernel": 2 * L,
+                          "flash_fwd_simt_kernel": 0,
                           "flash_bwd_dq_simt_kernel": L,
                           "flash_bwd_dkv_simt_kernel": L,
                           "flash_bwd_onepass_simt_kernel": L})
@@ -1261,6 +1314,8 @@ def print_ptxas(text: str):
             # the CUDA-core ones: <type, D, causal, panels past 256>
             t = re.search(r"hvdsimt\d+(\w+?)I(%s)Li(\d+)ELb(\d)ELb(\d)E"
                           % _TYPES, name)
+            # the f32 forward on Hopper: <panel width W, causal>
+            f = re.search(r"hvdf32\d+(\w+?)ILi(\d+)ELb(\d)E", name)
             b = re.search(r"hvdbn\d+(bn_\w+?_kernel)", name)
             if b:
                 regs = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -1272,7 +1327,7 @@ def print_ptxas(text: str):
                     k.group(1), _type_name(k.group(2)), *k.groups()[2:])
                     if k else "simt %s<%s, %s, %s, %s>" % (
                         t.group(1), _type_name(t.group(2)), *t.groups()[2:])
-                    if t else name)
+                    if t else "%s<%s, %s>" % f.groups() if f else name)
                 say("  ptxas %-26s %s; %s" % (
                     label, line.split(":", 1)[-1].strip(), spills))
             name = None
@@ -3252,6 +3307,7 @@ def main() -> int:
     flash16 = check_flash_kernels(fa, "float16")
     simt = {dtype: check_flash_kernels(fa, dtype, "simt")
             for dtype in SIMT_DTYPES}
+    f32fwd = check_flash_kernels(fa, "float32", "hopper_f32")
     bn_err, bn_shape_times = check_bn_kernels(bn)
     ss_records = check_scale_sum_kernel(ss)
 
@@ -3259,7 +3315,7 @@ def main() -> int:
     model_counts = check_model()
     check_resnet_model()
     check_bert_model()
-    train_f32_decoder(torch)
+    f32_counts = train_f32_decoder(torch)
 
     # -- 4: the main paths, each with every count set to 0 just before
     with flash_bwd_env("pallas"):
@@ -3412,7 +3468,20 @@ def main() -> int:
                 shape_label(*WIDE_HEAD_SHAPES[0]),
                 hd256_counts["pallas"]["flash_bwd_dq_kernel"],
                 hd256_counts["pallas"]["flash_bwd_dkv_kernel"],
-                hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"]))
+                hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"])
+        + "; flash_fwd_f32, flash_fwd_f32_d256 and flash_fwd_f32_d384 (the "
+        "f32 forward on Hopper, split TF32) held at %s and %s (phase 2; their "
+        "records at %s, %s and %s, SDPA in f32 their library_ms, their bound "
+        "%d TF32 products an f32 one at 495 TFLOP/s), launched %d times in "
+        "the f32 decoder flagship's two steps (phase 4) and %d and %d times "
+        "in the small f32 decoder at head_dim 192 and 320 (phase 3)" % (
+            ", ".join(shape_label(*s) for s in F32_FWD_SHAPES),
+            shape_label(*WIDE_BH_SHAPE), shape_label(*DECODER_SHAPE),
+            shape_label(*WIDE_HEAD_SHAPES[0]),
+            shape_label(*WIDER_HEAD_SHAPES[0]), SPLIT_TF32_TERMS,
+            simt_counts["flash_fwd_f32_kernel"],
+            f32_counts[192]["flash_fwd_f32_kernel"],
+            f32_counts[320]["flash_fwd_f32_kernel"]))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -3438,6 +3507,24 @@ def main() -> int:
         out.append({"name": name + "_simt", "route": "cuda",
                     "source": "horovod_tpu_torch/csrc/flash_simt.cu",
                     "replaces": replaces, "launches": simt_counts[wrapper],
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"]})
+    # The f32 forward on Hopper: at the decoder's shape its launches in the
+    # f32 flagship's two steps, at 256 and 384 in the small f32 decoder at
+    # head_dim 192 and 320 (phase 3; no phase-4 path runs f32 past 128).
+    for name, shape, launches in (
+            ("flash_fwd_f32", DECODER_SHAPE,
+             simt_counts["flash_fwd_f32_kernel"]),
+            ("flash_fwd_f32_d256", WIDE_HEAD_SHAPES[0],
+             f32_counts[192]["flash_fwd_f32_kernel"]),
+            ("flash_fwd_f32_d384", WIDER_HEAD_SHAPES[0],
+             f32_counts[320]["flash_fwd_f32_kernel"])):
+        rec = f32fwd[shape]["flash_fwd"]
+        out.append({"name": name, "route": "cuda",
+                    "source": "horovod_tpu_torch/csrc/flash_fwd_f32.cu",
+                    "replaces": sources["flash_fwd"][1], "launches": launches,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],

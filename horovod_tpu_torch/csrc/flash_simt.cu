@@ -1,7 +1,9 @@
 // Flash attention in float32, float16 and bfloat16 on the CUDA cores
 // (sm_90a): the four flash kernels of flash_fwd.cu, flash_bwd.cu and
-// flash_bwd_onepass.cu for what the Hopper versions do not take: f32 at
-// any width, and the backward in every dtype past head dim 256.
+// flash_bwd_onepass.cu for what the Hopper versions do not take: the
+// backward in f32 at any width and in every dtype past head dim 256.  The
+// forward (f32 on Hopper since flash_fwd_f32.cu, split TF32) runs on no
+// route; it stays built as a second reference the card's checks hold.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_attn_kernel (via
 // _flash_attention_fwd_flat), _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel
@@ -19,11 +21,12 @@
 // partials f32, one (S, W) slot per 128 rows of k (per 64 at D 256, as the
 // Hopper one-pass there), a slot the causal mask kills all zeros.  No conversion flushes an f16 subnormal to zero.
 //
-// Bound on the H100 SXM: operations.  Exact f32 products are not tensor-core
-// work (TF32 keeps about three decimal digits and would no longer compute
-// the f32 function), so f32 is held to the 67 TFLOP/s of the CUDA cores: at
-// the decoder's shape (BH 32, S 2048, D 128, causal) the forward's 34.4
-// GFLOP take 0.51 ms, against 134 MB of f32 tensors (0.04 ms at 3.35 TB/s).
+// Bound on the H100 SXM: operations.  This design forms each f32 product
+// exactly on the CUDA cores, at their 67 TFLOP/s (one TF32 product keeps
+// about three decimal digits; split TF32, three of them, is what
+// flash_fwd_f32.cu does on the tensor cores): at the decoder's shape (BH
+// 32, S 2048, D 128, causal) the forward's 34.4 GFLOP take 0.51 ms,
+// against 134 MB of f32 tensors (0.04 ms at 3.35 TB/s).
 // f16 and bf16 run the same CUDA-core code, so their bound against the
 // card's tensor-core peak is far below what this design can reach.
 //

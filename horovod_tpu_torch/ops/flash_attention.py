@@ -28,10 +28,12 @@ raise on anything they do not take.  The Hopper kernels take bf16 and
 f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
 128, 256 and every multiple of 128 past 256), dq and dk/dv
 (``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
-at 32, 64, 128 and 256.  Their CUDA-core twins (``csrc/flash_simt.cu``,
-``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
-whatever the Hopper kernels do not: f32, and the three backward kernels
-in every dtype past 256.  Any other dtype raises.
+at 32, 64, 128 and 256; and f32: the forward in split TF32
+(``csrc/flash_fwd_f32.cu``, ``flash_fwd_f32_kernel``) at every padded
+width.  Their CUDA-core twins (``csrc/flash_simt.cu``, ``*_simt_kernel``)
+take f32, f16 and bf16 at every padded width, and run whatever the Hopper
+kernels do not: the three backward kernels in f32, and in every dtype
+past 256.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ _SIGNATURES = {
     "flash_bwd": {"hvd_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P]},
     "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
+    "flash_fwd_f32": {"hvd_flash_fwd_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
@@ -278,6 +281,38 @@ def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     return partials, dk, dv
 
 
+def f32_vt(v):
+    """(BH, S, D) f32 v -> (BH, D, S8) contiguous, what the f32 forward
+    reads as V: V^T (keys contiguous: TF32 products take both operands
+    K-major), S zero-padded to S8, the next multiple of 8, and the keys of
+    each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (column 8 j + 4 h
+    + c holds key 8 j + 2 c + h), so that the kernel's P goes from its
+    score registers to the PV product's TF32 operand with no shuffle
+    (``csrc/flash_fwd_f32.cu``, trap 2)."""
+    bh, s, d = v.shape
+    s8 = -(-s // 8) * 8
+    vp = v if s8 == s else torch.nn.functional.pad(v, (0, 0, 0, s8 - s))
+    return vp.view(bh, s8 // 8, 4, 2, d).permute(0, 4, 1, 3, 2).reshape(
+        bh, d, s8)
+
+
+def flash_fwd_f32_kernel(q, k, v, causal: bool):
+    """Hopper forward in f32 (``csrc/flash_fwd_f32.cu``, split-TF32
+    ``wgmma``) at every padded width, from 256 on one block per
+    128-column panel of o; V goes in as ``f32_vt(v)``, whose time is the
+    call's -> (o f32, lse f32)."""
+    bh, s, d = _check_kernel_args(flash_fwd_f32_kernel, (q, k, v))
+    vt = f32_vt(v)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    _build.check(_lib("flash_fwd_f32").hvd_flash_fwd_f32(
+        q.data_ptr(), k.data_ptr(), vt.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, s, d, int(causal), _stream(q)),
+        "flash_fwd_f32_kernel")
+    flash_fwd_f32_kernel.launches += 1
+    return o, lse
+
+
 def _simt_args(kernel, flat, rows=()):
     bh, s, d = _check_kernel_args(kernel, flat, rows)
     return bh, s, d, DTYPE_CODES[flat[0].dtype]
@@ -348,7 +383,9 @@ HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
                   flash_bwd_onepass_kernel)
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
                 flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
-KERNELS = HOPPER_KERNELS + SIMT_KERNELS
+# The f32 forward on Hopper, the forward step's first choice in f32.
+F32_KERNELS = (flash_fwd_f32_kernel,)
+KERNELS = HOPPER_KERNELS + SIMT_KERNELS + F32_KERNELS
 # The Hopper forward takes every padded width, dq, dk/dv and the one-pass
 # those up to 256.
 for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
@@ -356,6 +393,8 @@ for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
     _k.widths, _k.dtypes = _w, HOPPER_DTYPES
 for _k in SIMT_KERNELS:
     _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
+flash_fwd_f32_kernel.widths = PADDED_WIDTHS
+flash_fwd_f32_kernel.dtypes = (torch.float32,)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -372,11 +411,13 @@ def launch_counts() -> dict:
 def _kernels_for(dtype, width: int):
     """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
     a padded head dim of ``width``: chosen by the two alone, never as a
-    retry after a failure.  Each step takes its Hopper kernel where that
-    kernel takes the dtype and the width, else its CUDA-core twin: bf16 and
-    f16 at up to 256 run all four on Hopper, and past 256 the forward on
-    Hopper and the three backward kernels on the CUDA cores; f32 runs all
-    four on the CUDA cores at every width."""
+    retry after a failure.  Each step takes a Hopper kernel where one takes
+    the dtype and the width (for the forward ``flash_fwd_kernel``, bf16 and
+    f16, or ``flash_fwd_f32_kernel``, f32), else its CUDA-core twin: bf16
+    and f16 at up to 256 run all four on Hopper, and past 256 the forward
+    on Hopper and the three backward kernels on the CUDA cores; f32 runs
+    the forward on Hopper (split TF32) and the three backward kernels on
+    the CUDA cores at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)
@@ -384,8 +425,11 @@ def _kernels_for(dtype, width: int):
         raise ValueError("flash attention on CUDA takes a head dim "
                          "zero-padded to one of %s, got %d"
                          % (PADDED_WIDTHS, width))
-    return tuple(h if dtype in h.dtypes and width in h.widths else c
-                 for h, c in zip(HOPPER_KERNELS, SIMT_KERNELS))
+    hopper = ((flash_fwd_kernel, flash_fwd_f32_kernel),) + tuple(
+        (h,) for h in HOPPER_KERNELS[1:])
+    return tuple(next((h for h in hs if dtype in h.dtypes
+                       and width in h.widths), c)
+                 for hs, c in zip(hopper, SIMT_KERNELS))
 
 
 def flash_fwd(q, k, v, causal: bool):

@@ -1,8 +1,9 @@
 """The port's flash attention at float32 and float16 against the JAX
 package's, which computes in any float dtype.
 
-On the card, bf16 and f16 run the Hopper kernels and f32 their CUDA-core
-twins (``csrc/flash_simt.cu``), chosen by dtype and width alone; here on
+On the card, bf16 and f16 run the Hopper kernels, and f32 the Hopper f32
+forward (``csrc/flash_fwd_f32.cu``) and the backward's CUDA-core twins
+(``csrc/flash_simt.cu``), chosen by dtype and width alone; here on
 the CPU the same autograd function runs the kernels' plain versions,
 which cast as those kernels do (P to V's dtype before PV, dS to K's and
 Q's before its products).  The JAX side runs
@@ -113,15 +114,17 @@ def test_plain_versions_cast_as_the_kernels(dtype):
 
 def test_kernels_chosen_by_dtype():
     """At head dims up to 128: bf16 and f16 -> the Hopper kernels, f32 ->
-    the CUDA-core ones; anything else raises; the wrappers take CUDA
-    tensors only."""
+    the Hopper f32 forward and the CUDA-core backward kernels; anything
+    else raises; the wrappers take CUDA tensors only."""
     for width in (32, 64, 128):
         assert fa._kernels_for(torch.bfloat16, width) == fa.HOPPER_KERNELS
-        assert fa._kernels_for(torch.float32, width) == fa.SIMT_KERNELS
+        assert fa._kernels_for(torch.float32, width) == \
+            fa.F32_KERNELS + fa.SIMT_KERNELS[1:]
         assert fa._kernels_for(torch.float16, width) == fa.HOPPER_KERNELS
     with pytest.raises(ValueError, match="f32, f16 or bf16"):
         fa._kernels_for(torch.float64, 64)
-    assert set(fa.KERNELS) == set(fa.HOPPER_KERNELS + fa.SIMT_KERNELS)
+    assert set(fa.KERNELS) == set(fa.HOPPER_KERNELS + fa.SIMT_KERNELS
+                                  + fa.F32_KERNELS)
     x = torch.zeros(2, 64, 32)
     with pytest.raises(ValueError, match="CUDA kernel"):
         fa.flash_fwd_simt_kernel(x, x, x, True)

@@ -162,7 +162,9 @@ def test_decoder_at_head_dim_256_matches_jax(monkeypatch):
 
 
 HOPPER = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.HOPPER_KERNELS))
-SIMT = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.SIMT_KERNELS))
+# f32: the Hopper forward in split TF32, the CUDA-core backward
+F32 = dict(zip(("fwd", "dq", "dkv", "onepass"),
+               fa.F32_KERNELS + fa.SIMT_KERNELS[1:]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
@@ -170,11 +172,12 @@ SIMT = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.SIMT_KERNELS))
 @pytest.mark.parametrize("width", [32, 64, 128, 256])
 def test_route_by_dtype_and_width(dtype, width):
     """bf16 and f16 at up to 256: the four Hopper kernels (at 256 the
-    one-pass with 64-row dq partial slots); f32: the four CUDA-core
-    kernels.  Each kernel routed to takes the dtype and width."""
+    one-pass with 64-row dq partial slots); f32: the Hopper f32 forward
+    and the three CUDA-core backward kernels.  Each kernel routed to takes
+    the dtype and width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))
-    want = SIMT if dtype == torch.float32 else HOPPER
+    want = F32 if dtype == torch.float32 else HOPPER
     assert route == want
     for kern in route.values():
         assert dtype in kern.dtypes and width in kern.widths
@@ -202,9 +205,10 @@ def test_padded_head_dims_past_128():
 
 def test_kernel_wrappers_check_their_family():
     """Each wrapper refuses a dtype or width outside its family's before it
-    looks at the device: the Hopper dq takes no f32, the Hopper and the
-    CUDA-core forward no width that is not a padded one (320); what they
-    take then raises here for lying on the CPU."""
+    looks at the device: the Hopper dq takes no f32, the Hopper f32
+    forward no f16, the Hopper forwards and the CUDA-core forward no width
+    that is not a padded one (320); what they take then raises here for
+    lying on the CPU."""
     x = {(dt, w): torch.zeros(2, 64, w, dtype=dt)
          for dt in (torch.float16, torch.float32) for w in (64, 256, 320)}
     rows = torch.zeros(2, 64)
@@ -212,7 +216,10 @@ def test_kernel_wrappers_check_their_family():
              (fa.flash_fwd_kernel, torch.float16, 320, "head_dim in"),
              (fa.flash_fwd_simt_kernel, torch.float32, 320, "head_dim in"),
              (fa.flash_fwd_simt_kernel, torch.float16, 256, "CUDA kernel"),
-             (fa.flash_bwd_onepass_kernel, torch.float16, 64, "CUDA kernel"))
+             (fa.flash_bwd_onepass_kernel, torch.float16, 64, "CUDA kernel"),
+             (fa.flash_fwd_f32_kernel, torch.float16, 64, "one dtype of"),
+             (fa.flash_fwd_f32_kernel, torch.float32, 320, "head_dim in"),
+             (fa.flash_fwd_f32_kernel, torch.float32, 256, "CUDA kernel"))
     for kern, dtype, width, msg in cases:
         t = x[dtype, width]
         args = ((t, t, t, True) if "fwd" in kern.__name__

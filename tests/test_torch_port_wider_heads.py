@@ -8,7 +8,8 @@ dtype's backward there runs the CUDA-core kernels
 (``csrc/flash_simt.cu``), which split the width into 128-column panels,
 one block each, and cast as the plain versions run here do; the forward
 runs on Hopper in bf16 and f16 (``csrc/flash_fwd.cu``: o in panels of
-256 columns and a last one of 128) and on the CUDA cores in f32.  The
+256 columns and a last one of 128) and in f32 (``csrc/flash_fwd_f32.cu``,
+split TF32: o in panels of 128 columns).  The
 JAX side runs ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its
 Pallas kernels in interpret mode, under both backward choices
 (``HVD_TPU_FLASH_BWD``, read by both packages).
@@ -64,11 +65,11 @@ def test_padded_head_dim_is_the_references_past_256(d):
 @pytest.mark.parametrize("width", [384, 512, 640, 1024])
 def test_route_past_256(dtype, width):
     """Every dtype at a multiple of 128 past 256: dq, dk/dv and the
-    one-pass backward on the CUDA cores; the forward on Hopper in bf16 and
-    f16, on the CUDA cores in f32; each kernel taking the dtype and the
-    width."""
+    one-pass backward on the CUDA cores; the forward on Hopper, in bf16 and
+    f16 ``flash_fwd_kernel``, in f32 ``flash_fwd_f32_kernel`` (split
+    TF32); each kernel taking the dtype and the width."""
     route = fa._kernels_for(dtype, width)
-    fwd = (fa.flash_fwd_simt_kernel if dtype == torch.float32
+    fwd = (fa.flash_fwd_f32_kernel if dtype == torch.float32
            else fa.flash_fwd_kernel)
     assert route == (fwd,) + fa.SIMT_KERNELS[1:]
     for kern in route:

@@ -62,7 +62,15 @@ also fail no kernel but the one-pass (``ONLY_KERNEL``): a block's partial
 stored into the next block's slot, dS^T read without consumer 1's
 barrier (a race, held at the decoder's shape), consumer 1's 128 columns
 left unwritten, and a slot's rows above the causal diagonal left
-unwritten.  The older
+unwritten.  The f32 forward on Hopper (``flash_fwd_f32.cu``, split TF32,
+and its V^T copy, ``ops/flash_attention.py f32_vt``) is held at its own
+units (chip_smoke's F32_FWD_SHAPES and WIDE_BH_SHAPE in f32, past 256
+with the panel agreement); a fault in either file runs the first units
+and those, and its four faults must fail there and nowhere else
+(``ONLY_AT``): one small term of the split left out (two TF32 terms, off
+by about 2^-11 a product), V^T's keys one off (a roll before the key
+order), the last 32-column chunk of Q K^T left out past 256, and the
+causal mask off by one.  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
 rows past S, the last q tile, f16 read as bf16) lie in code that both
 widths run, or are planted in both dk/dv kernels.  The first case,
@@ -383,6 +391,32 @@ FAULTS = {
         "Hopper forward past 256: a panel block other than panel 0 streams "
         "the score chunks from chunk z on (S summed in another order, so P "
         "off in its last bits) and writes lse too"),
+    "f32_fwd_two_term_split": (
+        "flash_fwd_f32.cu", "  MmaTF32<N>::run(d, ahi, blo, 1);\n",
+        "  (void)blo;\n",
+        "f32 forward on Hopper: the split's hi lo term left out of both "
+        "products (two TF32 terms, about 2^-11 off each product)"),
+    "f32_fwd_vt_key_off_by_one": (
+        "../ops/flash_attention.py",
+        "    return vp.view(bh, s8 // 8, 4, 2, d)",
+        "    return vp.roll(1, 1).view(bh, s8 // 8, 4, 2, d)",
+        "f32 forward on Hopper: V^T's keys one off (V rolled by one key "
+        "before the key order, so key j reads V's row j - 1)"),
+    "f32_fwd_last_chunk_past_256": (
+        "flash_fwd_f32.cu",
+        "        for (int x = 0; x < BK / 2; ++x) sc[x] = c > 0 ? sc[x] + scc[x] "
+        ": scc[x];",
+        "        if (DW <= 256 || c + 1 < nc) for (int x = 0; x < BK / 2; ++x) "
+        "sc[x] = c > 0 ? sc[x] + scc[x] : scc[x];",
+        "f32 forward on Hopper past 256: the last 32-column chunk of Q K^T "
+        "left out of the scores"),
+    "f32_fwd_mask_off_by_one": (
+        "flash_fwd_f32.cu",
+        "        if (!(col < S && (!CAUSAL || col <= row))) sc[4 * j + e] = NEG_INF;",
+        "        if (!(col < S && (!CAUSAL || col < row + (2 * row < S)))) "
+        "sc[4 * j + e] = NEG_INF;",
+        "f32 forward on Hopper: causal mask drops the diagonal key in the "
+        "second half"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -430,6 +464,18 @@ def simt_labels(shapes, dtypes=("float32", "float16", "bfloat16")):
 def f16_labels(shapes):
     """The f16 Hopper kernels' units: FLASH_SHAPES in f16."""
     return {"%s float16 hopper" % shape for shape in shapes}
+
+
+def f32_labels(shapes):
+    """The f32 forward on Hopper's units: F32_FWD_SHAPES and WIDE_BH_SHAPE
+    in f32."""
+    return {"%s float32 hopper_f32" % shape for shape in shapes}
+
+
+# Its shapes (chip_smoke's F32_FWD_SHAPES, the CUDA-core twins'), and BH
+# 65,600.
+F32_ALL = SIMT_ALL + ("BH65600 S64 D32 causal",)
+F32_CAUSAL = SIMT_CAUSAL + ("BH65600 S64 D32 causal",)
 
 
 def wide_labels(shapes, dtypes=WIDE_DTYPES):
@@ -500,7 +546,12 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # a last bit of P off shows in o's bf16 or f16 columns where
                 # thousands of rows hold thousands of keys: the decoder's
                 # shape, not the ragged ones
-                "fwd_wide_panel_chunk_order": wide_labels(WIDER[:1])}
+                "fwd_wide_panel_chunk_order": wide_labels(WIDER[:1]),
+                "f32_fwd_two_term_split": f32_labels(F32_ALL),
+                "f32_fwd_vt_key_off_by_one": f32_labels(F32_ALL),
+                # every shape past 256 sums 12 or 20 chunks
+                "f32_fwd_last_chunk_past_256": f32_labels(WIDER),
+                "f32_fwd_mask_off_by_one": f32_labels(F32_CAUSAL)}
 # Faults that must fail nowhere but at these units: the D 256 code's own;
 # the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
@@ -508,7 +559,11 @@ ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
            "onepass_d256_neighbour_slot": wide_labels(D256),
            "onepass_d256_ds_before_barrier": wide_labels(D256),
            "onepass_d256_last_chunk": wide_labels(D256),
-           "onepass_d256_dead_rows": wide_labels(D256)}
+           "onepass_d256_dead_rows": wide_labels(D256),
+           "f32_fwd_two_term_split": f32_labels(F32_ALL),
+           "f32_fwd_vt_key_off_by_one": f32_labels(F32_ALL),
+           "f32_fwd_last_chunk_past_256": f32_labels(WIDER),
+           "f32_fwd_mask_off_by_one": f32_labels(F32_ALL)}
 ONLY_KERNEL = {name: "flash_bwd_onepass" for name in ONLY_AT
                if name.startswith("onepass_d256")}
 # What a check process that dies must have said: an error of a kernel's
@@ -531,6 +586,9 @@ SIMT_SOURCE = "flash_simt.cu"
 F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
                "sm90.cuh"}
 WIDE_SOURCES = F16_SOURCES
+# The f32 forward on Hopper's kernel and its V^T copy: a fault there runs
+# the first units and the f32 forward's.
+F32_SOURCES = {"flash_fwd_f32.cu", "../ops/flash_attention.py"}
 
 
 def fault_sources(fault):
@@ -547,9 +605,16 @@ torch.backends.cudnn.allow_tf32 = False
 nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
 ns, nd = len(cs.SIMT_SHAPES), len(cs.SIMT_DTYPES)
 wide = cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)
+f32 = cs.F32_FWD_SHAPES + (cs.WIDE_BH_SHAPE,)
 for unit in json.loads(sys.argv[1]):
     print("AT %d" % unit, flush=True)
-    if unit >= nf + nb + 2 + ns * nd + nf:
+    if unit >= nf + nb + 2 + ns * nd + nf + 2 * len(wide):
+        bh, s, d, causal = f32[unit - (nf + nb + 2 + ns * nd + nf
+                                       + 2 * len(wide))]
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, "float32"), causal, "hopper_f32")
+        res = {"errs": errs, "poisoned": poisoned}
+    elif unit >= nf + nb + 2 + ns * nd + nf:
         k = unit - (nf + nb + 2 + ns * nd + nf)
         bh, s, d, causal = wide[k % len(wide)]
         errs, poisoned, _, _ = cs.kernel_errors(
@@ -598,9 +663,10 @@ def unit_labels(cs):
     """The check units of a case, in the order a check process runs them:
     each attention shape, each BN shape, the model checks, the codec
     check, the CUDA-core units (each dtype at each of SIMT_SHAPES), the
-    f16 Hopper units (FLASH_SHAPES in f16), then the Hopper forward's
-    units from 256 on (HOPPER_FWD_SHAPES and WIDE_BH_D256_SHAPE in bf16,
-    then in f16)."""
+    f16 Hopper units (FLASH_SHAPES in f16), the Hopper forward's units
+    from 256 on (HOPPER_FWD_SHAPES and WIDE_BH_D256_SHAPE in bf16, then in
+    f16), then the f32 forward on Hopper's (F32_FWD_SHAPES and
+    WIDE_BH_SHAPE in f32)."""
     return ([cs.shape_label(*shape) for shape in cs.FLASH_SHAPES]
             + [shape[0] for shape in cs.BN_SHAPES] + [MODELS, CODECS]
             + ["%s %s" % (cs.shape_label(*shape), dtype)
@@ -609,7 +675,9 @@ def unit_labels(cs):
                for shape in cs.FLASH_SHAPES]
             + ["%s %s hopper" % (cs.shape_label(*shape), dtype)
                for dtype in WIDE_DTYPES
-               for shape in cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)])
+               for shape in cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)]
+            + ["%s float32 hopper_f32" % cs.shape_label(*shape)
+               for shape in cs.F32_FWD_SHAPES + (cs.WIDE_BH_SHAPE,)])
 
 
 def run_case(name, fault, labels, units=None):
@@ -745,10 +813,13 @@ def main(argv) -> int:
     ns = len(cs.SIMT_SHAPES) * len(cs.SIMT_DTYPES)
     simt_units = list(range(nf + nb + 2, nf + nb + 2 + ns))
     f16_units = list(range(nf + nb + 2 + ns, nf + nb + 2 + ns + nf))
-    wide_units = list(range(nf + nb + 2 + ns + nf, len(labels)))
+    nw = 2 * (len(cs.HOPPER_FWD_SHAPES) + 1)
+    wide_units = list(range(nf + nb + 2 + ns + nf, nf + nb + 2 + ns + nf + nw))
+    f32_units = list(range(nf + nb + 2 + ns + nf + nw, len(labels)))
     simt_labels_ = [labels[u] for u in simt_units]
     f16_labels_ = [labels[u] for u in f16_units]
     wide_labels_ = [labels[u] for u in wide_units]
+    f32_labels_ = [labels[u] for u in f32_units]
     old_units = list(range(nf + nb + 2))
     ok = True
     for name, fault in FAULTS.items():
@@ -767,11 +838,12 @@ def main(argv) -> int:
         simt = fault is not None and fault[0] == SIMT_SOURCE
         f16 = fault is not None and bool(fault_sources(fault) & F16_SOURCES)
         wide = fault is not None and bool(fault_sources(fault) & WIDE_SOURCES)
+        f32 = fault is not None and bool(fault_sources(fault) & F32_SOURCES)
         readings, died = run_case(
             name, fault, labels,
             None if fault is None else simt_units if simt else
             old_units + (f16_units if f16 else [])
-            + (wide_units if wide else []))
+            + (wide_units if wide else []) + (f32_units if f32 else []))
         print("%s: %s" % (name, fault[3] if fault else "kernels as they are"))
         cuda_deaths = set()
         for label, err in died.items():
@@ -791,9 +863,11 @@ def main(argv) -> int:
         failed_kernels = set()
         f16_at, _ = check_family(readings, f16_labels_)
         wide_at, _ = check_family(readings, wide_labels_, failed_kernels)
+        f32_at, _ = check_family(readings, f32_labels_)
         flash_at |= cuda_deaths & set(flash_labels)
         f16_at |= cuda_deaths & set(f16_labels_)
         wide_at |= cuda_deaths & set(wide_labels_)
+        f32_at |= cuda_deaths & set(f32_labels_)
         bn_at |= cuda_deaths & set(bn_labels)
         simt_at |= cuda_deaths & set(simt_labels_)
         if MODELS in readings:
@@ -804,38 +878,44 @@ def main(argv) -> int:
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
               "check %s, scale_sum check %s, adasum check %s, CUDA-core "
               "flash check %s, f16 Hopper flash check %s, Hopper forward "
-              "from 256 on check %s"
+              "from 256 on check %s, f32 Hopper forward check %s"
               % tuple("fails" if f else "passes"
                       for f in (bool(flash_at), flash_max, bool(bn_at),
                                 bn_max) + models + (bool(simt_at),
                                                     bool(f16_at),
-                                                    bool(wide_at))),
+                                                    bool(wide_at),
+                                                    bool(f32_at))),
               flush=True)
-        failed_at = flash_at | bn_at | simt_at | f16_at | wide_at
+        failed_at = flash_at | bn_at | simt_at | f16_at | wide_at | f32_at
         if failed_at:
             print("  failing at: %s" % ", ".join(sorted(failed_at)))
         if fault is None:
             edge = readings.get(CODECS, {}).get("edge")
             print("  CUDA-core units held: %d of %d; f16 Hopper units held: "
-                  "%d of %d; Hopper forward units from 256 on held: %d of %d"
+                  "%d of %d; Hopper forward units from 256 on held: %d of "
+                  "%d; f32 Hopper forward units held: %d of %d"
                   % (len(set(simt_labels_) & set(readings)),
                      len(simt_labels_),
                      len(set(f16_labels_) & set(readings)),
                      len(f16_labels_),
                      len(set(wide_labels_) & set(readings)),
-                     len(wide_labels_)))
+                     len(wide_labels_),
+                     len(set(f32_labels_) & set(readings)),
+                     len(f32_labels_)))
             print("  codec check: fp8 edge values off the reference's "
                   "bytes: %s" % edge)
             ok &= not (died or failed_at or any(models) or edge
                        or CODECS not in readings
                        or not set(simt_labels_) <= set(readings)
                        or not set(f16_labels_) <= set(readings)
-                       or not set(wide_labels_) <= set(readings))
+                       or not set(wide_labels_) <= set(readings)
+                       or not set(f32_labels_) <= set(readings))
         elif fault[0] == "scale_sum.cu":
             ok &= models[3] and models[4]
         else:
             family_at = (bn_at if fault[0] == "batch_norm.cu" else
-                         simt_at if simt else flash_at | f16_at | wide_at)
+                         simt_at if simt else f32_at if f32 else
+                         flash_at | f16_at | wide_at)
             must = MUST_FAIL_AT.get(name, set())
             ok &= bool(family_at) and must <= family_at
             if must - family_at:

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """A short first call for the flash kernels: the CUDA-core twins
 (``horovod_tpu_torch/csrc/flash_simt.cu``, f32, f16 and bf16, head dims
-32 to 256 and past it in 128-column panels) and the four Hopper kernels
+32 to 256 and past it in 128-column panels), the four Hopper kernels
 (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) in f16 and
-bf16, on one GPU.
+bf16, and the f32 forward on Hopper (``flash_fwd_f32.cu``), on one GPU.
 
     python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wide-onepass]
+                                     [--f32-fwd] [--f32-split]
                                      [--sdpa-kernels] [--watchdog]
                                      [--head-major]
     python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
@@ -38,6 +39,22 @@ chip_smoke's Hopper limits, the partials in a NaN-poisoned block), and at
 the decoder's shape at 256 the device ms of the kernel, of the kernel
 with the partials' sum (``flash_bwd`` under ``pallas_onepass``), of its
 CUDA-core twin and of SDPA's whole backward.
+``--f32-fwd`` probes the f32 forward on Hopper (``flash_fwd_f32.cu``,
+split TF32) alone: its report, its readings at chip_smoke's
+F32_FWD_SHAPES (past 256 with the panel agreement) and WIDE_BH_SHAPE
+(``worst`` against chip_smoke's f32 limits), and at the decoder's shape
+at head dims 128, 256 and 384 and at BERT-Large's the device ms of the
+kernel (its V^T copy included), of that copy alone (``f32_vt``), of its
+CUDA-core twin and of SDPA in f32 (20 calls each, the twin 3), beside
+the three-pass TF32 bound and the CUDA cores' f32 bound.
+``--f32-split`` runs ``tests/test_torch_port_hopper_f32_fwd.py``'s
+emulation of the kernel's split on the card (TF32 off, so torch's f32
+products are exact f32 ones) at BH 32, S 2048, D 384, causal: the
+worst reading of o and lse against the f32 plain version under the f32
+limits for the truncating split, the round-to-nearest one, the
+truncating split with either small term dropped, and the truncating
+split summed as the tensor core sums (each sum truncated toward zero)
+in the kernel's chains and in one chain each; it builds nothing.
 ``--sdpa-kernels`` names the kernels that the yardstick, SDPA (forward
 and backward, one call each under ``torch.profiler``), launches in f32
 and bf16 at the decoder's shape at head dims 128 and 256, with their
@@ -224,6 +241,68 @@ def wide_onepass(cs, fa, torch):
         torch.cuda.empty_cache()
 
 
+def f32_fwd(cs, fa, torch):
+    """The f32 forward on Hopper: readings, then times beside its V^T
+    copy, its CUDA-core twin and SDPA, and its two bounds."""
+    import torch.nn.functional as F
+    for bh, s, d, causal in list(cs.F32_FWD_SHAPES) + [cs.WIDE_BH_SHAPE]:
+        errs, _, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, "float32"), causal, "hopper_f32")
+        torch.cuda.synchronize()
+        print("hopper_f32", cs.shape_label(bh, s, d, causal),
+              json.dumps({o: {k: float("%.3g" % x) for k, x in e.items()}
+                          for o, e in errs["flash_fwd"].items()}), flush=True)
+        torch.cuda.empty_cache()
+    for bh, s, d, causal in (cs.DECODER_SHAPE, cs.WIDE_HEAD_SHAPES[0],
+                             cs.WIDER_HEAD_SHAPES[0], cs.BERT_SHAPE):
+        q, k, v, _ = cs.kernel_inputs(bh, s, d, "float32")
+        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+        times = {
+            "hopper_f32": cs.time_ms(
+                lambda: fa.flash_fwd_f32_kernel(q, k, v, causal), reps=20),
+            "vt_copy": cs.time_ms(lambda: fa.f32_vt(v), reps=20),
+            "simt": cs.time_ms(
+                lambda: fa.flash_fwd_simt_kernel(q, k, v, causal), reps=3),
+            "sdpa": cs.time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=1.0), reps=20)}
+        flops = 4 * d * bh * (s * (s + 1) // 2 if causal else s * s)
+        print("times f32 forward", cs.shape_label(bh, s, d, causal), times,
+              "bound ms: split TF32 %.4g, f32 on the CUDA cores %.4g" % (
+                  cs.SPLIT_TF32_TERMS * flops / cs.PEAK_TF32_FLOPS * 1e3,
+                  flops / cs.PEAK_F32_FLOPS * 1e3), flush=True)
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+
+
+def f32_split(cs, torch):
+    """The kernel's split emulated on the card at the decoder's shape at
+    384: each split's worst reading."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from tests import test_torch_port_hopper_f32_fwd as emu
+    bh, s, d, causal = cs.WIDER_HEAD_SHAPES[0]
+    q, k, v, _ = cs.kernel_inputs(bh, s, d, "float32")
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+    tol = cs.SIMT_TOL["float32"]
+    three = emu.SMALL + ("hi_hi",)
+    for label, form, terms, chains in (
+            ("truncating", "trunc", three, None),
+            ("round-to-nearest", "rna", three, None),
+            ("truncating without lo hi", "trunc", ("hi_lo", "hi_hi"), None),
+            ("truncating without hi lo", "trunc", ("lo_hi", "hi_hi"), None),
+            ("truncating, the tensor core's sums chained as the kernel's",
+             "trunc", three, emu.KERNEL_CHAINS),
+            ("truncating, the tensor core's sums in one chain each", "trunc",
+             three, ("all", "all"))):
+        o, lse = emu.emulated_fwd(q, k, v, causal, form, terms, chains)
+        print("f32 split %s at %s: worst o %.4g, lse %.4g (limits rtol, atol "
+              "%s)" % (label, cs.shape_label(bh, s, d, causal),
+                       cs.compare(o, o_ref, *tol)["worst"],
+                       cs.compare(lse, lse_ref, *tol)["worst"], tol),
+              flush=True)
+        del o, lse
+        torch.cuda.empty_cache()
+
+
 def narrow_bwd(cs, fa, torch):
     """The Hopper backward kernels up to D 128: device ms, nothing else
     (every name used here is in the trees it compares)."""
@@ -311,6 +390,10 @@ def main(argv) -> int:
     if "--sdpa-kernels" in argv:
         sdpa_kernels(cs, torch)
         return 0
+    if "--f32-split" in argv:
+        f32_split(cs, torch)
+        if "--f32-fwd" not in argv:
+            return 0
     t0 = time.perf_counter()
     print("build", _build.build_all(), time.perf_counter() - t0, flush=True)
     if "--narrow-bwd" in argv:
@@ -319,7 +402,8 @@ def main(argv) -> int:
         return 0
     wide = {"--wide-fwd": ("flash_fwd", wide_fwd),
             "--wide-bwd": ("flash_bwd", wide_bwd),
-            "--wide-onepass": ("flash_bwd_onepass", wide_onepass)}
+            "--wide-onepass": ("flash_bwd_onepass", wide_onepass),
+            "--f32-fwd": ("flash_fwd_f32", f32_fwd)}
     wide = [wide[a] for a in wide if a in argv]
     for src in [src for src, _ in wide] or SOURCES:
         cs.print_ptxas((_build.build_dir() / ("%s.log" % src)).read_text())

@@ -36,10 +36,13 @@
    BH 65,600,
    against SDPA in the same dtype (f16 and bf16 outputs also by the share
    of elements off the plain version's); the f32 forward on Hopper
-   (``csrc/flash_fwd_f32.cu``, split TF32) at the same shapes as those
-   twins and untimed at BH 65,600, under their f32 limits, past 256 also
-   with o's panels bit for bit on a V whose panels repeat, against SDPA
-   in f32; the
+   (``csrc/flash_fwd_f32.cu``, split TF32) and the f32 dq and dk/dv on
+   Hopper (``csrc/flash_bwd_f32.cu``, split TF32 with dP on the CUDA
+   cores) at the same shapes as those twins and untimed at BH 65,600,
+   under their f32 limits, past 256 also each against itself panel
+   against panel, bit for bit (o's on a V whose panels repeat; dq's, dk's
+   and dv's on a Q, K, V and dO whose 128-column panels repeat), against
+   SDPA in f32 (its backward beside dq and dk/dv); the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
    word-embedding gradient, three coefficient pairs and three dtypes,
    aligned and offset by one element, with an inf and a NaN and with
@@ -53,8 +56,8 @@
    backward),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
-   decoder at dtype float32 (the Hopper f32 forward, the CUDA-core
-   backward) with 2 heads of 128, of 192 (padded to 256) and of 320
+   decoder at dtype float32 (the Hopper f32 forward, dq and dk/dv, the
+   CUDA-core one-pass) with 2 heads of 128, of 192 (padded to 256) and of 320
    (padded to 384), trained 3 Adam steps (one step past 128) through
    ``make_train_step`` on a one-rank world under each backward choice,
    against the same steps in f32 on the CPU.
@@ -95,9 +98,9 @@
    of the f32 kernels: the decoder at the same width and depth at dtype
    float32, one step through ``make_train_step`` under each backward
    choice from the same weights (the Hopper f32 forward 2 x 12 launches,
-   the CUDA-core forward none; the CUDA-core dq, dk/dv and one-pass 12
-   each), each step's loss and gradients against the same model's on the
-   plain attention path on the card.
+   the Hopper f32 dq and dk/dv 12 each, the CUDA-core one-pass 12, the
+   CUDA-core forward, dq and dk/dv none), each step's loss and gradients
+   against the same model's on the plain attention path on the card.
    Then BERT-Large Adasum fine-tuning, the in-process
    form of Adasum allreduce: the gradients of four 8-row shards of the
    same batch 32, one after another, stacked and reduced by
@@ -155,10 +158,10 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (twenty-five: the thirteen
+5. Prints one JSON line of kernel records (thirty-one: the thirteen
    kernels, the f16 forms of the four Hopper ones, the Hopper forward at
    D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256, and the
-   f32 forward on Hopper at D 128, 256 and 384),
+   f32 forward, dq and dk/dv on Hopper at D 128, 256 and 384),
    then as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -179,8 +182,8 @@ import traceback
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores
-# TF32 products per f32 product in the split-TF32 f32 forward
-# (csrc/flash_fwd_f32.cu: a_lo b_hi + a_hi b_lo + a_hi b_hi)
+# TF32 products per f32 product in the split-TF32 f32 kernels
+# (csrc/tf32.cuh: a_lo b_hi + a_hi b_lo + a_hi b_hi)
 SPLIT_TF32_TERMS = 3
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Each kernel output against its plain version, element by element:
@@ -267,12 +270,18 @@ WIDER_HEAD_SHAPES = ((32, 2048, 384, True), (2, 130, 384, True),
                      (4, 200, 640, False))
 SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
                + WIDER_HEAD_SHAPES)
-# The f32 forward on Hopper (``flash_fwd_f32_kernel``, split TF32) against
-# the f32 plain version at the CUDA-core twins' shapes under their f32
-# limits (SIMT_TOL["float32"]: each product within about 2^-19 of its f32
-# value, the rest the order of f32 sums), untimed at WIDE_BH_SHAPE, and
-# past 256 also held to itself panel against panel (``panel_agreement``).
+# The f32 kernels on Hopper (``F32_KERNELS``: the forward, dq and dk/dv,
+# split TF32) against the f32 plain version at the CUDA-core twins' shapes
+# under their f32 limits (SIMT_TOL["float32"]: each product within about
+# 2^-19 of its f32 value, the rest the order of f32 sums; dq and dk/dv form
+# dP on the CUDA cores in the plain version's order, so they are held to
+# it, not to ``exact_dp``), untimed at WIDE_BH_SHAPE, and past 256 also
+# held to themselves panel against panel (``panel_agreement``).
 F32_FWD_SHAPES = SIMT_SHAPES
+# The f32 dq and dk/dv split their outputs into panels of this many
+# columns past 256 (the forward's panel agreement keeps the Hopper
+# forward's 256, which its 128-column panels also meet).
+F32_BWD_PANEL = 128
 # The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
 # family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
 # max), and untimed at WIDE_BH_SHAPE's BH and S at D 256; at D 256 (the
@@ -294,8 +303,8 @@ WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 # 128-column panels).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
-# The small decoder at dtype float32 (the Hopper f32 forward, the CUDA-core
-# backward kernels) trained on the card through make_train_step (Adam, a
+# The small decoder at dtype float32 (the Hopper f32 forward, dq and dk/dv,
+# the CUDA-core one-pass) trained on the card through make_train_step (Adam, a
 # one-rank world) against the same steps in f32 on the CPU (plain
 # versions, torch.optim.Adam): each step's loss and the last step's
 # gradients, relative, under each backward choice.  f32 on both sides:
@@ -497,10 +506,11 @@ def compare(got, want, rtol, atol):
 
 def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper", "simt", the
-    CUDA-core twins, or "hopper_f32", the f32 forward on Hopper) that take
-    inputs of ``dtype`` at head dim ``width``: the four Hopper ones in bf16
-    and f16 up to 256 and the forward alone past it, the four CUDA-core
-    ones in any dtype, the f32 forward in f32 at every padded width."""
+    CUDA-core twins, or "hopper_f32", the f32 forward, dq and dk/dv on
+    Hopper) that take inputs of ``dtype`` at head dim ``width``: the four
+    Hopper ones in bf16 and f16 up to 256 and the forward alone past it,
+    the four CUDA-core ones in any dtype, the three f32 ones in f32 at
+    every padded width."""
     import torch
     kernels = {"hopper": fa.HOPPER_KERNELS, "simt": fa.SIMT_KERNELS,
                "hopper_f32": fa.F32_KERNELS}[family]
@@ -520,23 +530,40 @@ def dtype_name(t) -> str:
     return str(t.dtype).split(".")[-1]
 
 
-def panel_agreement(fwd, q, k, v, causal):
-    """A Hopper forward past 256 (``fwd``) against itself: v's columns from
-    256 on
-    replaced by copies of its first ones (panel z's column j is column j
-    of panel 0), so every O panel block must give o's columns bit for bit
-    as panel 0's block does, which it does only when all of them formed
-    the same S, m, l and P.  -> compare's keys, ``worst`` 0 when every
-    element agrees and 1 + the count of those that do not."""
+def panel_agreement(fa, kern, q, k, v, do, causal, period=256):
+    """A Hopper kernel past 256 (``kern``) against itself, its inputs'
+    columns from ``period`` on replaced by copies of their first ones
+    (column j of panel z is column j of panel 0): the forward's v, so
+    every O panel block must give o's columns bit for bit as panel 0's
+    block does, which it does only when all of them formed the same S, m, l
+    and P; a backward kernel's q, k, v and do (lse and delta the plain
+    forward's on them), so every panel block of dq, dk and dv must give
+    its columns as panel 0's does, which it does only when all of them
+    formed the same P and dS.  -> compare's keys over every output,
+    ``worst`` 0 when every element agrees and 1 + the count of those that
+    do not."""
     import torch
-    width, n = v.shape[-1], -(-v.shape[-1] // 256)
-    v = torch.cat([v[..., :256]] * n, -1)[..., :width].contiguous()
-    o, _ = fwd(q, k, v, causal)
-    base = torch.cat([o[..., :256]] * n, -1)[..., :width]
-    off = (o != base).sum().item()
-    return {"max_abs_err": (o.float() - base.float()).abs().max().item(),
-            "worst": 0.0 if off == 0 else 1.0 + off,
-            "max_abs_plain": base.float().abs().max().item()}
+    width, n = v.shape[-1], -(-v.shape[-1] // period)
+
+    def repeat(t):
+        return torch.cat([t[..., :period]] * n, -1)[..., :width].contiguous()
+
+    if kern.__name__.startswith("flash_fwd"):
+        outs = kern(q, k, repeat(v), causal)[:1]
+    else:
+        q, k, v, do = (repeat(t) for t in (q, k, v, do))
+        o, lse = fa.flash_fwd_reference(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        outs = kern(q, k, v, do, lse, delta, causal)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+    off, err, plain = 0, 0.0, 0.0
+    for out in outs:
+        base = repeat(out)
+        off += (out != base).sum().item()
+        err = max(err, (out.float() - base.float()).abs().max().item())
+        plain = max(plain, base.float().abs().max().item())
+    return {"max_abs_err": err, "worst": 0.0 if off == 0 else 1.0 + off,
+            "max_abs_plain": plain}
 
 
 def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
@@ -586,8 +613,12 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
     if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
-        errs["flash_fwd"]["panels"] = panel_agreement(kern["flash_fwd"], q, k,
-                                                      v, causal)
+        errs["flash_fwd"]["panels"] = panel_agreement(
+            fa, kern["flash_fwd"], q, k, v, do, causal)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            if family == "hopper_f32":
+                errs[name]["panels"] = panel_agreement(
+                    fa, kern[name], q, k, v, do, causal, F32_BWD_PANEL)
     if family == "simt":
         for name, outs in outputs.items():
             for out, (got, want) in outs.items():
@@ -626,7 +657,7 @@ def held_errors(fa, q, k, v, do, causal, label, family="hopper"):
                 name, out, label, json.dumps({k: float("%.4g" % x)
                                               for k, x in e.items()}),
                 "rtol %.3g, atol %.3g x row scale" % tol[out] if out in tol
-                else "o's panels against panel 0's, bit for bit"))
+                else "panels against panel 0's, bit for bit"))
     if poisoned is not None:
         say("  flash_bwd_onepass partials in a NaN-poisoned block: %s"
             % poisoned)
@@ -651,11 +682,11 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
     record per kernel, whose ``launches`` counts this check's launches
     (not the main path's), and the variants' times (empty without
     backward kernels).  Bounds: bf16 and f16 at the tensor cores' 989
-    TFLOP/s; f32 on the CUDA cores at their 67; the f32 forward on Hopper
-    at the TF32 tensor cores' 495 for its SPLIT_TF32_TERMS TF32 products
-    per f32 one (the least time for the f32 function on this card: an
-    exact f32 product is not tensor-core work); the forward's is the
-    function's (4 d FLOP a live pair), whatever the kernel recomputes."""
+    TFLOP/s; f32 on the CUDA cores at their 67; the f32 kernels on Hopper
+    at the TF32 tensor cores' 495 for SPLIT_TF32_TERMS TF32 products per
+    f32 one (the least time for the f32 function on this card: an exact
+    f32 product is not tensor-core work); each bound is the function's (4,
+    6, 8 and 10 d FLOP a live pair), whatever the kernel recomputes."""
     import torch
     import torch.nn.functional as F
     q, k, v, do = kernel_inputs(bh, s, d, dtype)
@@ -726,7 +757,7 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
 def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
     """``family``'s flash kernels for ``dtype`` at their shapes (on Hopper
     FLASH_SHAPES, and HOPPER_FWD_SHAPES for the forward; SIMT_SHAPES on
-    the CUDA cores; F32_FWD_SHAPES for the f32 forward on Hopper) ->
+    the CUDA cores; F32_FWD_SHAPES for the f32 kernels on Hopper) ->
     {shape: records}, then held at WIDE_BH_SHAPE (on Hopper also at
     WIDE_BH_D256_SHAPE)."""
     import torch
@@ -851,9 +882,8 @@ def f32_decoder_steps(torch, head_dim):
         % (head_dim, counts))
     n = cfg.n_layers * steps
     check_counts(counts, {"flash_fwd_f32_kernel": 2 * n,
-                          "flash_fwd_simt_kernel": 0,
-                          "flash_bwd_dq_simt_kernel": n,
-                          "flash_bwd_dkv_simt_kernel": n,
+                          "flash_bwd_dq_f32_kernel": n,
+                          "flash_bwd_dkv_f32_kernel": n,
                           "flash_bwd_onepass_simt_kernel": n})
     if bad:
         raise AssertionError("the f32 decoder (head_dim %d) on the card "
@@ -865,8 +895,8 @@ def f32_decoder_steps(torch, head_dim):
 def train_f32_flagship(torch):
     """The f32 kernels' main path at the decoder flagship's width
     (bench.py:86-91, as ``train_flagship``) in float32, the Hopper f32
-    forward and the CUDA-core backward: every launch count set to 0 just
-    before its two steps, read just after -> the counts."""
+    forward, dq and dk/dv and the CUDA-core one-pass: every launch count
+    set to 0 just before its two steps, read just after -> the counts."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
@@ -928,9 +958,8 @@ def train_f32_flagship(torch):
     hvd.shutdown()
     say("launches on the f32 flagship path (2 steps): %s" % counts)
     check_counts(counts, {"flash_fwd_f32_kernel": 2 * L,
-                          "flash_fwd_simt_kernel": 0,
-                          "flash_bwd_dq_simt_kernel": L,
-                          "flash_bwd_dkv_simt_kernel": L,
+                          "flash_bwd_dq_f32_kernel": L,
+                          "flash_bwd_dkv_f32_kernel": L,
                           "flash_bwd_onepass_simt_kernel": L})
     if bad:
         raise AssertionError("the f32 flagship on the card disagrees with "
@@ -3307,7 +3336,7 @@ def main() -> int:
     flash16 = check_flash_kernels(fa, "float16")
     simt = {dtype: check_flash_kernels(fa, dtype, "simt")
             for dtype in SIMT_DTYPES}
-    f32fwd = check_flash_kernels(fa, "float32", "hopper_f32")
+    f32hopper = check_flash_kernels(fa, "float32", "hopper_f32")
     bn_err, bn_shape_times = check_bn_kernels(bn)
     ss_records = check_scale_sum_kernel(ss)
 
@@ -3410,6 +3439,20 @@ def main() -> int:
                   for name in ("flash_fwd", "flash_bwd_onepass")}
     f16_record.update({name: (DECODER_SHAPE, "the f16 decoder step")
                        for name in ("flash_bwd_dq", "flash_bwd_dkv")})
+    # The f32 kernels on Hopper: their records at the decoder's shape with
+    # their launches in the f32 flagship's two steps, at 256 and 384 with
+    # those in the small f32 decoder at head_dim 192 and 320 (phase 3; no
+    # phase-4 path runs f32 past 128).
+    f32_records = [
+        (name + suffix, name, shape, launches[wrapper])
+        for name, wrapper in (("flash_fwd_f32", "flash_fwd_f32_kernel"),
+                              ("flash_bwd_dq_f32", "flash_bwd_dq_f32_kernel"),
+                              ("flash_bwd_dkv_f32",
+                               "flash_bwd_dkv_f32_kernel"))
+        for suffix, shape, launches in (
+            ("", DECODER_SHAPE, simt_counts),
+            ("_d256", WIDE_HEAD_SHAPES[0], f32_counts[192]),
+            ("_d384", WIDER_HEAD_SHAPES[0], f32_counts[320]))]
     say("kernels: " + "; ".join(
         "%s held at %s and %s (phase 2; its record at %s), launched %d "
         "times in decoder training and %d in BERT-Large training (phase 4)"
@@ -3469,19 +3512,22 @@ def main() -> int:
                 hd256_counts["pallas"]["flash_bwd_dq_kernel"],
                 hd256_counts["pallas"]["flash_bwd_dkv_kernel"],
                 hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"])
-        + "; flash_fwd_f32, flash_fwd_f32_d256 and flash_fwd_f32_d384 (the "
-        "f32 forward on Hopper, split TF32) held at %s and %s (phase 2; their "
-        "records at %s, %s and %s, SDPA in f32 their library_ms, their bound "
-        "%d TF32 products an f32 one at 495 TFLOP/s), launched %d times in "
-        "the f32 decoder flagship's two steps (phase 4) and %d and %d times "
-        "in the small f32 decoder at head_dim 192 and 320 (phase 3)" % (
-            ", ".join(shape_label(*s) for s in F32_FWD_SHAPES),
-            shape_label(*WIDE_BH_SHAPE), shape_label(*DECODER_SHAPE),
-            shape_label(*WIDE_HEAD_SHAPES[0]),
-            shape_label(*WIDER_HEAD_SHAPES[0]), SPLIT_TF32_TERMS,
-            simt_counts["flash_fwd_f32_kernel"],
-            f32_counts[192]["flash_fwd_f32_kernel"],
-            f32_counts[320]["flash_fwd_f32_kernel"]))
+        + "; " + "; ".join(
+            "%s, %s_d256 and %s_d384 (the f32 %s on Hopper, split TF32) held "
+            "at %s and %s (phase 2; their records at %s, %s and %s, SDPA in "
+            "f32 their library_ms, their bound %d TF32 products an f32 one at "
+            "495 TFLOP/s), launched %d times in the f32 decoder flagship's "
+            "two steps (phase 4) and %d and %d times in the small f32 decoder "
+            "at head_dim 192 and 320 (phase 3)" % (
+                name, name, name, what,
+                ", ".join(shape_label(*s) for s in F32_FWD_SHAPES),
+                shape_label(*WIDE_BH_SHAPE), shape_label(*DECODER_SHAPE),
+                shape_label(*WIDE_HEAD_SHAPES[0]),
+                shape_label(*WIDER_HEAD_SHAPES[0]), SPLIT_TF32_TERMS,
+                *(n for _, kern, _, n in f32_records if kern == name))
+            for name, what in (("flash_fwd_f32", "forward"),
+                               ("flash_bwd_dq_f32", "dq"),
+                               ("flash_bwd_dkv_f32", "dk/dv"))))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]
@@ -3511,20 +3557,14 @@ def main() -> int:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"]})
-    # The f32 forward on Hopper: at the decoder's shape its launches in the
-    # f32 flagship's two steps, at 256 and 384 in the small f32 decoder at
-    # head_dim 192 and 320 (phase 3; no phase-4 path runs f32 past 128).
-    for name, shape, launches in (
-            ("flash_fwd_f32", DECODER_SHAPE,
-             simt_counts["flash_fwd_f32_kernel"]),
-            ("flash_fwd_f32_d256", WIDE_HEAD_SHAPES[0],
-             f32_counts[192]["flash_fwd_f32_kernel"]),
-            ("flash_fwd_f32_d384", WIDER_HEAD_SHAPES[0],
-             f32_counts[320]["flash_fwd_f32_kernel"])):
-        rec = f32fwd[shape]["flash_fwd"]
+    for name, kern, shape, launches in f32_records:
+        rec = f32hopper[shape][kern.replace("_f32", "")]
         out.append({"name": name, "route": "cuda",
-                    "source": "horovod_tpu_torch/csrc/flash_fwd_f32.cu",
-                    "replaces": sources["flash_fwd"][1], "launches": launches,
+                    "source": "horovod_tpu_torch/csrc/%s.cu" % (
+                        "flash_fwd_f32" if kern == "flash_fwd_f32"
+                        else "flash_bwd_f32"),
+                    "replaces": sources[kern.replace("_f32", "")][1],
+                    "launches": launches,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],

@@ -30,9 +30,12 @@ f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
 (``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
 at 32, 64, 128 and 256; and f32: the forward in split TF32
 (``csrc/flash_fwd_f32.cu``, ``flash_fwd_f32_kernel``) at every padded
-width.  Their CUDA-core twins (``csrc/flash_simt.cu``, ``*_simt_kernel``)
-take f32, f16 and bf16 at every padded width, and run whatever the Hopper
-kernels do not: the three backward kernels in f32, and in every dtype
+width, and dq and dk/dv (``csrc/flash_bwd_f32.cu``,
+``flash_bwd_dq_f32_kernel`` and ``flash_bwd_dkv_f32_kernel``: split TF32,
+dP on the CUDA cores) at every padded width.  Their CUDA-core twins
+(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at
+every padded width, and run whatever the Hopper kernels do not: the
+one-pass backward in f32, and the three backward kernels in bf16 and f16
 past 256.  Any other dtype raises.
 """
 
@@ -78,6 +81,8 @@ _SIGNATURES = {
                   "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P]},
     "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
     "flash_fwd_f32": {"hvd_flash_fwd_f32": [_P] * 5 + [_I] * 4 + [_P]},
+    "flash_bwd_f32": {"hvd_flash_bwd_dq_f32": [_P] * 8 + [_I] * 4 + [_P],
+                      "hvd_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 4 + [_P]},
     "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
@@ -282,13 +287,15 @@ def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
 
 
 def f32_vt(v):
-    """(BH, S, D) f32 v -> (BH, D, S8) contiguous, what the f32 forward
-    reads as V: V^T (keys contiguous: TF32 products take both operands
-    K-major), S zero-padded to S8, the next multiple of 8, and the keys of
-    each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (column 8 j + 4 h
-    + c holds key 8 j + 2 c + h), so that the kernel's P goes from its
-    score registers to the PV product's TF32 operand with no shuffle
-    (``csrc/flash_fwd_f32.cu``, trap 2)."""
+    """(BH, S, D) f32 v -> (BH, D, S8) contiguous, what the f32 kernels
+    read as the B operand of a product over keys (or q rows): v^T (rows
+    contiguous: TF32 products take both operands K-major), S zero-padded
+    to S8, the next multiple of 8, and the rows of each group of 8 in the
+    order 0, 2, 4, 6, 1, 3, 5, 7 (column 8 j + 4 h + c holds row 8 j + 2 c
+    + h), so that the kernel's P, dS, P^T or dS^T goes from its
+    accumulator registers to the product's TF32 operand with no shuffle
+    (``csrc/flash_fwd_f32.cu``, trap 2).  The forward takes V's, dq K's,
+    dk/dv dO's and Q's."""
     bh, s, d = v.shape
     s8 = -(-s // 8) * 8
     vp = v if s8 == s else torch.nn.functional.pad(v, (0, 0, 0, s8 - s))
@@ -311,6 +318,43 @@ def flash_fwd_f32_kernel(q, k, v, causal: bool):
         "flash_fwd_f32_kernel")
     flash_fwd_f32_kernel.launches += 1
     return o, lse
+
+
+def flash_bwd_dq_f32_kernel(q, k, v, g, lse, delta, causal: bool):
+    """Hopper dq in f32 (``csrc/flash_bwd_f32.cu``: S and dS K in split
+    TF32, dP on the CUDA cores in the plain version's order) at every
+    padded width, from 256 on one block per 128-column panel of dq; K goes
+    in also as ``f32_vt(k)``, whose time is the call's -> dq f32,
+    pre-scaled units."""
+    bh, s, d = _check_kernel_args(flash_bwd_dq_f32_kernel, (q, k, v, g),
+                                  (lse, delta))
+    kt = f32_vt(k)
+    dq = torch.empty_like(q)
+    _build.check(_lib("flash_bwd_f32").hvd_flash_bwd_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), kt.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+        int(causal), _stream(q)), "flash_bwd_dq_f32_kernel")
+    flash_bwd_dq_f32_kernel.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_f32_kernel(q, k, v, g, lse, delta, causal: bool):
+    """Hopper dk/dv in f32 (``csrc/flash_bwd_f32.cu``: S^T, P^T dO and
+    dS^T Q in split TF32, dP^T on the CUDA cores) at every padded width,
+    from 256 on one block per 128-column panel of dk and dv; Q and dO go in
+    also as ``f32_vt(q)`` and ``f32_vt(g)``, whose time is the call's ->
+    (dk, dv) f32."""
+    bh, s, d = _check_kernel_args(flash_bwd_dkv_f32_kernel, (q, k, v, g),
+                                  (lse, delta))
+    qt, gt = f32_vt(q), f32_vt(g)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(_lib("flash_bwd_f32").hvd_flash_bwd_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), qt.data_ptr(),
+        gt.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, s, d, int(causal), _stream(q)),
+        "flash_bwd_dkv_f32_kernel")
+    flash_bwd_dkv_f32_kernel.launches += 1
+    return dk, dv
 
 
 def _simt_args(kernel, flat, rows=()):
@@ -383,8 +427,10 @@ HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
                   flash_bwd_onepass_kernel)
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
                 flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
-# The f32 forward on Hopper, the forward step's first choice in f32.
-F32_KERNELS = (flash_fwd_f32_kernel,)
+# The f32 kernels on Hopper (fwd, dq, dk/dv), the first choice of each of
+# those steps in f32.
+F32_KERNELS = (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
+               flash_bwd_dkv_f32_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS + F32_KERNELS
 # The Hopper forward takes every padded width, dq, dk/dv and the one-pass
 # those up to 256.
@@ -393,8 +439,8 @@ for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
     _k.widths, _k.dtypes = _w, HOPPER_DTYPES
 for _k in SIMT_KERNELS:
     _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
-flash_fwd_f32_kernel.widths = PADDED_WIDTHS
-flash_fwd_f32_kernel.dtypes = (torch.float32,)
+for _k in F32_KERNELS:
+    _k.widths, _k.dtypes = PADDED_WIDTHS, (torch.float32,)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -412,11 +458,11 @@ def _kernels_for(dtype, width: int):
     """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes a Hopper kernel where one takes
-    the dtype and the width (for the forward ``flash_fwd_kernel``, bf16 and
-    f16, or ``flash_fwd_f32_kernel``, f32), else its CUDA-core twin: bf16
+    the dtype and the width (for the forward, dq and dk/dv the bf16 and f16
+    family or the f32 one, ``F32_KERNELS``), else its CUDA-core twin: bf16
     and f16 at up to 256 run all four on Hopper, and past 256 the forward
     on Hopper and the three backward kernels on the CUDA cores; f32 runs
-    the forward on Hopper (split TF32) and the three backward kernels on
+    the forward, dq and dk/dv on Hopper (split TF32) and the one-pass on
     the CUDA cores at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
@@ -425,8 +471,7 @@ def _kernels_for(dtype, width: int):
         raise ValueError("flash attention on CUDA takes a head dim "
                          "zero-padded to one of %s, got %d"
                          % (PADDED_WIDTHS, width))
-    hopper = ((flash_fwd_kernel, flash_fwd_f32_kernel),) + tuple(
-        (h,) for h in HOPPER_KERNELS[1:])
+    hopper = tuple(zip(HOPPER_KERNELS, F32_KERNELS)) + (HOPPER_KERNELS[3:],)
     return tuple(next((h for h in hs if dtype in h.dtypes
                        and width in h.widths), c)
                  for hs, c in zip(hopper, SIMT_KERNELS))

@@ -2,7 +2,8 @@
 package's, which computes in any float dtype.
 
 On the card, bf16 and f16 run the Hopper kernels, and f32 the Hopper f32
-forward (``csrc/flash_fwd_f32.cu``) and the backward's CUDA-core twins
+forward (``csrc/flash_fwd_f32.cu``), dq and dk/dv
+(``csrc/flash_bwd_f32.cu``) and the CUDA-core one-pass
 (``csrc/flash_simt.cu``), chosen by dtype and width alone; here on
 the CPU the same autograd function runs the kernels' plain versions,
 which cast as those kernels do (P to V's dtype before PV, dS to K's and
@@ -114,12 +115,12 @@ def test_plain_versions_cast_as_the_kernels(dtype):
 
 def test_kernels_chosen_by_dtype():
     """At head dims up to 128: bf16 and f16 -> the Hopper kernels, f32 ->
-    the Hopper f32 forward and the CUDA-core backward kernels; anything
-    else raises; the wrappers take CUDA tensors only."""
+    the Hopper f32 forward, dq and dk/dv and the CUDA-core one-pass;
+    anything else raises; the wrappers take CUDA tensors only."""
     for width in (32, 64, 128):
         assert fa._kernels_for(torch.bfloat16, width) == fa.HOPPER_KERNELS
         assert fa._kernels_for(torch.float32, width) == \
-            fa.F32_KERNELS + fa.SIMT_KERNELS[1:]
+            fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)
         assert fa._kernels_for(torch.float16, width) == fa.HOPPER_KERNELS
     with pytest.raises(ValueError, match="f32, f16 or bf16"):
         fa._kernels_for(torch.float64, 64)

@@ -3,8 +3,9 @@
 the V^T copy its wrapper passes, and its arithmetic, split TF32, emulated
 in torch.
 
-On the card f32 runs the forward on Hopper at every padded width and the
-backward on the CUDA cores (``csrc/flash_simt.cu``).  The kernel forms
+On the card f32 runs the forward on Hopper at every padded width, and
+dq and dk/dv too (``test_torch_port_hopper_f32_bwd.py``), the one-pass on
+the CUDA cores (``csrc/flash_simt.cu``).  The kernel forms
 each f32 product a b as a_lo b_hi + a_hi b_lo + a_hi b_hi of TF32 parts
 (hi: the top 19 bits of the f32 word, what the tensor core reads of it;
 lo = x - hi, which the tensor core truncates to TF32 in turn).  Here that
@@ -58,10 +59,13 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", PADDED)
 def test_f32_route_at_every_padded_width(width):
-    """f32: the forward on Hopper (split TF32), dq, dk/dv and the one-pass
-    on the CUDA cores, each taking f32 at the width."""
+    """f32: the forward on Hopper (split TF32) first, then dq and dk/dv
+    on Hopper and the one-pass on the CUDA cores, each taking f32 at the
+    width."""
     route = fa._kernels_for(torch.float32, width)
-    assert route == (fa.flash_fwd_f32_kernel,) + fa.SIMT_KERNELS[1:]
+    assert route == (fa.flash_fwd_f32_kernel, fa.flash_bwd_dq_f32_kernel,
+                     fa.flash_bwd_dkv_f32_kernel,
+                     fa.flash_bwd_onepass_simt_kernel)
     for kern in route:
         assert torch.float32 in kern.dtypes and width in kern.widths
 

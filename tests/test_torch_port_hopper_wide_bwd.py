@@ -10,8 +10,9 @@ plan, 64-row K and V tiles in three ring slots, and a dk/dv kernel of
 64-row k blocks whose two consumers own dV and dK); the Hopper one-pass
 takes the same widths (``test_torch_port_hopper_wide_onepass.py``).
 So on the card bf16 and f16 at 256 run all four on Hopper; past 256 the
-forward on Hopper and the backward on the CUDA cores; f32 all four on the
-CUDA cores.  Here, on the CPU, the wrappers raise on what they do not take
+forward on Hopper and the backward on the CUDA cores; f32 the forward,
+dq and dk/dv on Hopper in split TF32 and the one-pass on the CUDA cores.
+Here, on the CPU, the wrappers raise on what they do not take
 before they look at the device, and the plain versions run.
 
 The plain dq, dk and dv at D 256 in f16 (what the kernels compute, and

@@ -190,6 +190,7 @@ def test_kernels_build_into_an_ignored_directory():
     assert "build/" in ignored
     assert {s.name for s in _build.sources()} == {"flash_fwd.cu",
                                                   "flash_fwd_f32.cu",
+                                                  "flash_bwd_f32.cu",
                                                   "flash_bwd.cu",
                                                   "flash_bwd_onepass.cu",
                                                   "flash_simt.cu",

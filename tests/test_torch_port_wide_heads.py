@@ -6,8 +6,9 @@ package pads any to a multiple of 128: zero columns add 0 to every
 product) and slices the outputs back; on the card, bf16 and f16 at 256
 run the Hopper forward, dq, dk/dv and one-pass backward
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/flash_bwd_onepass.cu``), f32 all four CUDA-core ones
-(``csrc/flash_simt.cu``);
+``csrc/flash_bwd_onepass.cu``), f32 the Hopper f32 forward, dq and
+dk/dv (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``) and the
+CUDA-core one-pass (``csrc/flash_simt.cu``);
 here the plain versions run.  The JAX side runs
 ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its Pallas kernels
 in interpret mode, under both backward choices (``HVD_TPU_FLASH_BWD``,
@@ -162,9 +163,10 @@ def test_decoder_at_head_dim_256_matches_jax(monkeypatch):
 
 
 HOPPER = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.HOPPER_KERNELS))
-# f32: the Hopper forward in split TF32, the CUDA-core backward
+# f32: the Hopper forward, dq and dk/dv in split TF32, the CUDA-core
+# one-pass
 F32 = dict(zip(("fwd", "dq", "dkv", "onepass"),
-               fa.F32_KERNELS + fa.SIMT_KERNELS[1:]))
+               fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
@@ -172,8 +174,8 @@ F32 = dict(zip(("fwd", "dq", "dkv", "onepass"),
 @pytest.mark.parametrize("width", [32, 64, 128, 256])
 def test_route_by_dtype_and_width(dtype, width):
     """bf16 and f16 at up to 256: the four Hopper kernels (at 256 the
-    one-pass with 64-row dq partial slots); f32: the Hopper f32 forward
-    and the three CUDA-core backward kernels.  Each kernel routed to takes
+    one-pass with 64-row dq partial slots); f32: the Hopper f32 forward,
+    dq and dk/dv and the CUDA-core one-pass.  Each kernel routed to takes
     the dtype and width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))
@@ -206,9 +208,9 @@ def test_padded_head_dims_past_128():
 def test_kernel_wrappers_check_their_family():
     """Each wrapper refuses a dtype or width outside its family's before it
     looks at the device: the Hopper dq takes no f32, the Hopper f32
-    forward no f16, the Hopper forwards and the CUDA-core forward no width
-    that is not a padded one (320); what they take then raises here for
-    lying on the CPU."""
+    forward, dq and dk/dv no f16, the Hopper forwards, the Hopper f32 dq
+    and dk/dv and the CUDA-core forward no width that is not a padded one
+    (320); what they take then raises here for lying on the CPU."""
     x = {(dt, w): torch.zeros(2, 64, w, dtype=dt)
          for dt in (torch.float16, torch.float32) for w in (64, 256, 320)}
     rows = torch.zeros(2, 64)
@@ -219,7 +221,13 @@ def test_kernel_wrappers_check_their_family():
              (fa.flash_bwd_onepass_kernel, torch.float16, 64, "CUDA kernel"),
              (fa.flash_fwd_f32_kernel, torch.float16, 64, "one dtype of"),
              (fa.flash_fwd_f32_kernel, torch.float32, 320, "head_dim in"),
-             (fa.flash_fwd_f32_kernel, torch.float32, 256, "CUDA kernel"))
+             (fa.flash_fwd_f32_kernel, torch.float32, 256, "CUDA kernel"),
+             (fa.flash_bwd_dq_f32_kernel, torch.float16, 64, "one dtype of"),
+             (fa.flash_bwd_dq_f32_kernel, torch.float32, 320, "head_dim in"),
+             (fa.flash_bwd_dkv_f32_kernel, torch.float16, 256,
+              "one dtype of"),
+             (fa.flash_bwd_dkv_f32_kernel, torch.float32, 320, "head_dim in"),
+             (fa.flash_bwd_dkv_f32_kernel, torch.float32, 64, "CUDA kernel"))
     for kern, dtype, width, msg in cases:
         t = x[dtype, width]
         args = ((t, t, t, True) if "fwd" in kern.__name__

@@ -3,13 +3,14 @@ and the route each (dtype, width) takes on the card.
 
 Past 256, ``flash_attention`` zero-pads a head dim to the next multiple
 of 128, as the JAX package's ``_d_pad`` pads every head dim (zero columns
-add 0 to every product), and slices the outputs back; on the card every
-dtype's backward there runs the CUDA-core kernels
-(``csrc/flash_simt.cu``), which split the width into 128-column panels,
-one block each, and cast as the plain versions run here do; the forward
-runs on Hopper in bf16 and f16 (``csrc/flash_fwd.cu``: o in panels of
-256 columns and a last one of 128) and in f32 (``csrc/flash_fwd_f32.cu``,
-split TF32: o in panels of 128 columns).  The
+add 0 to every product), and slices the outputs back; on the card the
+bf16 and f16 backward and the f32 one-pass there run the CUDA-core
+kernels (``csrc/flash_simt.cu``), which split the width into 128-column
+panels, one block each, and cast as the plain versions run here do; the
+forward runs on Hopper in bf16 and f16 (``csrc/flash_fwd.cu``: o in
+panels of 256 columns and a last one of 128) and in f32
+(``csrc/flash_fwd_f32.cu``, split TF32: o in panels of 128 columns), and
+so do the f32 dq and dk/dv (``csrc/flash_bwd_f32.cu``).  The
 JAX side runs ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its
 Pallas kernels in interpret mode, under both backward choices
 (``HVD_TPU_FLASH_BWD``, read by both packages).
@@ -64,14 +65,16 @@ def test_padded_head_dim_is_the_references_past_256(d):
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [384, 512, 640, 1024])
 def test_route_past_256(dtype, width):
-    """Every dtype at a multiple of 128 past 256: dq, dk/dv and the
-    one-pass backward on the CUDA cores; the forward on Hopper, in bf16 and
-    f16 ``flash_fwd_kernel``, in f32 ``flash_fwd_f32_kernel`` (split
-    TF32); each kernel taking the dtype and the width."""
+    """Every dtype at a multiple of 128 past 256: bf16 and f16 the forward
+    on Hopper (``flash_fwd_kernel``) and dq, dk/dv and the one-pass on the
+    CUDA cores; f32 the forward, dq and dk/dv on Hopper (split TF32,
+    ``F32_KERNELS``) and the one-pass on the CUDA cores; each kernel
+    taking the dtype and the width."""
     route = fa._kernels_for(dtype, width)
-    fwd = (fa.flash_fwd_f32_kernel if dtype == torch.float32
-           else fa.flash_fwd_kernel)
-    assert route == (fwd,) + fa.SIMT_KERNELS[1:]
+    if dtype == torch.float32:
+        assert route == fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)
+    else:
+        assert route == (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:]
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths
 

@@ -62,15 +62,21 @@ also fail no kernel but the one-pass (``ONLY_KERNEL``): a block's partial
 stored into the next block's slot, dS^T read without consumer 1's
 barrier (a race, held at the decoder's shape), consumer 1's 128 columns
 left unwritten, and a slot's rows above the causal diagonal left
-unwritten.  The f32 forward on Hopper (``flash_fwd_f32.cu``, split TF32,
-and its V^T copy, ``ops/flash_attention.py f32_vt``) is held at its own
-units (chip_smoke's F32_FWD_SHAPES and WIDE_BH_SHAPE in f32, past 256
-with the panel agreement); a fault in either file runs the first units
-and those, and its four faults must fail there and nowhere else
-(``ONLY_AT``): one small term of the split left out (two TF32 terms, off
-by about 2^-11 a product), V^T's keys one off (a roll before the key
-order), the last 32-column chunk of Q K^T left out past 256, and the
-causal mask off by one.  The older
+unwritten.  The f32 kernels on Hopper (the forward, ``flash_fwd_f32.cu``,
+and dq and dk/dv, ``flash_bwd_f32.cu``, sharing ``tf32.cuh``'s split,
+and their transposed copies, ``ops/flash_attention.py f32_vt``) are held
+at their own units (chip_smoke's F32_FWD_SHAPES and WIDE_BH_SHAPE in
+f32, past 256 with the panel agreement); a fault in any of those files
+runs the first units and those, and their faults must fail there and
+nowhere else (``ONLY_AT``): one small term of the shared split left out
+(two TF32 terms, off by about 2^-11 a product), V^T's keys one off (a
+roll before the key order), the last 32-column chunk of the forward's
+Q K^T left out past 256, the forward's causal mask off by one; and five
+of dq and dk/dv, which must also fail no kernel but those two
+(``ONLY_KERNEL``): a small term left out of their output products, K^T's,
+Q^T's and dO^T's rows one off, the last panel block past 256 not
+launched, their causal mask off by one, and the P^T hand-over read
+before its barrier.  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
 rows past S, the last q tile, f16 read as bf16) lie in code that both
 widths run, or are planted in both dk/dv kernels.  The first case,
@@ -392,10 +398,11 @@ FAULTS = {
         "the score chunks from chunk z on (S summed in another order, so P "
         "off in its last bits) and writes lse too"),
     "f32_fwd_two_term_split": (
-        "flash_fwd_f32.cu", "  MmaTF32<N>::run(d, ahi, blo, 1);\n",
+        "tf32.cuh", "  MmaTF32<N>::run(d, ahi, blo, 1);\n",
         "  (void)blo;\n",
-        "f32 forward on Hopper: the split's hi lo term left out of both "
-        "products (two TF32 terms, about 2^-11 off each product)"),
+        "f32 kernels on Hopper (the shared split, tf32.cuh): the hi lo term "
+        "left out of every product (two TF32 terms, about 2^-11 off each "
+        "product)"),
     "f32_fwd_vt_key_off_by_one": (
         "../ops/flash_attention.py",
         "    return vp.view(bh, s8 // 8, 4, 2, d)",
@@ -417,6 +424,44 @@ FAULTS = {
         "sc[4 * j + e] = NEG_INF;",
         "f32 forward on Hopper: causal mask drops the diagonal key in the "
         "second half"),
+    "f32_bwd_two_term_split": (
+        "flash_bwd_f32.cu",
+        "    split(x[4 * j + 3], h[j][3], l[j][3]);\n  }\n",
+        "    split(x[4 * j + 3], h[j][3], l[j][3]);\n"
+        "    l[j][0] = l[j][1] = l[j][2] = l[j][3] = 0u;\n  }\n",
+        "f32 dq and dk/dv on Hopper: the lo hi term left out of dS K, P^T dO "
+        "and dS^T Q (two TF32 terms)"),
+    "f32_bwd_t_rows_off_by_one": (
+        "../ops/flash_attention.py",
+        ("    kt = f32_vt(k)\n", "    qt, gt = f32_vt(q), f32_vt(g)\n"),
+        ("    kt = f32_vt(k.roll(1, 1))\n",
+         "    qt, gt = f32_vt(q.roll(1, 1)), f32_vt(g.roll(1, 1))\n"),
+        "f32 dq and dk/dv on Hopper: K^T's, Q^T's and dO^T's rows one off "
+        "(rolled by one before the copy, so row j reads row j - 1)"),
+    "f32_bwd_last_panel_past_256": (
+        "flash_bwd_f32.cu",
+        ("  dim3 grid(bh, (s + dq::BQ - 1) / dq::BQ, d / W);",
+         "  dim3 grid(bh, (s + dkv::BK - 1) / dkv::BK, d / W);"),
+        ("  dim3 grid(bh, (s + dq::BQ - 1) / dq::BQ, d / W - (d > 256));",
+         "  dim3 grid(bh, (s + dkv::BK - 1) / dkv::BK, d / W - (d > 256));"),
+        "f32 dq and dk/dv on Hopper past 256: the last 128-column panel "
+        "block not launched (its columns of dq, dk and dv left unwritten)"),
+    "f32_bwd_mask_off_by_one": (
+        "flash_bwd_f32.cu", "  return !(k < S && (!CAUSAL || k <= q));",
+        "  return !(k < S && (!CAUSAL || k < q + (2 * q < S)));",
+        "f32 dq and dk/dv on Hopper: causal mask drops the diagonal key in "
+        "the second half"),
+    "f32_bwd_pt_before_barrier": (
+        "flash_bwd_f32.cu",
+        ("        float dpl[4][8] = {};  // dP^T = V dO^T on the CUDA cores",
+         "x[4 * j + e] = xp[(4 * j + e) * 128 + t] * ("),
+        ("        float dpl[4][8] = {};  // dP^T = V dO^T on the CUDA cores\n"
+         "        float pt[BQ / 2];\n#pragma unroll\n"
+         "        for (int y = 0; y < BQ / 2; ++y) pt[y] = xp[y * 128 + t];",
+         "x[4 * j + e] = pt[4 * j + e] * ("),
+        "f32 dk/dv on Hopper: consumer 1 reads the P^T hand-over before its "
+        "barrier (at the start of each q tile, before its dP^T: the last "
+        "tile's P^T, or whatever the tile held)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -467,8 +512,8 @@ def f16_labels(shapes):
 
 
 def f32_labels(shapes):
-    """The f32 forward on Hopper's units: F32_FWD_SHAPES and WIDE_BH_SHAPE
-    in f32."""
+    """The f32 kernels on Hopper's units (the forward, dq and dk/dv):
+    F32_FWD_SHAPES and WIDE_BH_SHAPE in f32."""
     return {"%s float32 hopper_f32" % shape for shape in shapes}
 
 
@@ -551,7 +596,14 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "f32_fwd_vt_key_off_by_one": f32_labels(F32_ALL),
                 # every shape past 256 sums 12 or 20 chunks
                 "f32_fwd_last_chunk_past_256": f32_labels(WIDER),
-                "f32_fwd_mask_off_by_one": f32_labels(F32_CAUSAL)}
+                "f32_fwd_mask_off_by_one": f32_labels(F32_CAUSAL),
+                "f32_bwd_two_term_split": f32_labels(F32_ALL),
+                "f32_bwd_t_rows_off_by_one": f32_labels(F32_ALL),
+                # every shape past 256 has three panels or more
+                "f32_bwd_last_panel_past_256": f32_labels(WIDER),
+                "f32_bwd_mask_off_by_one": f32_labels(F32_CAUSAL),
+                # a stale or unwritten P^T at every timed shape
+                "f32_bwd_pt_before_barrier": f32_labels(SIMT_ALL)}
 # Faults that must fail nowhere but at these units: the D 256 code's own;
 # the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
@@ -564,8 +616,14 @@ ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
            "f32_fwd_vt_key_off_by_one": f32_labels(F32_ALL),
            "f32_fwd_last_chunk_past_256": f32_labels(WIDER),
            "f32_fwd_mask_off_by_one": f32_labels(F32_ALL)}
-ONLY_KERNEL = {name: "flash_bwd_onepass" for name in ONLY_AT
+ONLY_AT.update({name: f32_labels(F32_ALL) for name in FAULTS
+                if name.startswith("f32_bwd")})
+# The one-pass's plants at 256 fail no kernel but the one-pass; the f32
+# backward's none but the f32 dq and dk/dv.
+ONLY_KERNEL = {name: {"flash_bwd_onepass"} for name in ONLY_AT
                if name.startswith("onepass_d256")}
+ONLY_KERNEL.update({name: {"flash_bwd_dq", "flash_bwd_dkv"} for name in ONLY_AT
+                    if name.startswith("f32_bwd")})
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -586,9 +644,10 @@ SIMT_SOURCE = "flash_simt.cu"
 F16_SOURCES = {"flash_fwd.cu", "flash_bwd.cu", _KV, "flash_bwd_onepass.cu",
                "sm90.cuh"}
 WIDE_SOURCES = F16_SOURCES
-# The f32 forward on Hopper's kernel and its V^T copy: a fault there runs
-# the first units and the f32 forward's.
-F32_SOURCES = {"flash_fwd_f32.cu", "../ops/flash_attention.py"}
+# The f32 kernels on Hopper, their shared split and their transposed
+# copies: a fault there runs the first units and the f32 kernels'.
+F32_SOURCES = {"flash_fwd_f32.cu", "flash_bwd_f32.cu", "tf32.cuh",
+               "../ops/flash_attention.py"}
 
 
 def fault_sources(fault):
@@ -863,7 +922,7 @@ def main(argv) -> int:
         failed_kernels = set()
         f16_at, _ = check_family(readings, f16_labels_)
         wide_at, _ = check_family(readings, wide_labels_, failed_kernels)
-        f32_at, _ = check_family(readings, f32_labels_)
+        f32_at, _ = check_family(readings, f32_labels_, failed_kernels)
         flash_at |= cuda_deaths & set(flash_labels)
         f16_at |= cuda_deaths & set(f16_labels_)
         wide_at |= cuda_deaths & set(wide_labels_)
@@ -878,7 +937,7 @@ def main(argv) -> int:
               "(max-scaled rule %s), decoder check %s, resnet check %s, bert "
               "check %s, scale_sum check %s, adasum check %s, CUDA-core "
               "flash check %s, f16 Hopper flash check %s, Hopper forward "
-              "from 256 on check %s, f32 Hopper forward check %s"
+              "from 256 on check %s, f32 Hopper check %s"
               % tuple("fails" if f else "passes"
                       for f in (bool(flash_at), flash_max, bool(bn_at),
                                 bn_max) + models + (bool(simt_at),
@@ -893,7 +952,7 @@ def main(argv) -> int:
             edge = readings.get(CODECS, {}).get("edge")
             print("  CUDA-core units held: %d of %d; f16 Hopper units held: "
                   "%d of %d; Hopper forward units from 256 on held: %d of "
-                  "%d; f32 Hopper forward units held: %d of %d"
+                  "%d; f32 Hopper units held: %d of %d"
                   % (len(set(simt_labels_) & set(readings)),
                      len(simt_labels_),
                      len(set(f16_labels_) & set(readings)),
@@ -927,7 +986,7 @@ def main(argv) -> int:
                     print("  FAILED OUTSIDE its units at: %s"
                           % ", ".join(sorted(stray)))
             if name in ONLY_KERNEL:
-                others = failed_kernels - {ONLY_KERNEL[name]}
+                others = failed_kernels - ONLY_KERNEL[name]
                 ok &= not others
                 print("  kernels failing at its units: %s%s" % (
                     ", ".join(sorted(failed_kernels)) or "none",

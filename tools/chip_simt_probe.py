@@ -3,13 +3,16 @@
 (``horovod_tpu_torch/csrc/flash_simt.cu``, f32, f16 and bf16, head dims
 32 to 256 and past it in 128-column panels), the four Hopper kernels
 (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``) in f16 and
-bf16, and the f32 forward on Hopper (``flash_fwd_f32.cu``), on one GPU.
+bf16, and the f32 forward, dq and dk/dv on Hopper (``flash_fwd_f32.cu``,
+``flash_bwd_f32.cu``), on one GPU.
 
     python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wide-onepass]
-                                     [--f32-fwd] [--f32-split]
+                                     [--f32-fwd] [--f32-split] [--f32-bwd]
                                      [--sdpa-kernels] [--watchdog]
                                      [--head-major]
     python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
+    python3 tools/chip_simt_probe.py --f32-bwd-times [--tree DIR]
+    python3 tools/chip_simt_probe.py --f32-bwd-parts
 
 Builds the kernels, prints the card, the build time and ``nvcc``'s
 register and spill report for those four sources, then each kernel's
@@ -55,6 +58,20 @@ limits for the truncating split, the round-to-nearest one, the
 truncating split with either small term dropped, and the truncating
 split summed as the tensor core sums (each sum truncated toward zero)
 in the kernel's chains and in one chain each; it builds nothing.
+``--f32-bwd`` probes the f32 dq and dk/dv on Hopper (``flash_bwd_f32.cu``:
+split TF32, dP on the CUDA cores) alone: its report (registers, spills),
+their readings at chip_smoke's F32_FWD_SHAPES (past 256 with their panel
+agreement) and WIDE_BH_SHAPE (``worst`` against chip_smoke's f32 limits),
+at the decoder's shape at head dims 128, 256 and 384 and at BERT-Large's
+the device ms of each kernel (its transposed copies included), of those
+copies alone (``f32_vt``), of the CUDA-core twins and of SDPA's f32
+backward (20 calls each, the twins 3), beside each kernel's split-TF32
+bound and this design's (dP at the CUDA cores' 67 TFLOP/s), then
+``tests/test_torch_port_hopper_f32_bwd.py``'s emulation on the card (TF32
+off) at BH 4096, S 64, D 32 and at the decoder's shape, both causal: the
+worst reading of dq, dk and dv against the f32 plain version under the
+f32 limits for the design, for dP in split TF32 and correctly rounded,
+and for one truncating chain each.
 ``--sdpa-kernels`` names the kernels that the yardstick, SDPA (forward
 and backward, one call each under ``torch.profiler``), launches in f32
 and bf16 at the decoder's shape at head dims 128 and 256, with their
@@ -73,7 +90,15 @@ one in all else.  A copy keeps its build from one run to the next.
 
 ``--narrow-bwd`` times only the Hopper dq, dk/dv and one-pass in bf16
 and f16 at the decoder's shape (D 128) and BERT's (D 64), 20 calls each,
-with no readings and no report; ``--tree DIR`` takes ``chip_smoke.py``
+with no readings and no report; ``--f32-bwd-times`` times only the f32
+dq and dk/dv on Hopper at the decoder's shape at head dims 128, 256 and
+384 and at BERT-Large's, 20 calls each, likewise; ``--f32-bwd-parts`` runs
+that in turns on this checkout and on copies under ``build/`` whose f32
+dq and dk/dv leave out dP (``no_dp``), the split-TF32 score products
+(``no_scores``: S and S^T from their fragments' bits) or the output
+products (``no_outputs``), and this checkout again, each in a process of
+its own: what each part costs (their outputs are not held); ``--tree DIR`` takes
+``chip_smoke.py``
 and the package from another checkout (an unpacked parent commit, say,
 under ``build/``), so that one call can time two trees in turns.
 """
@@ -81,6 +106,7 @@ under ``build/``), so that one call can time two trees in turns.
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 
@@ -303,6 +329,82 @@ def f32_split(cs, torch):
         torch.cuda.empty_cache()
 
 
+def f32_bwd(cs, fa, torch):
+    """The f32 dq and dk/dv on Hopper: readings, times beside their
+    transposed copies, their CUDA-core twins and SDPA's backward, and
+    their bounds, then the emulation of their arithmetic on the card."""
+    import torch.nn.functional as F
+    for bh, s, d, causal in list(cs.F32_FWD_SHAPES) + [cs.WIDE_BH_SHAPE]:
+        errs, _, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, "float32"), causal, "hopper_f32")
+        torch.cuda.synchronize()
+        print("hopper_f32", cs.shape_label(bh, s, d, causal),
+              json.dumps({n: {o: {k: float("%.3g" % x) for k, x in e.items()}
+                              for o, e in errs[n].items()}
+                          for n in ("flash_bwd_dq", "flash_bwd_dkv")}),
+              flush=True)
+        torch.cuda.empty_cache()
+    peak = cs.PEAK_TF32_FLOPS / cs.SPLIT_TF32_TERMS
+    for bh, s, d, causal in (cs.DECODER_SHAPE, cs.WIDE_HEAD_SHAPES[0],
+                             cs.WIDER_HEAD_SHAPES[0], cs.BERT_SHAPE):
+        q, k, v, do = cs.kernel_inputs(bh, s, d, "float32")
+        o, lse = fa.flash_fwd_f32_kernel(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, causal)
+        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=1.0)
+        do4 = do.view(1, bh, s, d)
+        times = {name: cs.time_ms(lambda f=f: f(*bwd), reps=reps)
+                 for name, f, reps in (
+                     ("dq", fa.flash_bwd_dq_f32_kernel, 20),
+                     ("dkv", fa.flash_bwd_dkv_f32_kernel, 20),
+                     ("dq_simt", fa.flash_bwd_dq_simt_kernel, 3),
+                     ("dkv_simt", fa.flash_bwd_dkv_simt_kernel, 3))}
+        times["kt_copy"] = cs.time_ms(lambda: fa.f32_vt(k), reps=20)
+        times["qt_gt_copies"] = cs.time_ms(
+            lambda: (fa.f32_vt(q), fa.f32_vt(do)), reps=20)
+        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+        pass_flops = 2 * d * bh * (s * (s + 1) // 2 if causal else s * s)
+        print("times f32 backward", cs.shape_label(bh, s, d, causal), times,
+              "bound ms (split TF32; this design, dP at %.0f TFLOP/s): dq "
+              "%.4g, %.4g; dk/dv %.4g, %.4g" % (
+                  cs.PEAK_F32_FLOPS / 1e12,
+                  3 * pass_flops / peak * 1e3,
+                  (2 * pass_flops / peak + pass_flops / cs.PEAK_F32_FLOPS)
+                  * 1e3,
+                  4 * pass_flops / peak * 1e3,
+                  (3 * pass_flops / peak + pass_flops / cs.PEAK_F32_FLOPS)
+                  * 1e3), flush=True)
+        del q, k, v, do, o, q4, k4, v4, out4, do4, bwd
+        torch.cuda.empty_cache()
+    f32_bwd_emulation(cs, torch)
+
+
+def f32_bwd_emulation(cs, torch):
+    """The f32 backward's arithmetic emulated on the card: each variant's
+    worst reading of dq, dk and dv."""
+    from tests import test_torch_port_hopper_f32_bwd as emu
+    for bh, s, d, causal in ((4096, 64, 32, True), cs.DECODER_SHAPE):
+        q, k, v, g = cs.kernel_inputs(bh, s, d, "float32")
+        o, lse = emu.fa.flash_fwd_reference(q, k, v, causal)
+        args = (q, k, v, g, lse, (g * o).sum(-1))
+        for label, kw in (("the design", {}),
+                          ("dP in split TF32", {"dp": "split"}),
+                          ("dP correctly rounded", {"dp": "rounded"}),
+                          ("one truncating chain each",
+                           {"chains": ("all", "all")})):
+            got = emu.emulated_bwd(*args, causal, **kw)
+            print("f32 backward emulated, %s at %s: worst dq, dk, dv %s"
+                  % (label, cs.shape_label(bh, s, d, causal),
+                     ["%.4g" % w for w in emu.worst(got, args, causal)]),
+                  flush=True)
+            del got
+            torch.cuda.empty_cache()
+
+
 def narrow_bwd(cs, fa, torch):
     """The Hopper backward kernels up to D 128: device ms, nothing else
     (every name used here is in the trees it compares)."""
@@ -320,6 +422,57 @@ def narrow_bwd(cs, fa, torch):
                 bh, s, d, "causal" if causal else "full"), times, flush=True)
             del q, k, v, do, o, lse, delta, bwd
             torch.cuda.empty_cache()
+
+
+def f32_bwd_times(cs, fa, torch):
+    """The f32 dq and dk/dv on Hopper: device ms, nothing else."""
+    for bh, s, d, causal in (cs.DECODER_SHAPE, cs.WIDE_HEAD_SHAPES[0],
+                             cs.WIDER_HEAD_SHAPES[0], cs.BERT_SHAPE):
+        q, k, v, do = cs.kernel_inputs(bh, s, d, "float32")
+        o, lse = fa.flash_fwd_reference(q, k, v, causal)
+        bwd = (q, k, v, do, lse, (do * o).sum(-1), causal)
+        print("times f32 backward", cs.shape_label(bh, s, d, causal), {
+            name: cs.time_ms(lambda f=f: f(*bwd), reps=20)
+            for name, f in (("dq", fa.flash_bwd_dq_f32_kernel),
+                            ("dkv", fa.flash_bwd_dkv_f32_kernel))},
+            flush=True)
+        del q, k, v, do, o, lse, bwd
+        torch.cuda.empty_cache()
+
+
+# flash_bwd_f32.cu with one part of the work left out: (copy, old, new)
+F32_BWD_PARTS = (
+    ("no_dp",
+     "                                           int a0, const unsigned char* sb, int lane) {\n",
+     "                                           int a0, const unsigned char* sb, int lane) {\n"
+     "  if (lane >= 0) return;\n"),
+    ("no_scores",
+     "  wgmma_fence();\n#pragma unroll\n  for (int kk = 0; kk < CW / 8; ++kk)\n"
+     "    mma3<64>(",
+     "  if (cq >= 0) {\n#pragma unroll\n    for (int i = 0; i < 32; ++i)\n"
+     "      d[i] = __uint_as_float(ah[i / 8][i % 4] ^ al[i / 8][(i + 1) % 4]);\n"
+     "    return;\n  }\n"
+     "  wgmma_fence();\n#pragma unroll\n  for (int kk = 0; kk < CW / 8; ++kk)\n"
+     "    mma3<64>("),
+    ("no_outputs",
+     "  float part[W / 2];\n  wgmma_fence();",
+     "  float part[W / 2];\n  if (lo > 0) {\n#pragma unroll\n"
+     "    for (int i = 0; i < W / 2; ++i)\n"
+     "      acc[i] += __uint_as_float(h[i / 4 % 8][i % 4] ^ l[(i + 3) / 4 % 8][i % 4]);\n"
+     "    return;\n  }\n  wgmma_fence();"))
+
+
+def f32_bwd_parts(repo):
+    """``--f32-bwd-times`` on this checkout, on each F32_BWD_PARTS copy
+    and on this checkout again, each in a process of its own."""
+    trees = [repo] + [probe_copy(repo, "f32-bwd-" + name, "flash_bwd_f32.cu",
+                                 (old,), (new,))
+                      for name, old, new in F32_BWD_PARTS] + [repo]
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--f32-bwd-times", "--tree", tree]).returncode
+    return rc
 
 
 def sdpa_kernels(cs, torch):
@@ -373,6 +526,8 @@ def main(argv) -> int:
     if "--head-major" in argv:
         repo = probe_copy(repo, "probe-head-major", "flash_bwd.cu", BH_FIRST,
                           HEAD_MAJOR)
+    if "--f32-bwd-parts" in argv:
+        return f32_bwd_parts(repo)
     if "--tree" in argv:
         repo = os.path.abspath(argv[argv.index("--tree") + 1])
     sys.path.insert(0, repo)
@@ -396,14 +551,16 @@ def main(argv) -> int:
             return 0
     t0 = time.perf_counter()
     print("build", _build.build_all(), time.perf_counter() - t0, flush=True)
-    if "--narrow-bwd" in argv:
+    if "--narrow-bwd" in argv or "--f32-bwd-times" in argv:
         print("tree", repo, flush=True)
-        narrow_bwd(cs, fa, torch)
+        (narrow_bwd if "--narrow-bwd" in argv else f32_bwd_times)(cs, fa,
+                                                                  torch)
         return 0
     wide = {"--wide-fwd": ("flash_fwd", wide_fwd),
             "--wide-bwd": ("flash_bwd", wide_bwd),
             "--wide-onepass": ("flash_bwd_onepass", wide_onepass),
-            "--f32-fwd": ("flash_fwd_f32", f32_fwd)}
+            "--f32-fwd": ("flash_fwd_f32", f32_fwd),
+            "--f32-bwd": ("flash_bwd_f32", f32_bwd)}
     wide = [wide[a] for a in wide if a in argv]
     for src in [src for src, _ in wide] or SOURCES:
         cs.print_ptxas((_build.build_dir() / ("%s.log" % src)).read_text())

@@ -36,13 +36,15 @@
    BH 65,600,
    against SDPA in the same dtype (f16 and bf16 outputs also by the share
    of elements off the plain version's); the f32 forward on Hopper
-   (``csrc/flash_fwd_f32.cu``, split TF32) and the f32 dq and dk/dv on
-   Hopper (``csrc/flash_bwd_f32.cu``, split TF32 with dP on the CUDA
-   cores) at the same shapes as those twins and untimed at BH 65,600,
-   under their f32 limits, past 256 also each against itself panel
-   against panel, bit for bit (o's on a V whose panels repeat; dq's, dk's
-   and dv's on a Q, K, V and dO whose 128-column panels repeat), against
-   SDPA in f32 (its backward beside dq and dk/dv); the
+   (``csrc/flash_fwd_f32.cu``, split TF32) and the f32 dq, dk/dv and
+   one-pass on Hopper (``csrc/flash_bwd_f32.cu``, split TF32 with dP on
+   the CUDA cores; the one-pass's partials in a NaN-poisoned block and
+   bit for bit over two launches) at the same shapes as those twins and
+   untimed at BH 65,600, under their f32 limits, past 256 also each
+   against itself panel against panel, bit for bit (o's on a V whose
+   panels repeat; dq's, dk's, dv's and the partials' on a Q, K, V and dO
+   whose 128-column panels repeat), against SDPA in f32 (its backward
+   beside each backward kernel); the
    scale-sum kernel bit for bit at five lengths up to BERT-Large's
    word-embedding gradient, three coefficient pairs and three dtypes,
    aligned and offset by one element, with an inf and a NaN and with
@@ -56,8 +58,8 @@
    backward),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
-   decoder at dtype float32 (the Hopper f32 forward, dq and dk/dv, the
-   CUDA-core one-pass) with 2 heads of 128, of 192 (padded to 256) and of 320
+   decoder at dtype float32 (the Hopper f32 forward, dq, dk/dv and
+   one-pass) with 2 heads of 128, of 192 (padded to 256) and of 320
    (padded to 384), trained 3 Adam steps (one step past 128) through
    ``make_train_step`` on a one-rank world under each backward choice,
    against the same steps in f32 on the CPU.
@@ -98,8 +100,7 @@
    of the f32 kernels: the decoder at the same width and depth at dtype
    float32, one step through ``make_train_step`` under each backward
    choice from the same weights (the Hopper f32 forward 2 x 12 launches,
-   the Hopper f32 dq and dk/dv 12 each, the CUDA-core one-pass 12, the
-   CUDA-core forward, dq and dk/dv none), each step's loss and gradients
+   the Hopper f32 dq, dk/dv and one-pass 12 each, no CUDA-core kernel), each step's loss and gradients
    against the same model's on the plain attention path on the card.
    Then BERT-Large Adasum fine-tuning, the in-process
    form of Adasum allreduce: the gradients of four 8-row shards of the
@@ -270,16 +271,18 @@ WIDER_HEAD_SHAPES = ((32, 2048, 384, True), (2, 130, 384, True),
                      (4, 200, 640, False))
 SIMT_SHAPES = (FLASH_SHAPES + ((2, 130, 64, True),) + WIDE_HEAD_SHAPES
                + WIDER_HEAD_SHAPES)
-# The f32 kernels on Hopper (``F32_KERNELS``: the forward, dq and dk/dv,
-# split TF32) against the f32 plain version at the CUDA-core twins' shapes
-# under their f32 limits (SIMT_TOL["float32"]: each product within about
-# 2^-19 of its f32 value, the rest the order of f32 sums; dq and dk/dv form
-# dP on the CUDA cores in the plain version's order, so they are held to
-# it, not to ``exact_dp``), untimed at WIDE_BH_SHAPE, and past 256 also
-# held to themselves panel against panel (``panel_agreement``).
+# The f32 kernels on Hopper (``F32_KERNELS``: the forward, dq, dk/dv and
+# one-pass, split TF32) against the f32 plain version at the CUDA-core
+# twins' shapes under their f32 limits (SIMT_TOL["float32"]: each product
+# within about 2^-19 of its f32 value, the rest the order of f32 sums; the
+# backward kernels form dP on the CUDA cores in the plain version's order,
+# so they are held to it, not to ``exact_dp``), untimed at WIDE_BH_SHAPE,
+# and past 256 also held to themselves panel against panel
+# (``panel_agreement``); the one-pass's partials also against a second
+# launch's, bit for bit (a slot is one block's, summed in one order).
 F32_FWD_SHAPES = SIMT_SHAPES
-# The f32 dq and dk/dv split their outputs into panels of this many
-# columns past 256 (the forward's panel agreement keeps the Hopper
+# The f32 dq, dk/dv and one-pass split their outputs into panels of this
+# many columns past 256 (the forward's panel agreement keeps the Hopper
 # forward's 256, which its 128-column panels also meet).
 F32_BWD_PANEL = 128
 # The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
@@ -303,8 +306,8 @@ WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 # 128-column panels).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
-# The small decoder at dtype float32 (the Hopper f32 forward, dq and dk/dv,
-# the CUDA-core one-pass) trained on the card through make_train_step (Adam, a
+# The small decoder at dtype float32 (the Hopper f32 forward, dq, dk/dv and
+# one-pass) trained on the card through make_train_step (Adam, a
 # one-rank world) against the same steps in f32 on the CPU (plain
 # versions, torch.optim.Adam): each step's loss and the last step's
 # gradients, relative, under each backward choice.  f32 on both sides:
@@ -537,9 +540,10 @@ def panel_agreement(fa, kern, q, k, v, do, causal, period=256):
     every O panel block must give o's columns bit for bit as panel 0's
     block does, which it does only when all of them formed the same S, m, l
     and P; a backward kernel's q, k, v and do (lse and delta the plain
-    forward's on them), so every panel block of dq, dk and dv must give
-    its columns as panel 0's does, which it does only when all of them
-    formed the same P and dS.  -> compare's keys over every output,
+    forward's on them), so every panel block of dq, dk, dv and the
+    one-pass's partials must give its columns as panel 0's does, which it
+    does only when all of them formed the same P and dS.  -> compare's
+    keys over every output,
     ``worst`` 0 when every element agrees and 1 + the count of those that
     do not."""
     import torch
@@ -556,9 +560,15 @@ def panel_agreement(fa, kern, q, k, v, do, causal, period=256):
         delta = (do.float() * o.float()).sum(-1)
         outs = kern(q, k, v, do, lse, delta, causal)
         outs = outs if isinstance(outs, tuple) else (outs,)
+    return bits_agreement(outs, [repeat(out) for out in outs])
+
+
+def bits_agreement(outs, bases):
+    """Each of ``outs`` against its twin in ``bases``, element for element
+    -> compare's keys, ``worst`` 0 when every element agrees and 1 + the
+    count of those that do not."""
     off, err, plain = 0, 0.0, 0.0
-    for out in outs:
-        base = repeat(out)
+    for out, base in zip(outs, bases):
         off += (out != base).sum().item()
         err = max(err, (out.float() - base.float()).abs().max().item())
         plain = max(plain, base.float().abs().max().item())
@@ -612,10 +622,16 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     errs = {name: {out: compare(got, want, *tol[out])
                    for out, (got, want) in outs.items()}
             for name, outs in outputs.items()}
+    if family == "hopper_f32" and "flash_bwd_onepass" in kern:
+        # A slot is one block's, summed in one order: its bits repeat.
+        again = kern["flash_bwd_onepass"](*bwd)
+        errs["flash_bwd_onepass"]["repeat"] = bits_agreement(
+            again, (dqp, dk1, dv1))
+        del again
     if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
         errs["flash_fwd"]["panels"] = panel_agreement(
             fa, kern["flash_fwd"], q, k, v, do, causal)
-        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_onepass"):
             if family == "hopper_f32":
                 errs[name]["panels"] = panel_agreement(
                     fa, kern[name], q, k, v, do, causal, F32_BWD_PANEL)
@@ -657,7 +673,8 @@ def held_errors(fa, q, k, v, do, causal, label, family="hopper"):
                 name, out, label, json.dumps({k: float("%.4g" % x)
                                               for k, x in e.items()}),
                 "rtol %.3g, atol %.3g x row scale" % tol[out] if out in tol
-                else "panels against panel 0's, bit for bit"))
+                else "panels against panel 0's, bit for bit" if out == "panels"
+                else "a second launch against the first, bit for bit"))
     if poisoned is not None:
         say("  flash_bwd_onepass partials in a NaN-poisoned block: %s"
             % poisoned)
@@ -884,7 +901,7 @@ def f32_decoder_steps(torch, head_dim):
     check_counts(counts, {"flash_fwd_f32_kernel": 2 * n,
                           "flash_bwd_dq_f32_kernel": n,
                           "flash_bwd_dkv_f32_kernel": n,
-                          "flash_bwd_onepass_simt_kernel": n})
+                          "flash_bwd_onepass_f32_kernel": n})
     if bad:
         raise AssertionError("the f32 decoder (head_dim %d) on the card "
                              "disagrees with the CPU under %s"
@@ -895,7 +912,7 @@ def f32_decoder_steps(torch, head_dim):
 def train_f32_flagship(torch):
     """The f32 kernels' main path at the decoder flagship's width
     (bench.py:86-91, as ``train_flagship``) in float32, the Hopper f32
-    forward, dq and dk/dv and the CUDA-core one-pass: every launch count
+    forward, dq, dk/dv and one-pass: every launch count
     set to 0 just before its two steps, read just after -> the counts."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
@@ -960,7 +977,7 @@ def train_f32_flagship(torch):
     check_counts(counts, {"flash_fwd_f32_kernel": 2 * L,
                           "flash_bwd_dq_f32_kernel": L,
                           "flash_bwd_dkv_f32_kernel": L,
-                          "flash_bwd_onepass_simt_kernel": L})
+                          "flash_bwd_onepass_f32_kernel": L})
     if bad:
         raise AssertionError("the f32 flagship on the card disagrees with "
                              "its plain attention path under %s" % bad)
@@ -3448,7 +3465,9 @@ def main() -> int:
         for name, wrapper in (("flash_fwd_f32", "flash_fwd_f32_kernel"),
                               ("flash_bwd_dq_f32", "flash_bwd_dq_f32_kernel"),
                               ("flash_bwd_dkv_f32",
-                               "flash_bwd_dkv_f32_kernel"))
+                               "flash_bwd_dkv_f32_kernel"),
+                              ("flash_bwd_onepass_f32",
+                               "flash_bwd_onepass_f32_kernel"))
         for suffix, shape, launches in (
             ("", DECODER_SHAPE, simt_counts),
             ("_d256", WIDE_HEAD_SHAPES[0], f32_counts[192]),
@@ -3527,7 +3546,8 @@ def main() -> int:
                 *(n for _, kern, _, n in f32_records if kern == name))
             for name, what in (("flash_fwd_f32", "forward"),
                                ("flash_bwd_dq_f32", "dq"),
-                               ("flash_bwd_dkv_f32", "dk/dv"))))
+                               ("flash_bwd_dkv_f32", "dk/dv"),
+                               ("flash_bwd_onepass_f32", "one-pass"))))
     out = []
     for name, (src, replaces, wrapper, shape, paths) in sources.items():
         rec = flash[shape][name]

@@ -1,30 +1,40 @@
-// Flash-attention dq and dk/dv for Hopper (sm_90a) in float32, at head
-// dims 32, 64, 128, 256 and every multiple of 128 past 256: the scores and
-// the three output products on the tensor cores as split TF32, dP on the
-// CUDA cores in the plain version's order.
+// Flash-attention dq, dk/dv and one-pass backward for Hopper (sm_90a) in
+// float32, at head dims 32, 64, 128, 256 and every multiple of 128 past
+// 256: the scores and the output products on the tensor cores as split
+// TF32, dP on the CUDA cores in the plain version's order.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_bwd_dq_kernel and
-// _flash_bwd_dkv_kernel, launched by _flash_attention_bwd_flat, at f32
-// inputs.  Same function as flash_bwd_reference in f32, q pre-scaled by
-// 1/sqrt(D):
+// _flash_bwd_dkv_kernel, launched by _flash_attention_bwd_flat, and
+// _flash_bwd_onepass_kernel, launched by _flash_attention_bwd_onepass_flat,
+// at f32 inputs.  Same function as flash_bwd_reference and
+// flash_bwd_onepass_reference in f32, q pre-scaled by 1/sqrt(D):
 //   p  = exp(q k^T - lse), 0 where masked (causal, or a key past S)
 //   ds = p * (g v^T - delta)            (delta = rowsum(g * o), from the caller)
 //   dq = ds k, dk = ds^T q, dv = p^T g  (all f32; dq in q's pre-scaled units)
+//   one-pass: dk, dv and dq's f32 partials dqp[bh, t] = ds[:, slot t]
+//   k[slot t], one slot per onepass_block_k(D) rows of k (64 at D 256,
+//   else 128), which the caller sums.
 // Under f32 every cast of the TPU kernels is the identity.  Tiles wholly
 // above the diagonal are skipped; the mask is applied only where a tile
 // crosses the diagonal or S.
 //
 // Bound on the H100 SXM: operations.  One pass of products at width D over
 // the live (q, k) pairs is 2 D pairs FLOP; dq takes three (S, dP, dS K),
-// dk/dv four (S^T, dP^T, P^T dO, dS^T Q).  As split TF32 (three TF32
-// products an f32 one at 495 TFLOP/s: 165 TFLOP/s of f32), at BH 32, S
-// 2048, causal, and at BERT-Large's shape (BH 512, S 384, D 64, full):
-//             D 128    BERT     D 256   D 384
-//   dq, ms    0.3125   0.1757   0.625   0.9375
-//   dk/dv, ms 0.4167   0.2343   0.8333  1.250
+// dk/dv four (S^T, dP^T, P^T dO, dS^T Q), the one-pass five (dk/dv's and
+// dS K).  As split TF32 (three TF32 products an f32 one at 495 TFLOP/s:
+// 165 TFLOP/s of f32), at BH 32, S 2048, causal, and at BERT-Large's shape
+// (BH 512, S 384, D 64, full):
+//                D 128    BERT     D 256   D 384
+//   dq, ms       0.3125   0.1757   0.625   0.9375
+//   dk/dv, ms    0.4167   0.2343   0.8333  1.250
+//   one-pass, ms 0.5208   0.2928   1.042   1.5625
 // (0.406 of the time of the same products on the CUDA cores at 67
 // TFLOP/s.)  This design forms dP on the CUDA cores (below): its own floor
-// at D 128 is 0.2083 + 0.2566 ms for dq and 0.3125 + 0.2566 for dk/dv.
+// at D 128 is 0.2083 + 0.2566 ms for dq, 0.3125 + 0.2566 for dk/dv and
+// 0.4167 + 0.2566 for the one-pass (0.6733; 0.3785 at BERT's shape, 1.347
+// at D 256, 2.020 at D 384).  The one-pass's partials (0.537 GB at D 128,
+// 2.15 at D 256's 64-row slots, 1.61 at D 384) with its f32 inputs, dk and
+// dv take 0.22 / 0.76 / 0.66 ms at 3.35 TB/s, under the operations.
 //
 // dP on the CUDA cores.  dS = P (dP - delta) cancels where one key holds
 // nearly all of a row's weight (a causal row 0 exactly: delta = dP there,
@@ -93,17 +103,54 @@
 // chunks (K, Q, Q's lo) and consumer 1's (V, dO), two or more stages
 // each; one stage each of dO^T's and Q^T's W x 64 tiles with their lo.
 //
+// one-pass (flash_bwd_onepass_f32): dk/dv's body (kv_body with PARTIALS)
+// plus the dq partial of each 64-row k block and 64-row q tile, dS K.  A
+// block owns (bh, dq slot, panel z): at D 256 one 64-row k block, else the
+// slot's two in turn, the second adding its partial to what the first
+// stored for the same q rows (the same thread, the same elements: no
+// fence and no atomics, so a slot's bits repeat from run to run).  A causal
+// slot's rows above its diagonal (before its first k block) are written as
+// zeros, this panel's columns; rows past S are not written.  dS K
+// contracts over keys (trap 1), so dS is the A operand, read from shared
+// memory and split in registers in f32_vt's key order (trap 2), and K^T
+// (f32_vt(k), the dq wrapper's copy) the B operand with its lo; each
+// consumer forms W / 2 of the partial's columns in one fresh chain of 64
+// keys (trap 3: 24 products).  Consumer 1 holds dS^T in registers: once
+// every one of its threads has read its P^T (a named barrier of its 128
+// threads) it writes dS over the P^T exchange tile and arrives on dsfull;
+// it frees the tile (xempty) only after its own partial has read dS, and
+// consumer 0 reads dS before it writes the next P^T.  Shared memory at W
+// 128: K^T's 128 x 64 tile and its lo take 64 KB, where dk/dv holds its
+// 4 x 32 KB dO^T and Q^T tiles beside two 40 KB ring stages and the 16 KB
+// exchange tile (224 KB); so the one-pass loads those as 64-column halves
+// with their lo (4 x 16 KB), each output product taking two in turn: 2 x
+// 40 + 64 + 64 + 16 = 224 KB.  At W 64 and 32 the whole tiles fit (two
+// ring stages, and four).  Registers (setmaxnreg 232 a consumer thread,
+// the most that 40 for the producer's leave): dV or dK 64; the products'
+// A fragments go in two groups of 32 keys (32 registers, not 64), and the
+// partial comes after both halves of the output product, once X is dead:
+// 64 + the partial's W / 4 + its fragments 32.  ptxas still spills in the
+// one-pass at W 128 (180 and 144 bytes of stores, full and causal: in the
+// SASS a few of the accumulator's values and loop-invariant addresses,
+// reloaded once a tile; with the partial between the halves it spilled
+// 1160-1280) and at W 64, full, 4 bytes.
+//
 // Past 128, panels of 128 columns on gridDim.z repeat S and dP in every
 // panel block: at D 384 dq does 7 passes of products for the function's 3,
-// dk/dv 8 for 4.  Every panel block streams its chunks in one order, chunk
-// 0 first, so all of them form the same P and dS bit for bit.
+// dk/dv 8 for 4, the one-pass 9 for 5.  Every panel block streams its
+// chunks in one order, chunk 0 first, so all of them form the same P and
+// dS bit for bit.
 //
 // Left on the table: dS formed once per tile into shared memory and the
 // panels walked from there (no repeated S and dP past 128); dP on the
 // tensor cores with a check that allows its rounding; Q and dO (dq) and
 // K, V (dk/dv) resident instead of re-read per tile; two stages of the
-// transposed tiles; a persistent grid.  What each part costs (dP, the
-// score products, the output products, each left out in turn:
+// transposed tiles (the one-pass: whole ones at W 128, where the second
+// half's load now lands while the consumer waits); the one-pass's spills
+// at W 128; K^T's tile and the partials' stores through TMA (the partials
+// go from registers, the second k block reading back the first's); a
+// persistent grid.  What each part costs (dP, the score
+// products, the output products, each left out in turn:
 // tools/chip_simt_probe.py --f32-bwd-parts) is in PERF.md.
 #include "tf32.cuh"
 
@@ -188,33 +235,77 @@ __device__ __forceinline__ void to_acc(const float (&y)[4][8], float (&x)[32], i
     }
 }
 
-// acc (W columns) += X B: X's 64 columns from a consumer's accumulator
-// registers (P, dS, P^T or dS^T) as split TF32 A fragments, keys 2c and
-// 2c + 1 of each group of 8 as the fragment's columns c and c + 4 (trap 2),
-// B a W x 64 tile of a transposed copy in that order (two 32-column
-// panels) with its lo copy `lo` bytes on; summed in a fresh accumulator,
-// then added in f32 (trap 3).
-template <int W>
-__device__ __forceinline__ void tile_product(float (&acc)[W / 2], const float (&x)[32],
-                                             const unsigned char* sb, size_t lo) {
-  uint32_t h[8][4], l[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    split(x[4 * j], h[j][0], l[j][0]);
-    split(x[4 * j + 2], h[j][1], l[j][1]);
-    split(x[4 * j + 1], h[j][2], l[j][2]);
-    split(x[4 * j + 3], h[j][3], l[j][3]);
-  }
+// acc's columns [W piece, W piece + W) (of ACC) += X B: X's 64 columns from a
+// consumer's accumulator registers (P, dS, P^T or dS^T) as split TF32 A
+// fragments, keys 2c and 2c + 1 of each group of 8 as the fragment's
+// columns c and c + 4 (trap 2), B a W x 64 tile of a transposed copy in
+// that order (two 32-column panels) with its lo copy `lo` bytes on; summed
+// in a fresh accumulator, then added in f32 (trap 3).  The fragments go in
+// two groups of 32 keys, each split, issued and awaited before the next
+// is split: one chain, half the fragments' registers.
+template <int W, int ACC = W>
+__device__ __forceinline__ void tile_product(float (&acc)[ACC / 2], const float (&x)[32],
+                                             const unsigned char* sb, size_t lo,
+                                             int piece) {
   float part[W / 2];
-  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    mma3<W>(part, h[j], l[j], desc_tf32(sb, W, j), desc_tf32(sb + lo, W, j), j > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(part);
+  for (int g = 0; g < 2; ++g) {
+    uint32_t h[4][4], l[4][4];
 #pragma unroll
-  for (int i = 0; i < W / 2; ++i) acc[i] += part[i];
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * g + jj;
+      split(x[4 * j], h[jj][0], l[jj][0]);
+      split(x[4 * j + 2], h[jj][1], l[jj][1]);
+      split(x[4 * j + 1], h[jj][2], l[jj][2]);
+      split(x[4 * j + 3], h[jj][3], l[jj][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      mma3<W>(part, h[jj], l[jj], desc_tf32(sb, W, 4 * g + jj),
+              desc_tf32(sb + lo, W, 4 * g + jj), g + jj > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+  }
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[piece * (W / 2) + i] += part[i];
+}
+
+// The one-pass's dq partial of a 64-row q tile, N = W / 2 of its columns:
+// dqp = dS K, dS (q rows by 64 keys, two 32-key chunks in shared memory at
+// sds) as split TF32 A fragments read from there, key 2c + e of each
+// group of 8 as the fragment's column c + 4 e (f32_vt's order, trap 2), B
+// K^T's tile (W rows of 64 keys in f32_vt's order, two 32-key panels) from
+// this consumer's first row (sb points there), with its lo copy `lo` bytes
+// on; the 64 keys one chain in a fresh accumulator (trap 3), each chunk's
+// fragments split, issued and awaited before the next chunk's.
+template <int W>
+__device__ __forceinline__ void ds_k(float (&dqp)[W / 4], const unsigned char* sds,
+                                     int ra, int cq, const unsigned char* sb, size_t lo) {
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const unsigned char* ch = sds + g * (64 * CW * 4);
+    uint32_t h[4][4], l[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int col = 8 * kk + 2 * cq;  // keys col, col + 1
+      const float2 a = *reinterpret_cast<const float2*>(ch + chunk_off(ra, col));
+      const float2 b = *reinterpret_cast<const float2*>(ch + chunk_off(ra + 8, col));
+      split(a.x, h[kk][0], l[kk][0]);
+      split(b.x, h[kk][1], l[kk][1]);
+      split(a.y, h[kk][2], l[kk][2]);
+      split(b.y, h[kk][3], l[kk][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma3<W / 2>(dqp, h[kk], l[kk], desc_tf32(sb, W, 4 * g + kk),
+                  desc_tf32(sb + lo, W, 4 * g + kk), g + kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqp);
+  }
 }
 
 // An accumulator's rows r, r + 8 (from row0) of W columns to f32 (rows, DW)
@@ -234,6 +325,20 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[W / 2]
             make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
+}
+
+// lse or delta of the q columns a consumer thread holds in a 64-row q
+// tile from q0 (pairs from column c2 of every 8), 0 past S: read where
+// they are used, so that they hold no registers through the tile's chunks.
+__device__ __forceinline__ void q_rows(float (&rows)[16], const float* __restrict__ src,
+                                       int bh, int q0, int c2, int S) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + 8 * j + c2 + e;
+      rows[2 * j + e] = q < S ? src[(size_t)bh * S + q] : 0.f;
+    }
 }
 
 // Whether P of q row q and key k is 0: a key past S, or causal, the key
@@ -415,51 +520,61 @@ flash_bwd_dq_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       const int s = i % VS;
       mbar_wait(&vfull[s], (i / VS) & 1);
       mbar_wait(&vready[s], (i / VS) & 1);
-      tile_product<W>(acc, ds, smem + L::ktiles + s * 2 * L::kt, L::kt);
+      tile_product<W>(acc, ds, smem + L::ktiles + s * 2 * L::kt, L::kt, 0);
       mbar_arrive(&vempty[s]);
     }
     store_rows<W>(out + (size_t)bh * S * DW, acc, q0, rl, c2, W * z, S, DW);
   }
 }
 
-// ---------------------------------------------------------------- dk/dv
+// ------------------------------------------------------ dk/dv, one-pass
 
 namespace dkv {
 
-constexpr int BK = 64;  // k rows per block
+constexpr int BK = 64;  // k rows per k block
 constexpr int BQ = 64;  // q rows per tile
 
 // Consumer 0's chunk ring (K chunk, Q chunk, Q chunk's lo), consumer 1's
 // (V chunk, dO chunk), SR stages each; one stage each of dO^T's and Q^T's
-// W x 64 tiles with their lo; the P^T exchange; the mbarriers.
-template <int W>
+// TW x 64 tiles with their lo; with PARTIALS K^T's W x 64 tile with its lo;
+// the P^T exchange (with PARTIALS then dS); the mbarriers.  TW is W, but
+// in the one-pass at W 128 half of it, each output product taking two
+// tiles: the room for K^T's tile.
+template <int W, bool PARTIALS>
 struct Smem {
+  static constexpr int TW = PARTIALS && W == 128 ? 64 : W;
+  static constexpr int NT = W / TW;
   static constexpr size_t c = 64 * CW * 4;  // one 64-row chunk, 8 KB
   static constexpr size_t achunk = 3 * c;
   static constexpr size_t bchunk = 2 * c;
-  static constexpr size_t tt = (size_t)W * BQ * 4;
+  static constexpr size_t tt = (size_t)TW * BQ * 4;
+  static constexpr size_t kt = PARTIALS ? (size_t)W * BK * 4 : 0;
   static constexpr size_t xbytes = BK * BQ * 4;
-  static constexpr size_t fit = (ROOM - 4 * tt - xbytes) / (achunk + bchunk);
+  static constexpr size_t fit = (ROOM - 4 * tt - 2 * kt - xbytes) / (achunk + bchunk);
   static constexpr int SR = fit < 4 ? (int)fit : 4;
   static constexpr size_t bring = SR * achunk;
   static constexpr size_t tiles = bring + SR * bchunk;
-  static constexpr size_t xp = tiles + 4 * tt;
+  static constexpr size_t ktile = tiles + 4 * tt;
+  static constexpr size_t xp = ktile + 2 * kt;
   static constexpr size_t bar = xp + xbytes;
-  static constexpr size_t bytes = bar + 8 * (5 * SR + 8) + 1024;  // + alignment
+  static constexpr size_t bytes = bar + 8 * (5 * SR + 8 + 4 * PARTIALS) + 1024;  // + alignment
   static_assert(SR >= 2 && bytes <= 232448, "a block's shared memory");
 };
 
 }  // namespace dkv
 
-template <int W, bool CAUSAL>
-__global__ void __launch_bounds__(384, 1)
-flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
-                  const __grid_constant__ CUtensorMap mqt, const __grid_constant__ CUtensorMap mgt,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int S, int DW) {
-  using L = dkv::Smem<W>;
-  constexpr int BQ = dkv::BQ, BK = dkv::BK, SR = L::SR;
+// The block of head blockIdx.x, panel blockIdx.z of dk's and dv's columns
+// and k rows [blockIdx.y nkb 64, + nkb 64): its 64-row k blocks below S in
+// turn (dk/dv: one; the one-pass: one dq slot, nkb = onepass_block_k / 64).
+// Without PARTIALS, mkt and dqp are not read.
+template <int W, bool CAUSAL, bool PARTIALS>
+__device__ __forceinline__ void kv_body(
+    const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const CUtensorMap& mg,
+    const CUtensorMap& mqt, const CUtensorMap& mgt, const CUtensorMap& mkt,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, float* __restrict__ dqp, int S, int DW, int nkb) {
+  using L = dkv::Smem<W, PARTIALS>;
+  constexpr int BQ = dkv::BQ, BK = dkv::BK, SR = L::SR, TW = L::TW, NT = L::NT;
   extern __shared__ unsigned char raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
@@ -472,15 +587,19 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   uint64_t* tready = tfull + 2;
   uint64_t* tempty = tready + 2;
   uint64_t* xfull = tempty + 2;  // P^T written (consumer 0's 128 threads)
-  uint64_t* xempty = xfull + 1;  // P^T read (consumer 1's 128 threads)
+  uint64_t* xempty = xfull + 1;  // P^T (with PARTIALS also dS) read (consumer 1's)
+  uint64_t* kfull = xempty + 1;  // PARTIALS: K^T's tile of the k block
+  uint64_t* kready = kfull + 1;
+  uint64_t* kempty = kready + 1;
+  uint64_t* dsfull = kempty + 1;  // PARTIALS: dS written (consumer 1's 128 threads)
   float* xp = reinterpret_cast<float*>(smem + L::xp);
 
   // bh on gridDim.x; k block 0, the longest causal one, first
-  const int bh = blockIdx.x, k0 = blockIdx.y * BK, z = blockIdx.z;
+  const int bh = blockIdx.x, z = blockIdx.z;
+  const int kfirst = blockIdx.y * nkb * BK;
+  const int nb = PARTIALS ? min(nkb, (S - kfirst + BK - 1) / BK) : 1;
   const int nc = DW / CW;
   const int nq = (S + BQ - 1) / BQ;
-  const int qstart = CAUSAL ? k0 / BQ : 0;  // tiles before lie above the diagonal
-  const int nt = nq - qstart;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -498,6 +617,12 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     }
     mbar_init(xfull, 128);
     mbar_init(xempty, 128);
+    if (PARTIALS) {
+      mbar_init(kfull, 1);
+      mbar_init(kready, NCONV);
+      mbar_init(kempty, 256);  // every consumer thread
+      mbar_init(dsfull, 128);
+    }
     fence_barrier_init();
   }
   __syncthreads();
@@ -505,132 +630,240 @@ flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   if (wg == 2) {  // producer
     setmaxnreg_dec<40>();
     const int pt = threadIdx.x - 256;
-    if (pt == 0) {  // per q tile nc chunks into each ring, then the two T tiles
-      int n = 0;
-      for (int i = 0; i < nt; ++i) {
-        const int q0 = (qstart + i) * BQ;
-        for (int c = 0; c < nc; ++c, ++n) {  // chunk 0 first in every panel block
-          const int s = n % SR, col = CW * c, par = ((n / SR) & 1) ^ 1;
-          unsigned char* sa = smem + s * L::achunk;
-          mbar_wait(&aempty[s], par);
-          mbar_arrive_expect_tx(&afull[s], 2 * L::c);
-          tma_load_3d(sa, mk, &afull[s], col, k0, bh);
-          tma_load_3d(sa + L::c, mq, &afull[s], col, q0, bh);
-          unsigned char* sb = smem + L::bring + s * L::bchunk;
-          mbar_wait(&bempty[s], par);
-          mbar_arrive_expect_tx(&bfull[s], 2 * L::c);
-          tma_load_3d(sb, mv, &bfull[s], col, k0, bh);
-          tma_load_3d(sb + L::c, mg, &bfull[s], col, q0, bh);
+    if (pt == 0) {  // per q tile nc chunks into each ring, then the T tiles
+      int n = 0, i = 0;
+      for (int b = 0; b < nb; ++b) {
+        const int k0 = kfirst + b * BK;
+        if constexpr (PARTIALS) {  // K^T's W x 64 tile of the k block
+          mbar_wait(kempty, (b & 1) ^ 1);
+          mbar_arrive_expect_tx(kfull, L::kt);
+          for (int p = 0; p < BK / CW; ++p)
+            tma_load_3d(smem + L::ktile + p * W * 128, mkt, kfull, k0 + CW * p, W * z, bh);
         }
-        for (int r = 0; r < 2; ++r) {
-          unsigned char* st = smem + L::tiles + r * 2 * L::tt;
-          mbar_wait(&tempty[r], (i & 1) ^ 1);
-          mbar_arrive_expect_tx(&tfull[r], L::tt);
-          for (int p = 0; p < BQ / CW; ++p)
-            tma_load_3d(st + p * W * 128, r ? mqt : mgt, &tfull[r], q0 + CW * p, W * z,
-                        bh);
+        // q tiles before the k block's lie above the diagonal
+        for (int qt = CAUSAL ? k0 / BQ : 0; qt < nq; ++qt, ++i) {
+          const int q0 = qt * BQ;
+          for (int c = 0; c < nc; ++c, ++n) {  // chunk 0 first in every panel block
+            const int s = n % SR, col = CW * c, par = ((n / SR) & 1) ^ 1;
+            unsigned char* sa = smem + s * L::achunk;
+            mbar_wait(&aempty[s], par);
+            mbar_arrive_expect_tx(&afull[s], 2 * L::c);
+            tma_load_3d(sa, mk, &afull[s], col, k0, bh);
+            tma_load_3d(sa + L::c, mq, &afull[s], col, q0, bh);
+            unsigned char* sb = smem + L::bring + s * L::bchunk;
+            mbar_wait(&bempty[s], par);
+            mbar_arrive_expect_tx(&bfull[s], 2 * L::c);
+            tma_load_3d(sb, mv, &bfull[s], col, k0, bh);
+            tma_load_3d(sb + L::c, mg, &bfull[s], col, q0, bh);
+          }
+          for (int h = 0; h < NT; ++h)
+            for (int r = 0; r < 2; ++r) {
+              const int u = i * NT + h;  // this role's tiles so far
+              unsigned char* st = smem + L::tiles + r * 2 * L::tt;
+              mbar_wait(&tempty[r], (u & 1) ^ 1);
+              mbar_arrive_expect_tx(&tfull[r], L::tt);
+              for (int p = 0; p < BQ / CW; ++p)
+                tma_load_3d(st + p * TW * 128, r ? mqt : mgt, &tfull[r], q0 + CW * p,
+                            W * z + TW * h, bh);
+            }
         }
       }
-    } else if (pt >= 32) {  // lo copies of each Q chunk and T tile
+    } else if (pt >= 32) {  // lo copies of each Q chunk, T tile and K^T tile
       const int ct = pt - 32;
-      int n = 0;
-      for (int i = 0; i < nt; ++i) {
-        for (int c = 0; c < nc; ++c, ++n) {
-          const int s = n % SR;
-          mbar_wait(&afull[s], (n / SR) & 1);
-          unsigned char* sq = smem + s * L::achunk + L::c;
-          write_lo(sq, sq + L::c, (int)(L::c / 16), ct);
-          fence_proxy_async();  // the lo copy is read by wgmma (async proxy)
-          mbar_arrive(&aready[s]);
-        }
-        for (int r = 0; r < 2; ++r) {
-          unsigned char* st = smem + L::tiles + r * 2 * L::tt;
-          mbar_wait(&tfull[r], i & 1);
-          write_lo(st, st + L::tt, (int)(L::tt / 16), ct);
+      int n = 0, i = 0;
+      for (int b = 0; b < nb; ++b) {
+        const int k0 = kfirst + b * BK;
+        if constexpr (PARTIALS) {
+          mbar_wait(kfull, b & 1);
+          write_lo(smem + L::ktile, smem + L::ktile + L::kt, (int)(L::kt / 16), ct);
           fence_proxy_async();
-          mbar_arrive(&tready[r]);
+          mbar_arrive(kready);
+        }
+        for (int qt = CAUSAL ? k0 / BQ : 0; qt < nq; ++qt, ++i) {
+          for (int c = 0; c < nc; ++c, ++n) {
+            const int s = n % SR;
+            mbar_wait(&afull[s], (n / SR) & 1);
+            unsigned char* sq = smem + s * L::achunk + L::c;
+            write_lo(sq, sq + L::c, (int)(L::c / 16), ct);
+            fence_proxy_async();  // the lo copy is read by wgmma (async proxy)
+            mbar_arrive(&aready[s]);
+          }
+          for (int h = 0; h < NT; ++h)
+            for (int r = 0; r < 2; ++r) {
+              const int u = i * NT + h;
+              unsigned char* st = smem + L::tiles + r * 2 * L::tt;
+              mbar_wait(&tfull[r], u & 1);
+              write_lo(st, st + L::tt, (int)(L::tt / 16), ct);
+              fence_proxy_async();
+              mbar_arrive(&tready[r]);
+            }
         }
       }
     }
-  } else {  // consumers of k rows [k0, k0 + 64): 0 owns dV, 1 owns dK
+  } else {  // consumers of each k block: 0 owns dV, 1 owns dK
     setmaxnreg_inc<232>();
     const int t = threadIdx.x % 128, lane = t % 32;
-    const int rl = 16 * (t / 32) + lane / 4;  // first k row of the block; +8
+    const int rl = 16 * (t / 32) + lane / 4;  // first k row of the block (q row of dS); +8
     const int cq = lane % 4, c2 = 2 * cq;     // first q column of a pair
     unsigned char* st = smem + L::tiles + wg * 2 * L::tt;  // dO^T or Q^T
-    float acc[W / 2];  // dV (consumer 0) or dK (consumer 1)
-#pragma unroll
-    for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
-
-    int n = 0;  // chunks of this consumer's ring
-    for (int i = 0; i < nt; ++i) {
-      const int q0 = (qstart + i) * BQ;
-      // lse (consumer 0) or delta (consumer 1) of the q columns held
-      float rows[BQ / 4];
-      const float* src = wg ? delta : lse;
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = q0 + 8 * j + c2 + e;
-          rows[2 * j + e] = q < S ? src[(size_t)bh * S + q] : 0.f;
-        }
-      float x[BQ / 2];  // S^T then P^T, or dP^T then dS^T: k rows rl, rl + 8
-      if (wg == 0) {
-        for (int c = 0; c < nc; ++c, ++n) {
-          const int s = n % SR;
-          mbar_wait(&afull[s], (n / SR) & 1);
-          mbar_wait(&aready[s], (n / SR) & 1);
-          const unsigned char* sa = smem + s * L::achunk;
-          float part[BQ / 2];
-          chunk_scores(part, sa, rl, cq, sa + L::c, L::c);
-          mbar_arrive(&aempty[s]);
-#pragma unroll
-          for (int y = 0; y < BQ / 2; ++y) x[y] = c > 0 ? x[y] + part[y] : part[y];
-        }
-        // P^T = exp(S^T - lse), 0 where masked, to the exchange tile in
-        // f32 (thread t's values at [y][t], the layout in which consumer
-        // 1's thread t holds dP^T)
-        const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q = q0 + 8 * j + c2 + (e & 1), k = k0 + rl + 8 * (e >> 1);
-            const float p = expf(x[4 * j + e] - rows[2 * j + (e & 1)]);
-            x[4 * j + e] = masked && (q >= S || dead<CAUSAL>(q, k, S)) ? 0.f : p;
-          }
-        mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
-#pragma unroll
-        for (int y = 0; y < BQ / 2; ++y) xp[y * 128 + t] = x[y];
-        mbar_arrive(xfull);
-      } else {
-        float dpl[4][8] = {};  // dP^T = V dO^T on the CUDA cores
-        for (int c = 0; c < nc; ++c, ++n) {
-          const int s = n % SR;
-          mbar_wait(&bfull[s], (n / SR) & 1);
-          const unsigned char* sb = smem + L::bring + s * L::bchunk;
-          chunk_dots(dpl, sb, 16 * (t / 32), sb + L::c, lane);
-          mbar_arrive(&bempty[s]);
-        }
-        to_acc(dpl, x, lane);
-        mbar_wait(xfull, i & 1);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            x[4 * j + e] = xp[(4 * j + e) * 128 + t] * (x[4 * j + e] - rows[2 * j + (e & 1)]);
-        mbar_arrive(xempty);
-      }
-      // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q (T tiles in
-      // f32_vt's q order)
-      mbar_wait(&tfull[wg], i & 1);
-      mbar_wait(&tready[wg], i & 1);
-      tile_product<W>(acc, x, st, L::tt);
-      mbar_arrive(&tempty[wg]);
+    // PARTIALS: this block's slot from this panel's first column; its rows
+    // above the causal diagonal (before the first k block) are zeros
+    float* slot = nullptr;
+    if constexpr (PARTIALS) {
+      slot = dqp + ((size_t)bh * gridDim.y + blockIdx.y) * S * DW + W * z;
+      if (CAUSAL)
+        for (int e = t + 128 * wg; e < kfirst * (W / 4); e += 256)
+          reinterpret_cast<float4*>(slot + (size_t)(e / (W / 4)) * DW)[e % (W / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    store_rows<W>((wg ? dk : dv) + (size_t)bh * S * DW, acc, k0, rl, c2, W * z, S, DW);
+
+    int n = 0, i = 0;  // chunks of this consumer's ring, q tiles
+    for (int b = 0; b < nb; ++b) {
+      const int k0 = kfirst + b * BK;
+      float acc[W / 2];  // dV (consumer 0) or dK (consumer 1)
+#pragma unroll
+      for (int y = 0; y < W / 2; ++y) acc[y] = 0.f;
+      for (int qt = CAUSAL ? k0 / BQ : 0; qt < nq; ++qt, ++i) {
+        const int q0 = qt * BQ;
+        float x[BQ / 2];  // S^T then P^T, or dP^T then dS^T: k rows rl, rl + 8
+        if (wg == 0) {
+          for (int c = 0; c < nc; ++c, ++n) {
+            const int s = n % SR;
+            mbar_wait(&afull[s], (n / SR) & 1);
+            mbar_wait(&aready[s], (n / SR) & 1);
+            const unsigned char* sa = smem + s * L::achunk;
+            float part[BQ / 2];
+            chunk_scores(part, sa, rl, cq, sa + L::c, L::c);
+            mbar_arrive(&aempty[s]);
+#pragma unroll
+            for (int y = 0; y < BQ / 2; ++y) x[y] = c > 0 ? x[y] + part[y] : part[y];
+          }
+          float rows[BQ / 4];
+          q_rows(rows, lse, bh, q0, c2, S);
+          // P^T = exp(S^T - lse), 0 where masked, to the exchange tile in
+          // f32 (thread t's values at [y][t], the layout in which consumer
+          // 1's thread t holds dP^T)
+          const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = q0 + 8 * j + c2 + (e & 1), k = k0 + rl + 8 * (e >> 1);
+              const float p = expf(x[4 * j + e] - rows[2 * j + (e & 1)]);
+              x[4 * j + e] = masked && (q >= S || dead<CAUSAL>(q, k, S)) ? 0.f : p;
+            }
+          mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T (and dS)
+#pragma unroll
+          for (int y = 0; y < BQ / 2; ++y) xp[y * 128 + t] = x[y];
+          mbar_arrive(xfull);
+        } else {
+          float dpl[4][8] = {};  // dP^T = V dO^T on the CUDA cores
+          for (int c = 0; c < nc; ++c, ++n) {
+            const int s = n % SR;
+            mbar_wait(&bfull[s], (n / SR) & 1);
+            const unsigned char* sb = smem + L::bring + s * L::bchunk;
+            chunk_dots(dpl, sb, 16 * (t / 32), sb + L::c, lane);
+            mbar_arrive(&bempty[s]);
+          }
+          to_acc(dpl, x, lane);
+          float rows[BQ / 4];
+          q_rows(rows, delta, bh, q0, c2, S);
+          mbar_wait(xfull, i & 1);
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              x[4 * j + e] = xp[(4 * j + e) * 128 + t] * (x[4 * j + e] - rows[2 * j + (e & 1)]);
+          if constexpr (PARTIALS) {
+            // dS (q rows, keys: two 32-key chunks) over the exchange tile,
+            // once every thread of this consumer has read its P^T
+            named_sync(1, 128);
+            unsigned char* sds = reinterpret_cast<unsigned char*>(xp);
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int k = rl + 8 * (e >> 1), q = 8 * j + c2 + (e & 1);
+                *reinterpret_cast<float*>(sds + (k / CW) * L::c + chunk_off(q, k % CW)) =
+                    x[4 * j + e];
+              }
+            mbar_arrive(dsfull);
+          } else {
+            mbar_arrive(xempty);
+          }
+        }
+        // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q (T tiles in
+        // f32_vt's q order, NT of TW columns)
+#pragma unroll
+        for (int h = 0; h < NT; ++h) {
+          const int u = i * NT + h;
+          mbar_wait(&tfull[wg], u & 1);
+          mbar_wait(&tready[wg], u & 1);
+          tile_product<TW, W>(acc, x, st, L::tt, h);
+          mbar_arrive(&tempty[wg]);
+        }
+        if constexpr (PARTIALS) {  // this consumer's W / 2 columns of the dq partial
+          mbar_wait(kfull, b & 1);
+          mbar_wait(kready, b & 1);
+          mbar_wait(dsfull, i & 1);
+          float dqt[W / 4];
+          ds_k<W>(dqt, reinterpret_cast<const unsigned char*>(xp), rl, cq,
+                  smem + L::ktile + wg * (W / 2) * 128, L::kt);
+          if (wg) mbar_arrive(xempty);  // the exchange tile is free
+          if (qt == nq - 1) mbar_arrive(kempty);
+          // q rows below S; a later k block of the slot adds to what the
+          // first stored (the same thread, the same elements)
+          float* o = slot + (size_t)q0 * DW + (W / 2) * wg + c2;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = rl + 8 * hh;
+            if (q0 + row < S) {
+#pragma unroll
+              for (int j = 0; j < W / 16; ++j) {
+                float2* at = reinterpret_cast<float2*>(o + (size_t)row * DW + 8 * j);
+                float2 y = make_float2(dqt[4 * j + 2 * hh], dqt[4 * j + 2 * hh + 1]);
+                if (b > 0) {
+                  const float2 was = *at;
+                  y.x += was.x;
+                  y.y += was.y;
+                }
+                *at = y;
+              }
+            }
+          }
+        }
+      }
+      store_rows<W>((wg ? dk : dv) + (size_t)bh * S * DW, acc, k0, rl, c2, W * z, S, DW);
+    }
   }
+}
+
+template <int W, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                  const __grid_constant__ CUtensorMap mqt, const __grid_constant__ CUtensorMap mgt,
+                  const __grid_constant__ CUtensorMap mkt, const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, float* __restrict__ dqp, int S, int DW, int nkb) {
+  kv_body<W, CAUSAL, false>(mq, mk, mv, mg, mqt, mgt, mkt, lse, delta, dk, dv, dqp, S, DW,
+                            nkb);
+}
+
+template <int W, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_onepass_f32(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mg,
+                      const __grid_constant__ CUtensorMap mqt,
+                      const __grid_constant__ CUtensorMap mgt,
+                      const __grid_constant__ CUtensorMap mkt, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, float* __restrict__ dqp, int S, int DW,
+                      int nkb) {
+  kv_body<W, CAUSAL, true>(mq, mk, mv, mg, mqt, mgt, mkt, lse, delta, dk, dv, dqp, S, DW,
+                           nkb);
 }
 
 // ------------------------------------------------------------ launches
@@ -653,37 +886,57 @@ static cudaError_t launch_dq(const CUtensorMap (&m)[4], const float* kt, const f
   return cudaGetLastError();
 }
 
-template <int W, bool CAUSAL>
-static cudaError_t launch_dkv(const CUtensorMap (&m)[4], const float* qt, const float* gt,
-                              const float* lse, const float* delta, float* dk, float* dv,
-                              int bh, int s, int d, cudaStream_t stream) {
-  using L = dkv::Smem<W>;
-  CUtensorMap mqt, mgt;
+// dk/dv (dqp null, kt not read) or, with PARTIALS, the one-pass (bk rows
+// of k a dq slot, a block each).
+template <int W, bool CAUSAL, bool PARTIALS>
+static cudaError_t launch_kv(const CUtensorMap (&m)[4], const float* qt, const float* gt,
+                             const float* kt, const float* lse, const float* delta,
+                             float* dk, float* dv, float* dqp, int bh, int s, int d, int bk,
+                             cudaStream_t stream) {
+  using L = dkv::Smem<W, PARTIALS>;
+  const uint64_t s8 = (s + 7) / 8 * 8;
+  CUtensorMap mqt, mgt, mkt;
   cudaError_t err;
-  if ((err = panel_map<CW>(&mqt, qt, d, bh, W, (s + 7) / 8 * 8)) != cudaSuccess ||
-      (err = panel_map<CW>(&mgt, gt, d, bh, W, (s + 7) / 8 * 8)) != cudaSuccess)
+  if ((err = panel_map<CW>(&mqt, qt, d, bh, L::TW, s8)) != cudaSuccess ||
+      (err = panel_map<CW>(&mgt, gt, d, bh, L::TW, s8)) != cudaSuccess ||
+      (err = panel_map<CW>(&mkt, PARTIALS ? kt : qt, d, bh, W, s8)) != cudaSuccess)
     return err;
-  auto kernel = flash_bwd_dkv_f32<W, CAUSAL>;
+  auto kernel = PARTIALS ? flash_bwd_onepass_f32<W, CAUSAL> : flash_bwd_dkv_f32<W, CAUSAL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (s + dkv::BK - 1) / dkv::BK, d / W);
-  kernel<<<grid, 384, L::bytes, stream>>>(m[0], m[1], m[2], m[3], mqt, mgt, lse, delta, dk,
-                                          dv, s, d);
+  dim3 grid(bh, (s + bk - 1) / bk, d / W);
+  kernel<<<grid, 384, L::bytes, stream>>>(m[0], m[1], m[2], m[3], mqt, mgt, mkt, lse, delta,
+                                          dk, dv, dqp, s, d, bk / dkv::BK);
   return cudaGetLastError();
+}
+
+template <bool PARTIALS>
+static cudaError_t launch_kv_at(const CUtensorMap (&m)[4], const float* qt, const float* gt,
+                                const float* kt, const float* lse, const float* delta,
+                                float* dk, float* dv, float* dqp, int bh, int s, int d,
+                                int causal, int bk, cudaStream_t st) {
+#define HVD_KV(W, C) \
+  launch_kv<W, C, PARTIALS>(m, qt, gt, kt, lse, delta, dk, dv, dqp, bh, s, d, bk, st)
+  if (causal) return d == 32 ? HVD_KV(32, true) : d == 64 ? HVD_KV(64, true) : HVD_KV(128, true);
+  return d == 32 ? HVD_KV(32, false) : d == 64 ? HVD_KV(64, false) : HVD_KV(128, false);
+#undef HVD_KV
 }
 
 // The maps of q, k, v and g: 32-column chunks of `qrows` rows for q and g,
 // 64 rows for k and v.
-static cudaError_t input_maps(CUtensorMap (&m)[4], const float* q, const float* k,
-                              const float* v, const float* g, int bh, int s, int d,
+static cudaError_t input_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                              const void* v, const void* g, int bh, int s, int d,
                               uint32_t qrows) {
   cudaError_t err;
-  if ((err = panel_map<CW>(&m[0], q, s, bh, qrows, d)) != cudaSuccess ||
-      (err = panel_map<CW>(&m[1], k, s, bh, 64, d)) != cudaSuccess ||
-      (err = panel_map<CW>(&m[2], v, s, bh, 64, d)) != cudaSuccess)
+  if ((err = panel_map<CW>(&m[0], static_cast<const float*>(q), s, bh, qrows, d)) !=
+          cudaSuccess ||
+      (err = panel_map<CW>(&m[1], static_cast<const float*>(k), s, bh, 64, d)) !=
+          cudaSuccess ||
+      (err = panel_map<CW>(&m[2], static_cast<const float*>(v), s, bh, 64, d)) !=
+          cudaSuccess)
     return err;
-  return panel_map<CW>(&m[3], g, s, bh, qrows, d);
+  return panel_map<CW>(&m[3], static_cast<const float*>(g), s, bh, qrows, d);
 }
 
 }  // namespace hvdf32
@@ -700,9 +953,7 @@ extern "C" int hvd_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   using namespace hvdf32;
   auto st = static_cast<cudaStream_t>(stream);
   CUtensorMap m[4];
-  cudaError_t err = input_maps(m, static_cast<const float*>(q), static_cast<const float*>(k),
-                               static_cast<const float*>(v), static_cast<const float*>(g),
-                               bh, s, d, dq::BQ);
+  cudaError_t err = input_maps(m, q, k, v, g, bh, s, d, dq::BQ);
   if (err != cudaSuccess) return err;
   const float *fkt = static_cast<const float*>(kt), *fl = static_cast<const float*>(lse),
               *fd = static_cast<const float*>(delta);
@@ -727,22 +978,36 @@ extern "C" int hvd_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
                                      void* dv, int bh, int s, int d, int causal,
                                      void* stream) {
   using namespace hvdf32;
-  auto st = static_cast<cudaStream_t>(stream);
   CUtensorMap m[4];
-  cudaError_t err = input_maps(m, static_cast<const float*>(q), static_cast<const float*>(k),
-                               static_cast<const float*>(v), static_cast<const float*>(g),
-                               bh, s, d, dkv::BQ);
+  cudaError_t err = input_maps(m, q, k, v, g, bh, s, d, dkv::BQ);
   if (err != cudaSuccess) return err;
-  const float *fq = static_cast<const float*>(qt), *fg = static_cast<const float*>(gt),
-              *fl = static_cast<const float*>(lse), *fd = static_cast<const float*>(delta);
-  float *fk = static_cast<float*>(dk), *fv = static_cast<float*>(dv);
   if (d != 32 && d != 64 && d % 128) return cudaErrorInvalidValue;
-  if (causal) {
-    if (d == 32) return launch_dkv<32, true>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
-    if (d == 64) return launch_dkv<64, true>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
-    return launch_dkv<128, true>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
-  }
-  if (d == 32) return launch_dkv<32, false>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
-  if (d == 64) return launch_dkv<64, false>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
-  return launch_dkv<128, false>(m, fq, fg, fl, fd, fk, fv, bh, s, d, st);
+  return launch_kv_at<false>(m, static_cast<const float*>(qt),
+                             static_cast<const float*>(gt), nullptr,
+                             static_cast<const float*>(lse),
+                             static_cast<const float*>(delta), static_cast<float*>(dk),
+                             static_cast<float*>(dv), nullptr, bh, s, d, causal, dkv::BK,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// As hvd_flash_bwd_dkv_f32, plus kt (BH, D, S8) f32, K^T in f32_vt's
+// layout, and the dq partials (BH, ceil(S / block_k), S, D) f32: one slot
+// per block_k rows of k, which must be the kernel's (64 at d 256, else
+// 128: ops/flash_attention.py onepass_block_k).
+extern "C" int hvd_flash_bwd_onepass_f32(const void* q, const void* k, const void* v,
+                                         const void* g, const void* qt, const void* gt,
+                                         const void* kt, const void* lse, const void* delta,
+                                         void* partials, void* dk, void* dv, int bh, int s,
+                                         int d, int causal, int block_k, void* stream) {
+  using namespace hvdf32;
+  CUtensorMap m[4];
+  cudaError_t err = input_maps(m, q, k, v, g, bh, s, d, dkv::BQ);
+  if (err != cudaSuccess) return err;
+  if ((d != 32 && d != 64 && d % 128) || block_k != (d == 256 ? 64 : 128))
+    return cudaErrorInvalidValue;
+  return launch_kv_at<true>(m, static_cast<const float*>(qt), static_cast<const float*>(gt),
+                            static_cast<const float*>(kt), static_cast<const float*>(lse),
+                            static_cast<const float*>(delta), static_cast<float*>(dk),
+                            static_cast<float*>(dv), static_cast<float*>(partials), bh, s,
+                            d, causal, block_k, static_cast<cudaStream_t>(stream));
 }

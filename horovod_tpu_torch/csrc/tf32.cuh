@@ -1,5 +1,5 @@
 // Split-TF32 pieces of the f32 flash kernels on Hopper (sm_90a):
-// flash_fwd_f32.cu's forward and flash_bwd_f32.cu's dq and dk/dv.
+// flash_fwd_f32.cu's forward and flash_bwd_f32.cu's dq, dk/dv and one-pass.
 //
 // An f32 operand x is read as hi + lo: hi its top 19 bits (sign, exponent
 // and the top 10 mantissa bits, the part of an f32 word that a TF32
@@ -33,6 +33,16 @@ __device__ __forceinline__ float tf32_hi(float x) {
 // c + 4), B (k8 x N TF32) from shared memory, K-major.
 template <int N>
 struct MmaTF32;
+
+#define HVD_TF32_RS_16 \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7" \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
 
 #define HVD_TF32_RS_32 \
   asm volatile( \
@@ -98,6 +108,14 @@ struct MmaTF32;
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
 
 template <>
+struct MmaTF32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    HVD_TF32_RS_16;
+  }
+};
+
+template <>
 struct MmaTF32<32> {
   static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
                                              uint64_t db, int acc) {
@@ -121,6 +139,7 @@ struct MmaTF32<128> {
   }
 };
 
+#undef HVD_TF32_RS_16
 #undef HVD_TF32_RS_32
 #undef HVD_TF32_RS_64
 #undef HVD_TF32_RS_128

@@ -30,13 +30,13 @@ f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
 (``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
 at 32, 64, 128 and 256; and f32: the forward in split TF32
 (``csrc/flash_fwd_f32.cu``, ``flash_fwd_f32_kernel``) at every padded
-width, and dq and dk/dv (``csrc/flash_bwd_f32.cu``,
-``flash_bwd_dq_f32_kernel`` and ``flash_bwd_dkv_f32_kernel``: split TF32,
-dP on the CUDA cores) at every padded width.  Their CUDA-core twins
-(``csrc/flash_simt.cu``, ``*_simt_kernel``) take f32, f16 and bf16 at
-every padded width, and run whatever the Hopper kernels do not: the
-one-pass backward in f32, and the three backward kernels in bf16 and f16
-past 256.  Any other dtype raises.
+width, and dq, dk/dv and the one-pass backward (``csrc/flash_bwd_f32.cu``,
+``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel`` and
+``flash_bwd_onepass_f32_kernel``: split TF32, dP on the CUDA cores) at
+every padded width.  Their CUDA-core twins (``csrc/flash_simt.cu``,
+``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
+whatever the Hopper kernels do not: the three backward kernels in bf16
+and f16 past 256.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -82,7 +82,9 @@ _SIGNATURES = {
     "flash_bwd_onepass": {"hvd_flash_bwd_onepass": [_P] * 9 + [_I] * 6 + [_P]},
     "flash_fwd_f32": {"hvd_flash_fwd_f32": [_P] * 5 + [_I] * 4 + [_P]},
     "flash_bwd_f32": {"hvd_flash_bwd_dq_f32": [_P] * 8 + [_I] * 4 + [_P],
-                      "hvd_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 4 + [_P]},
+                      "hvd_flash_bwd_dkv_f32": [_P] * 10 + [_I] * 4 + [_P],
+                      "hvd_flash_bwd_onepass_f32": [_P] * 12 + [_I] * 5
+                      + [_P]},
     "flash_simt": {"hvd_simt_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
                    "hvd_simt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
@@ -357,6 +359,30 @@ def flash_bwd_dkv_f32_kernel(q, k, v, g, lse, delta, causal: bool):
     return dk, dv
 
 
+def flash_bwd_onepass_f32_kernel(q, k, v, g, lse, delta, causal: bool):
+    """Hopper one-pass backward in f32 (``csrc/flash_bwd_f32.cu``: dk/dv's
+    body plus dS K, split TF32 with dP on the CUDA cores) at every padded
+    width, from 256 on one block per 128-column panel; one block per dq
+    slot, which walks the slot's 64-row k blocks; Q, dO and K go in also as
+    ``f32_vt`` copies, whose time is the call's -> (dq partials f32 (BH,
+    nk, S, D), one slot per ``onepass_block_k(D)`` rows of k, dk, dv
+    f32)."""
+    bh, s, d = _check_kernel_args(flash_bwd_onepass_f32_kernel, (q, k, v, g),
+                                  (lse, delta))
+    bk = onepass_block_k(d)
+    partials = torch.empty(bh, -(-s // bk), s, d, dtype=torch.float32,
+                           device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    qt, gt, kt = f32_vt(q), f32_vt(g), f32_vt(k)
+    _build.check(_lib("flash_bwd_f32").hvd_flash_bwd_onepass_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        qt.data_ptr(), gt.data_ptr(), kt.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), partials.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, s, d, int(causal), bk, _stream(q)), "flash_bwd_onepass_f32_kernel")
+    flash_bwd_onepass_f32_kernel.launches += 1
+    return partials, dk, dv
+
+
 def _simt_args(kernel, flat, rows=()):
     bh, s, d = _check_kernel_args(kernel, flat, rows)
     return bh, s, d, DTYPE_CODES[flat[0].dtype]
@@ -427,10 +453,9 @@ HOPPER_KERNELS = (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
                   flash_bwd_onepass_kernel)
 SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
                 flash_bwd_dkv_simt_kernel, flash_bwd_onepass_simt_kernel)
-# The f32 kernels on Hopper (fwd, dq, dk/dv), the first choice of each of
-# those steps in f32.
+# The f32 kernels on Hopper (fwd, dq, dk/dv, one-pass): every step in f32.
 F32_KERNELS = (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
-               flash_bwd_dkv_f32_kernel)
+               flash_bwd_dkv_f32_kernel, flash_bwd_onepass_f32_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS + F32_KERNELS
 # The Hopper forward takes every padded width, dq, dk/dv and the one-pass
 # those up to 256.
@@ -458,12 +483,11 @@ def _kernels_for(dtype, width: int):
     """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
     a padded head dim of ``width``: chosen by the two alone, never as a
     retry after a failure.  Each step takes a Hopper kernel where one takes
-    the dtype and the width (for the forward, dq and dk/dv the bf16 and f16
-    family or the f32 one, ``F32_KERNELS``), else its CUDA-core twin: bf16
-    and f16 at up to 256 run all four on Hopper, and past 256 the forward
-    on Hopper and the three backward kernels on the CUDA cores; f32 runs
-    the forward, dq and dk/dv on Hopper (split TF32) and the one-pass on
-    the CUDA cores at every width."""
+    the dtype and the width (the bf16 and f16 family or the f32 one,
+    ``F32_KERNELS``), else its CUDA-core twin: bf16 and f16 at up to 256
+    run all four on Hopper, and past 256 the forward on Hopper and the
+    three backward kernels on the CUDA cores; f32 runs all four on Hopper
+    (split TF32) at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)
@@ -471,7 +495,7 @@ def _kernels_for(dtype, width: int):
         raise ValueError("flash attention on CUDA takes a head dim "
                          "zero-padded to one of %s, got %d"
                          % (PADDED_WIDTHS, width))
-    hopper = tuple(zip(HOPPER_KERNELS, F32_KERNELS)) + (HOPPER_KERNELS[3:],)
+    hopper = zip(HOPPER_KERNELS, F32_KERNELS)
     return tuple(next((h for h in hs if dtype in h.dtypes
                        and width in h.widths), c)
                  for hs, c in zip(hopper, SIMT_KERNELS))

@@ -3,8 +3,8 @@
 their refusals before the device, the transposed copies their wrappers
 pass, and their arithmetic emulated in torch.
 
-On the card f32 runs the forward, dq and dk/dv on Hopper at every padded
-width and the one-pass on the CUDA cores.  The two kernels form S (S^T)
+On the card f32 runs the forward, dq, dk/dv and the one-pass on Hopper at
+every padded width (the one-pass: ``test_torch_port_hopper_f32_onepass.py``).  The two kernels form S (S^T)
 and the three output products (dS K, P^T dO, dS^T Q) in split TF32, as
 ``test_torch_port_hopper_f32_fwd.py``'s helpers emulate it: each
 operand's hi (its top 19 bits) and lo, three TF32 products, the tensor
@@ -65,10 +65,11 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", PADDED)
 def test_f32_backward_route_at_every_padded_width(width):
-    """f32 at every padded width: the forward, dq and dk/dv on Hopper, the
-    one-pass on the CUDA cores; bf16 and f16 keep their route."""
+    """f32 at every padded width: the forward, dq, dk/dv and the one-pass
+    on Hopper; bf16 and f16 keep their route."""
     route = fa._kernels_for(torch.float32, width)
-    assert route == fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)
+    assert route == fa.F32_KERNELS
+    assert route[3] is fa.flash_bwd_onepass_f32_kernel
     for kern in route:
         assert torch.float32 in kern.dtypes and width in kern.widths
     for dtype in (torch.bfloat16, torch.float16):
@@ -121,7 +122,20 @@ def emulated_bwd(q, k, v, g, lse, delta, causal, form="trunc", terms=THREE,
     value nearest the exact one), dS = P (dP - delta), and the three output
     products in split TF32.  ``chains``: the scores' and the products'
     chain lengths of the tensor core's truncating sums (None: f32 sums)."""
-    s_chain, p_chain = chains or (None, None)
+    ds, dst, pt = emulated_scores(q, k, v, g, lse, delta, causal, form, terms,
+                                  chains, dp)
+    p_chain = (chains or (None, None))[1]
+    # dS K, dS^T Q and P^T dO as the kernels form them: the left operand's
+    # columns as the A fragments hold them, against f32_vt(right) K-major
+    return tuple(fwd_emu.pv_as_the_kernel(a, b, form, terms, p_chain)
+                 for a, b in ((ds, k), (dst, q), (pt, g)))
+
+
+def emulated_scores(q, k, v, g, lse, delta, causal, form="trunc",
+                    terms=THREE, chains=KERNEL_CHAINS, dp="plain"):
+    """``emulated_bwd``'s dS (dq's, from S), dS^T and P^T (dk/dv's, from
+    S^T), as the kernels form them."""
+    s_chain = (chains or (None, None))[0]
     keep = fa._causal_keep(q.shape[1], q.device)
 
     def dots(a, b):
@@ -140,10 +154,7 @@ def emulated_bwd(q, k, v, g, lse, delta, causal, form="trunc", terms=THREE,
         p, pt = p.masked_fill(~keep, 0.0), pt.masked_fill(~keep.T, 0.0)
     ds = p * (dots(g, v) - delta[..., None])
     dst = pt * (dots(v, g) - delta[..., None, :])
-    # dS K, dS^T Q and P^T dO as the kernels form them: the left operand's
-    # columns as the A fragments hold them, against f32_vt(right) K-major
-    return tuple(fwd_emu.pv_as_the_kernel(a, b, form, terms, p_chain)
-                 for a, b in ((ds, k), (dst, q), (pt, g)))
+    return ds, dst, pt
 
 
 def inputs(bh, s, d, seed, causal=True):

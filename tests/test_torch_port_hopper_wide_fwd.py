@@ -7,8 +7,8 @@ width ``padded_head_dim`` gives: 32, 64, 128, 256 and each multiple of 128
 past 256.  So on the card bf16 and f16 run the forward on Hopper at every
 width, dq, dk/dv (``csrc/flash_bwd.cu``) and the one-pass backward
 (``csrc/flash_bwd_onepass.cu``) on Hopper up to 256, and the backward
-past 256 on the CUDA cores; f32 runs the forward, dq and dk/dv on Hopper
-(``F32_KERNELS``, split TF32) and the one-pass on the CUDA cores.  Here, on the CPU, the
+past 256 on the CUDA cores; f32 runs all four on Hopper (``F32_KERNELS``,
+split TF32).  Here, on the CPU, the
 wrappers raise on what they do not take before they look at the device,
 and the decoder runs the plain versions.
 
@@ -86,12 +86,12 @@ def test_forward_refuses_f32_before_the_device():
                                    torch.bfloat16])
 def test_route_table(dtype, width):
     """(fwd, dq, dk/dv, one-pass) by dtype and padded width: f32 the
-    forward, dq and dk/dv on Hopper (``F32_KERNELS``) and the one-pass on
-    the CUDA cores; bf16 and f16 all on Hopper up to 256, and past 256 the
-    forward on Hopper and the backward on the CUDA cores."""
+    forward, dq, dk/dv and the one-pass on Hopper (``F32_KERNELS``); bf16
+    and f16 all on Hopper up to 256, and past 256 the forward on Hopper and
+    the backward on the CUDA cores."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
-        want = fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)
+        want = fa.F32_KERNELS
     elif width <= 256:
         want = fa.HOPPER_KERNELS
     else:

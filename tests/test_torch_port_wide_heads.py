@@ -163,10 +163,8 @@ def test_decoder_at_head_dim_256_matches_jax(monkeypatch):
 
 
 HOPPER = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.HOPPER_KERNELS))
-# f32: the Hopper forward, dq and dk/dv in split TF32, the CUDA-core
-# one-pass
-F32 = dict(zip(("fwd", "dq", "dkv", "onepass"),
-               fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)))
+# f32: the Hopper forward, dq, dk/dv and one-pass in split TF32
+F32 = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.F32_KERNELS))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,

@@ -67,12 +67,11 @@ def test_padded_head_dim_is_the_references_past_256(d):
 def test_route_past_256(dtype, width):
     """Every dtype at a multiple of 128 past 256: bf16 and f16 the forward
     on Hopper (``flash_fwd_kernel``) and dq, dk/dv and the one-pass on the
-    CUDA cores; f32 the forward, dq and dk/dv on Hopper (split TF32,
-    ``F32_KERNELS``) and the one-pass on the CUDA cores; each kernel
-    taking the dtype and the width."""
+    CUDA cores; f32 all four on Hopper (split TF32, ``F32_KERNELS``); each
+    kernel taking the dtype and the width."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
-        assert route == fa.F32_KERNELS + (fa.flash_bwd_onepass_simt_kernel,)
+        assert route == fa.F32_KERNELS
     else:
         assert route == (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:]
     for kern in route:

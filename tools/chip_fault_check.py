@@ -71,12 +71,18 @@ runs the first units and those, and their faults must fail there and
 nowhere else (``ONLY_AT``): one small term of the shared split left out
 (two TF32 terms, off by about 2^-11 a product), V^T's keys one off (a
 roll before the key order), the last 32-column chunk of the forward's
-Q K^T left out past 256, the forward's causal mask off by one; and five
-of dq and dk/dv, which must also fail no kernel but those two
-(``ONLY_KERNEL``): a small term left out of their output products, K^T's,
-Q^T's and dO^T's rows one off, the last panel block past 256 not
-launched, their causal mask off by one, and the P^T hand-over read
-before its barrier.  The older
+Q K^T left out past 256, the forward's causal mask off by one; five of
+dq and dk/dv, which must also fail no kernel but those two and the f32
+one-pass, whose body is dk/dv's (``ONLY_KERNEL``): a small term left out
+of their output products, K^T's, Q^T's and dO^T's rows one off, the last
+panel block past 256 not launched, their causal mask off by one, and the
+P^T hand-over read before its barrier; and four of the f32 one-pass,
+which must fail no kernel but it: a 128-row slot's second k block
+stored over the first's partial instead of added to it, a causal slot's
+rows above its diagonal left unwritten, the last panel's partial columns
+past 256 left unwritten, and dS read from the exchange tile before its
+barrier (a race, held at BERT-Large's shape and at S 2048 at D 256 and
+384).  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
 rows past S, the last q tile, f16 read as bf16) lie in code that both
 widths run, or are planted in both dk/dv kernels.  The first case,
@@ -426,31 +432,35 @@ FAULTS = {
         "second half"),
     "f32_bwd_two_term_split": (
         "flash_bwd_f32.cu",
-        "    split(x[4 * j + 3], h[j][3], l[j][3]);\n  }\n",
-        "    split(x[4 * j + 3], h[j][3], l[j][3]);\n"
-        "    l[j][0] = l[j][1] = l[j][2] = l[j][3] = 0u;\n  }\n",
-        "f32 dq and dk/dv on Hopper: the lo hi term left out of dS K, P^T dO "
-        "and dS^T Q (two TF32 terms)"),
+        "      split(x[4 * j + 3], h[jj][3], l[jj][3]);\n    }\n",
+        "      split(x[4 * j + 3], h[jj][3], l[jj][3]);\n"
+        "      l[jj][0] = l[jj][1] = l[jj][2] = l[jj][3] = 0u;\n    }\n",
+        "f32 dq, dk/dv and one-pass on Hopper: the lo hi term left out of dS "
+        "K, P^T dO and dS^T Q (two TF32 terms; the one-pass's partial keeps "
+        "its three)"),
     "f32_bwd_t_rows_off_by_one": (
         "../ops/flash_attention.py",
-        ("    kt = f32_vt(k)\n", "    qt, gt = f32_vt(q), f32_vt(g)\n"),
+        ("    kt = f32_vt(k)\n", "    qt, gt = f32_vt(q), f32_vt(g)\n",
+         "    qt, gt, kt = f32_vt(q), f32_vt(g), f32_vt(k)\n"),
         ("    kt = f32_vt(k.roll(1, 1))\n",
-         "    qt, gt = f32_vt(q.roll(1, 1)), f32_vt(g.roll(1, 1))\n"),
-        "f32 dq and dk/dv on Hopper: K^T's, Q^T's and dO^T's rows one off "
-        "(rolled by one before the copy, so row j reads row j - 1)"),
+         "    qt, gt = f32_vt(q.roll(1, 1)), f32_vt(g.roll(1, 1))\n",
+         "    qt, gt, kt = (f32_vt(t.roll(1, 1)) for t in (q, g, k))\n"),
+        "f32 dq, dk/dv and one-pass on Hopper: K^T's, Q^T's and dO^T's rows "
+        "one off (rolled by one before the copy, so row j reads row j - 1)"),
     "f32_bwd_last_panel_past_256": (
         "flash_bwd_f32.cu",
         ("  dim3 grid(bh, (s + dq::BQ - 1) / dq::BQ, d / W);",
-         "  dim3 grid(bh, (s + dkv::BK - 1) / dkv::BK, d / W);"),
+         "  dim3 grid(bh, (s + bk - 1) / bk, d / W);"),
         ("  dim3 grid(bh, (s + dq::BQ - 1) / dq::BQ, d / W - (d > 256));",
-         "  dim3 grid(bh, (s + dkv::BK - 1) / dkv::BK, d / W - (d > 256));"),
-        "f32 dq and dk/dv on Hopper past 256: the last 128-column panel "
-        "block not launched (its columns of dq, dk and dv left unwritten)"),
+         "  dim3 grid(bh, (s + bk - 1) / bk, d / W - (d > 256));"),
+        "f32 dq, dk/dv and one-pass on Hopper past 256: the last 128-column "
+        "panel block not launched (its columns of dq, dk, dv and the "
+        "partials left unwritten)"),
     "f32_bwd_mask_off_by_one": (
         "flash_bwd_f32.cu", "  return !(k < S && (!CAUSAL || k <= q));",
         "  return !(k < S && (!CAUSAL || k < q + (2 * q < S)));",
-        "f32 dq and dk/dv on Hopper: causal mask drops the diagonal key in "
-        "the second half"),
+        "f32 dq, dk/dv and one-pass on Hopper: causal mask drops the "
+        "diagonal key in the second half"),
     "f32_bwd_pt_before_barrier": (
         "flash_bwd_f32.cu",
         ("        float dpl[4][8] = {};  // dP^T = V dO^T on the CUDA cores",
@@ -459,9 +469,32 @@ FAULTS = {
          "        float pt[BQ / 2];\n#pragma unroll\n"
          "        for (int y = 0; y < BQ / 2; ++y) pt[y] = xp[y * 128 + t];",
          "x[4 * j + e] = pt[4 * j + e] * ("),
-        "f32 dk/dv on Hopper: consumer 1 reads the P^T hand-over before its "
-        "barrier (at the start of each q tile, before its dP^T: the last "
-        "tile's P^T, or whatever the tile held)"),
+        "f32 dk/dv and one-pass on Hopper: consumer 1 reads the P^T "
+        "hand-over before its barrier (at the start of each q tile, before "
+        "its dP^T: the last tile's P^T or dS, or whatever the tile held)"),
+    "f32_onepass_second_block_stored_over": (
+        "flash_bwd_f32.cu", "                if (b > 0) {",
+        "                if (b < 0) {",
+        "f32 one-pass on Hopper: a 128-row slot's second k block stores its "
+        "partial over the first's instead of adding to it"),
+    "f32_onepass_dead_rows": (
+        "flash_bwd_f32.cu",
+        "      if (CAUSAL)\n        for (int e = t + 128 * wg;",
+        "      if (!CAUSAL)\n        for (int e = t + 128 * wg;",
+        "f32 one-pass on Hopper: a causal slot's rows above its diagonal "
+        "left unwritten (zeroed in a full one instead, where the partial "
+        "then overwrites them)"),
+    "f32_onepass_last_panel_past_256": (
+        "flash_bwd_f32.cu", "            if (q0 + row < S) {",
+        "            if (q0 + row < S && (DW <= 256 || z + 1 < gridDim.z)) {",
+        "f32 one-pass on Hopper past 256: the last 128-column panel's "
+        "partial columns left unwritten (dk and dv whole)"),
+    "f32_onepass_ds_before_barrier": (
+        "flash_bwd_f32.cu", "          mbar_wait(dsfull, i & 1);",
+        "          if (wg) mbar_wait(dsfull, i & 1);",
+        "f32 one-pass on Hopper: consumer 0 reads dS from the exchange tile "
+        "without waiting for consumer 1 to write it (a race: P^T or a part "
+        "of dS)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -603,7 +636,21 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "f32_bwd_last_panel_past_256": f32_labels(WIDER),
                 "f32_bwd_mask_off_by_one": f32_labels(F32_CAUSAL),
                 # a stale or unwritten P^T at every timed shape
-                "f32_bwd_pt_before_barrier": f32_labels(SIMT_ALL)}
+                "f32_bwd_pt_before_barrier": f32_labels(SIMT_ALL),
+                # every shape whose first slot has two live k blocks (not
+                # D 256's 64-row slots, nor S 64)
+                "f32_onepass_second_block_stored_over": f32_labels(
+                    ALL | {"BH2 S130 D64 causal"} | set(WIDER)),
+                # the causal shapes with more than one slot whose partials
+                # land in the poisoned block (S 2048, and S 130 at 640)
+                "f32_onepass_dead_rows": f32_labels(
+                    {DECODER, WIDE[0], WIDER[0], WIDER[3]}),
+                "f32_onepass_last_panel_past_256": f32_labels(WIDER),
+                # a race: it lost at BERT's shape and at S 2048 from D 256
+                # on, not at the decoder's (consumer 0 reaches dS there
+                # after waiting for the second half-tile's load)
+                "f32_onepass_ds_before_barrier": f32_labels(
+                    {BERT, WIDE[0], WIDER[0]})}
 # Faults that must fail nowhere but at these units: the D 256 code's own;
 # the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
@@ -617,13 +664,15 @@ ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
            "f32_fwd_last_chunk_past_256": f32_labels(WIDER),
            "f32_fwd_mask_off_by_one": f32_labels(F32_ALL)}
 ONLY_AT.update({name: f32_labels(F32_ALL) for name in FAULTS
-                if name.startswith("f32_bwd")})
-# The one-pass's plants at 256 fail no kernel but the one-pass; the f32
-# backward's none but the f32 dq and dk/dv.
+                if name.startswith(("f32_bwd", "f32_onepass"))})
+# The one-pass's plants at 256 and in f32 fail no kernel but the one-pass;
+# the f32 backward's none but the f32 dq, dk/dv and one-pass (whose body
+# is dk/dv's).
 ONLY_KERNEL = {name: {"flash_bwd_onepass"} for name in ONLY_AT
-               if name.startswith("onepass_d256")}
-ONLY_KERNEL.update({name: {"flash_bwd_dq", "flash_bwd_dkv"} for name in ONLY_AT
-                    if name.startswith("f32_bwd")})
+               if name.startswith(("onepass_d256", "f32_onepass"))}
+ONLY_KERNEL.update({name: {"flash_bwd_dq", "flash_bwd_dkv",
+                           "flash_bwd_onepass"}
+                    for name in ONLY_AT if name.startswith("f32_bwd")})
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid

@@ -8,6 +8,7 @@ bf16, and the f32 forward, dq and dk/dv on Hopper (``flash_fwd_f32.cu``,
 
     python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wide-onepass]
                                      [--f32-fwd] [--f32-split] [--f32-bwd]
+                                     [--f32-onepass]
                                      [--sdpa-kernels] [--watchdog]
                                      [--head-major]
     python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
@@ -72,6 +73,19 @@ off) at BH 4096, S 64, D 32 and at the decoder's shape, both causal: the
 worst reading of dq, dk and dv against the f32 plain version under the
 f32 limits for the design, for dP in split TF32 and correctly rounded,
 and for one truncating chain each.
+``--f32-onepass`` probes the f32 one-pass on Hopper (``flash_bwd_f32.cu``:
+dk/dv's body plus dS K per k block, split TF32, dP on the CUDA cores)
+alone: its report (registers, spills), its readings at chip_smoke's
+F32_FWD_SHAPES and WIDE_BH_SHAPE (``worst`` against chip_smoke's f32
+limits; the partials in a NaN-poisoned block, past 256 the panel
+agreement, and a second launch against the first, bit for bit), and at
+the decoder's shape, BERT-Large's and the decoder's at head dims 256 and
+384 the device ms of the kernel (its three transposed copies included),
+of it with the partials' sum (``flash_bwd`` under ``pallas_onepass``), of
+the copies alone, of its CUDA-core twin and of SDPA's f32 backward (20
+calls each, the twin 3), beside its split-TF32 bound (five passes of
+products) and this design's (four, and dP at the CUDA cores' 67
+TFLOP/s).
 ``--sdpa-kernels`` names the kernels that the yardstick, SDPA (forward
 and backward, one call each under ``torch.profiler``), launches in f32
 and bf16 at the decoder's shape at head dims 128 and 256, with their
@@ -405,6 +419,55 @@ def f32_bwd_emulation(cs, torch):
             torch.cuda.empty_cache()
 
 
+def f32_onepass(cs, fa, torch):
+    """The f32 one-pass on Hopper: readings (partials poisoned, panels and
+    a second launch bit for bit), then times alone and with the partials'
+    sum beside its CUDA-core twin and SDPA's backward, and its bounds."""
+    import torch.nn.functional as F
+    for bh, s, d, causal in list(cs.F32_FWD_SHAPES) + [cs.WIDE_BH_SHAPE]:
+        errs, poisoned, _, _ = cs.kernel_errors(
+            fa, *cs.kernel_inputs(bh, s, d, "float32"), causal, "hopper_f32")
+        torch.cuda.synchronize()
+        print("hopper_f32", cs.shape_label(bh, s, d, causal), "poisoned",
+              poisoned, json.dumps(
+                  {o: {k: float("%.3g" % x) for k, x in e.items()}
+                   for o, e in errs["flash_bwd_onepass"].items()}),
+              flush=True)
+        torch.cuda.empty_cache()
+    peak = cs.PEAK_TF32_FLOPS / cs.SPLIT_TF32_TERMS
+    for bh, s, d, causal in (cs.DECODER_SHAPE, cs.BERT_SHAPE,
+                             cs.WIDE_HEAD_SHAPES[0], cs.WIDER_HEAD_SHAPES[0]):
+        q, k, v, do = cs.kernel_inputs(bh, s, d, "float32")
+        o, lse = fa.flash_fwd_f32_kernel(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, causal)
+        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                      for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=1.0)
+        do4 = do.view(1, bh, s, d)
+        times = {"onepass": cs.time_ms(
+            lambda: fa.flash_bwd_onepass_f32_kernel(*bwd), reps=20)}
+        with cs.flash_bwd_env("pallas_onepass"):
+            times["onepass_and_sum"] = cs.time_ms(lambda: fa.flash_bwd(*bwd),
+                                                  reps=20)
+        times["copies"] = cs.time_ms(
+            lambda: (fa.f32_vt(q), fa.f32_vt(do), fa.f32_vt(k)), reps=20)
+        times["onepass_simt"] = cs.time_ms(
+            lambda: fa.flash_bwd_onepass_simt_kernel(*bwd), reps=3)
+        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+        pass_flops = 2 * d * bh * (s * (s + 1) // 2 if causal else s * s)
+        print("times f32 one-pass", cs.shape_label(bh, s, d, causal), times,
+              "bound ms: split TF32 %.4g; this design (dP at %.0f TFLOP/s) "
+              "%.4g" % (5 * pass_flops / peak * 1e3, cs.PEAK_F32_FLOPS / 1e12,
+                        (4 * pass_flops / peak
+                         + pass_flops / cs.PEAK_F32_FLOPS) * 1e3),
+              flush=True)
+        del q, k, v, do, o, q4, k4, v4, out4, do4, bwd
+        torch.cuda.empty_cache()
+
+
 def narrow_bwd(cs, fa, torch):
     """The Hopper backward kernels up to D 128: device ms, nothing else
     (every name used here is in the trees it compares)."""
@@ -455,11 +518,14 @@ F32_BWD_PARTS = (
      "  wgmma_fence();\n#pragma unroll\n  for (int kk = 0; kk < CW / 8; ++kk)\n"
      "    mma3<64>("),
     ("no_outputs",
-     "  float part[W / 2];\n  wgmma_fence();",
-     "  float part[W / 2];\n  if (lo > 0) {\n#pragma unroll\n"
-     "    for (int i = 0; i < W / 2; ++i)\n"
-     "      acc[i] += __uint_as_float(h[i / 4 % 8][i % 4] ^ l[(i + 3) / 4 % 8][i % 4]);\n"
-     "    return;\n  }\n  wgmma_fence();"))
+     "    wgmma_fence();\n#pragma unroll\n    for (int jj = 0; jj < 4; ++jj)\n"
+     "      mma3<W>(",
+     "    if (lo > 0) {\n#pragma unroll\n      for (int i = 0; i < W / 2; ++i)\n"
+     "        part[i] = (g ? part[i] : 0.f) + __uint_as_float(\n"
+     "            h[i / 4 % 4][i % 4] ^ l[(i + 3) / 4 % 4][i % 4]);\n"
+     "      continue;\n    }\n"
+     "    wgmma_fence();\n#pragma unroll\n    for (int jj = 0; jj < 4; ++jj)\n"
+     "      mma3<W>("))
 
 
 def f32_bwd_parts(repo):
@@ -560,7 +626,8 @@ def main(argv) -> int:
             "--wide-bwd": ("flash_bwd", wide_bwd),
             "--wide-onepass": ("flash_bwd_onepass", wide_onepass),
             "--f32-fwd": ("flash_fwd_f32", f32_fwd),
-            "--f32-bwd": ("flash_bwd_f32", f32_bwd)}
+            "--f32-bwd": ("flash_bwd_f32", f32_bwd),
+            "--f32-onepass": ("flash_bwd_f32", f32_onepass)}
     wide = [wide[a] for a in wide if a in argv]
     for src in [src for src, _ in wide] or SOURCES:
         cs.print_ptxas((_build.build_dir() / ("%s.log" % src)).read_text())

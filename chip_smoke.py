@@ -23,7 +23,12 @@
    also with V's later panels copies of its first, whose outputs must
    agree bit for bit); the Hopper dq, dk/dv and one-pass (64-row dq
    partial slots, held slot by slot) in bf16 and f16 at head dim 256 (the
-   same three shapes, and untimed at BH 65,600); the four
+   same three shapes, and untimed at BH 65,600), and the Hopper dq and
+   dk/dv past it (the five shapes at 384 and 640, their panels of 256 and
+   128 columns bit for bit against panel 0's on inputs whose later panels
+   copy their first, and untimed at BH 65,600, S 64, D 384); the Hopper
+   forward, dq and dk/dv also at the hd512 decoder's attention (BH 8, S
+   2048, D 512, causal), timed beside SDPA; the four
    BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
@@ -53,9 +58,8 @@
 3. Holds three small models on the card against the same weights in f32
    on the CPU (plain versions): the decoder (bf16; at head_dim 128, at
    96, which ``flash_attention`` zero-pads to the Hopper kernels' 128,
-   at 192, which it zero-pads to 256 (the Hopper forward, dq and dk/dv),
-   and at 320, padded to 384: the Hopper forward and the CUDA-core
-   backward),
+   at 192, which it zero-pads to 256, and at 320, padded to 384: the
+   Hopper forward, dq and dk/dv at both),
    ResNet-50 (image 64, batch 4; f32 for the gradients, bf16 for the
    loss) and BERT (bf16, under both backward choices).  Then the small
    decoder at dtype float32 (the Hopper f32 forward, dq, dk/dv and
@@ -93,9 +97,12 @@
    256 (Gemma 7B's head width) in bf16, one step under each backward
    choice from the same weights (12 Hopper forwards, then 12 Hopper dq
    and dk/dv or 12 Hopper one-pass backwards at D 256, no CUDA-core
-   kernel); each step's loss and gradients against the same model's on
-   the plain attention path on the card, then 5 more steps timed (under
-   each choice for BERT and the hd256 decoder).  Between the decoder and
+   kernel); the decoder flagship with 2 heads of 512 (the widest head past
+   256 that divides its d 1024) in bf16, one step under ``pallas`` (12
+   Hopper forwards, dq and dk/dv past 256, no CUDA-core kernel); each
+   step's loss and gradients against the same model's on the plain
+   attention path on the card, then 5 more steps timed (under each choice
+   for BERT and the hd256 decoder).  Between the decoder and
    ResNet-50, the main path
    of the f32 kernels: the decoder at the same width and depth at dtype
    float32, one step through ``make_train_step`` under each backward
@@ -159,10 +166,11 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (thirty-one: the thirteen
+5. Prints one JSON line of kernel records (thirty-six: the thirteen
    kernels, the f16 forms of the four Hopper ones, the Hopper forward at
-   D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256, and the
-   f32 forward, dq and dk/dv on Hopper at D 128, 256 and 384),
+   D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256, the
+   Hopper dq and dk/dv at D 384, and the f32 forward, dq, dk/dv and
+   one-pass on Hopper at D 128, 256 and 384),
    then as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -285,25 +293,30 @@ F32_FWD_SHAPES = SIMT_SHAPES
 # many columns past 256 (the forward's panel agreement keeps the Hopper
 # forward's 256, which its 128-column panels also meet).
 F32_BWD_PANEL = 128
-# The Hopper forward from 256 on, held in bf16 and f16 under the Hopper
-# family's limits (KERNEL_TOL, F16_HOPPER_TOL: it casts P at the running
-# max), and untimed at WIDE_BH_SHAPE's BH and S at D 256; at D 256 (the
-# first three shapes and WIDE_BH_D256_SHAPE) the Hopper dq, dk/dv and
-# one-pass too, under the same limits and timed beside SDPA's backward.  Past 256 it is
-# also held to itself: with V's later panels copies of its first
-# (``panel_agreement``), every panel block must give o's columns bit for
-# bit as panel 0's block does, which it can only when all of them formed
-# the same P.
+# The Hopper forward, dq and dk/dv from 256 on, held in bf16 and f16 under
+# the Hopper family's limits (KERNEL_TOL, F16_HOPPER_TOL: they cast P at
+# the running max) and timed beside SDPA (its backward beside dq and
+# dk/dv), and untimed at WIDE_BH_SHAPE's BH and S at D 256 and 384; at D
+# 256 (the first three shapes and WIDE_BH_D256_SHAPE) the Hopper one-pass
+# too, under the same limits.  Past 256 each is also held to itself: with
+# the inputs' later 256-column panels copies of their first
+# (``panel_agreement``: V's for the forward; Q's, K's, V's and dO's for dq
+# and dk/dv), every panel block must give its columns bit for bit as
+# panel 0's block does, which it can only when all of them formed the same
+# P (and dS).  DECODER_D512_SHAPE, the attention of the decoder flagship
+# with 2 heads of 512 (phase 4), is held and timed on the Hopper family
+# only.
 HOPPER_FWD_SHAPES = WIDE_HEAD_SHAPES + WIDER_HEAD_SHAPES
 WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
+WIDE_BH_D384_SHAPE = (65600, 64, 384, True)
+DECODER_D512_SHAPE = (8, 2048, 512, True)
 # The small decoder on the card (bf16, kernels) against f32 on the CPU:
 # loss relative error, and each parameter gradient's relative norm error
 # ||g_card - g_cpu|| / ||g_cpu||; readings 1.7e-4 and 2.5e-2 at worst.
 # Held at head_dim 128 and at 96, which the Hopper kernels take
 # zero-padded to 128, at 192, zero-padded to 256 (the Hopper forward, dq
-# and dk/dv), and at 320, zero-padded to 384 (the Hopper forward, whose
-# panels there are 256 and 128 columns, and the CUDA-core backward,
-# 128-column panels).
+# and dk/dv), and at 320, zero-padded to 384 (the Hopper forward, dq and
+# dk/dv, whose panels there are 256 and 128 columns).
 LOSS_TOL, LEAF_TOL = 5e-4, 5e-2
 MODEL_HEAD_DIMS = (128, 96, 192, 320)
 # The small decoder at dtype float32 (the Hopper f32 forward, dq, dk/dv and
@@ -415,6 +428,10 @@ BERT_LARGE = dict(vocab_size=30522, d_model=1024, n_layers=24, n_heads=16,
 ADASUM_RANKS = 4
 
 
+# Elements per chunk of ``compare`` (256 MB of f32 a temporary).
+COMPARE_ELEMENTS = 1 << 26
+
+
 def say(*args):
     print(*args, flush=True)
 
@@ -492,28 +509,40 @@ def kernel_inputs(bh, s, d, dtype="bfloat16"):
 def compare(got, want, rtol, atol):
     """Element-wise error of ``got`` against ``want``; ``worst`` is the
     largest |err| / (rtol |want| + atol scale(want's row)), at most 1
-    to pass."""
+    to pass (NaN, and so failing, where either holds a NaN).  Taken over
+    chunks of COMPARE_ELEMENTS along the leading axis, so that its f32
+    temporaries stay small beside the tensors at BH 65,600."""
     import torch
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    sq = want.square()
+    lead = want.shape[0] if want.dim() > 1 else 1
+    step = max(1, COMPARE_ELEMENTS * lead // max(1, want.numel()))
+    chunks = ([(got, want)] if want.dim() < 2 else
+              [(got[i:i + step], want[i:i + step])
+               for i in range(0, lead, step)])
     # A row that cancels to almost nothing (dq's first causal row) keeps
     # the rounding of its terms: its scale is at least 1/16 of the
     # tensor's RMS.
-    scale = torch.maximum(sq.mean(-1, keepdim=True).sqrt(),
-                          sq.mean().sqrt() / 16)
-    worst = (err / (rtol * want.abs() + atol * scale)).max()
-    return {"max_abs_err": err.max().item(), "worst": worst.item(),
-            "max_abs_plain": want.abs().max().item()}
+    floor = (torch.stack([w.float().square().sum() for _, w in chunks])
+             .sum() / want.numel()).sqrt() / 16
+    errs, worsts, plains = [], [], []
+    for g, w in chunks:
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        scale = torch.maximum(w.square().mean(-1, keepdim=True).sqrt(), floor)
+        worsts.append((err / (rtol * w.abs() + atol * scale)).max())
+        errs.append(err.max())
+        plains.append(w.abs().max())
+    return {"max_abs_err": torch.stack(errs).max().item(),
+            "worst": torch.stack(worsts).max().item(),
+            "max_abs_plain": torch.stack(plains).max().item()}
 
 
 def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper", "simt", the
     CUDA-core twins, or "hopper_f32", the f32 forward, dq and dk/dv on
     Hopper) that take inputs of ``dtype`` at head dim ``width``: the four
-    Hopper ones in bf16 and f16 up to 256 and the forward alone past it,
-    the four CUDA-core ones in any dtype, the three f32 ones in f32 at
-    every padded width."""
+    Hopper ones in bf16 and f16 up to 256 and the forward, dq and dk/dv
+    past it, the four CUDA-core ones in any dtype, the four f32 ones in f32
+    at every padded width."""
     import torch
     kernels = {"hopper": fa.HOPPER_KERNELS, "simt": fa.SIMT_KERNELS,
                "hopper_f32": fa.F32_KERNELS}[family]
@@ -578,9 +607,9 @@ def bits_agreement(outs, bases):
 
 def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     """The outputs of each of ``family``'s kernels that take the inputs'
-    dtype and width against its plain version on the same inputs (and a
-    Hopper forward past 256 against itself, ``panel_agreement``, as its
-    output "panels"): ({kernel: {output: compare(...)}}, whether the
+    dtype and width against its plain version on the same inputs (and,
+    past 256, each Hopper kernel against itself, ``panel_agreement``, as
+    its output "panels"): ({kernel: {output: compare(...)}}, whether the
     one-pass partials landed in a NaN-poisoned block, None where the
     family has no one-pass kernel at the width), plus lse and delta for
     the timings."""
@@ -628,13 +657,6 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
         errs["flash_bwd_onepass"]["repeat"] = bits_agreement(
             again, (dqp, dk1, dv1))
         del again
-    if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
-        errs["flash_fwd"]["panels"] = panel_agreement(
-            fa, kern["flash_fwd"], q, k, v, do, causal)
-        for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_onepass"):
-            if family == "hopper_f32":
-                errs[name]["panels"] = panel_agreement(
-                    fa, kern[name], q, k, v, do, causal, F32_BWD_PANEL)
     if family == "simt":
         for name, outs in outputs.items():
             for out, (got, want) in outs.items():
@@ -643,6 +665,27 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
                     e["off_share"] = (got != want).float().mean().item()
                     e["worst"] = max(e["worst"],
                                      e["off_share"] / F16_OFF_SHARE)
+    if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
+        # the outputs are read: their memory goes to the copies below (at
+        # BH 65,600 both would not fit on the card at once)
+        del outputs, o, lse, o_ref
+        if "flash_bwd_dq" in kern:
+            del dq_ref, dk_ref, dv_ref, dk, dv
+        if poisoned is not None:
+            del dqp_ref, dk1_ref, dv1_ref, dqp, dk1, dv1
+        torch.cuda.empty_cache()
+        errs["flash_fwd"]["panels"] = panel_agreement(
+            fa, kern["flash_fwd"], q, k, v, do, causal)
+        # The Hopper dq and dk/dv split their outputs into panels of 256
+        # columns past 256 (a last one of 128), the f32 backward kernels
+        # into panels of F32_BWD_PANEL; the Hopper family has no one-pass
+        # there.
+        for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_onepass"):
+            if name in kern:
+                errs[name]["panels"] = panel_agreement(
+                    fa, kern[name], q, k, v, do, causal,
+                    F32_BWD_PANEL if family == "hopper_f32" else 256)
+                torch.cuda.empty_cache()
     return errs, poisoned, lse_ref, delta
 
 
@@ -773,14 +816,15 @@ def check_kernels(fa, bh, s, d, causal, dtype="bfloat16", family="hopper"):
 
 def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
     """``family``'s flash kernels for ``dtype`` at their shapes (on Hopper
-    FLASH_SHAPES, and HOPPER_FWD_SHAPES for the forward; SIMT_SHAPES on
+    FLASH_SHAPES, HOPPER_FWD_SHAPES and DECODER_D512_SHAPE; SIMT_SHAPES on
     the CUDA cores; F32_FWD_SHAPES for the f32 kernels on Hopper) ->
     {shape: records}, then held at WIDE_BH_SHAPE (on Hopper also at
-    WIDE_BH_D256_SHAPE)."""
+    WIDE_BH_D256_SHAPE and WIDE_BH_D384_SHAPE)."""
     import torch
     out = {}
     hopper = family == "hopper"
-    shapes = {"hopper": FLASH_SHAPES + HOPPER_FWD_SHAPES,
+    shapes = {"hopper": FLASH_SHAPES + HOPPER_FWD_SHAPES
+              + (DECODER_D512_SHAPE,),
               "simt": SIMT_SHAPES, "hopper_f32": F32_FWD_SHAPES}[family]
     for bh, s, d, causal in shapes:
         label = "%s %s %s" % (shape_label(bh, s, d, causal), dtype, family)
@@ -797,7 +841,8 @@ def check_flash_kernels(fa, dtype="bfloat16", family="hopper"):
                                         variants["pallas_onepass"],
                                         variants["sdpa"]))
         out[(bh, s, d, causal)] = records
-    for shape in (WIDE_BH_SHAPE,) + ((WIDE_BH_D256_SHAPE,) if hopper else ()):
+    for shape in (WIDE_BH_SHAPE,) + ((WIDE_BH_D256_SHAPE, WIDE_BH_D384_SHAPE)
+                                     if hopper else ()):
         *wide, causal = shape
         held_errors(fa, *kernel_inputs(*wide, dtype), causal,
                     "%s %s %s (untimed)" % (shape_label(*shape), dtype,
@@ -986,9 +1031,9 @@ def train_f32_flagship(torch):
 
 def check_model():
     """The small decoder at each of MODEL_HEAD_DIMS against the CPU, its
-    flash launches counted -> {head_dim: counts}.  From head_dim 129 on,
-    bf16 takes the Hopper forward, never the CUDA-core one; padded to 256,
-    also the Hopper dq and dk/dv."""
+    flash launches counted -> {head_dim: counts}.  From head_dim 129 on
+    (padded to 256 and past it), bf16 takes the Hopper forward, dq and
+    dk/dv, never a CUDA-core one."""
     from horovod_tpu_torch.ops import flash_attention as fa
     counts = {}
     for head_dim in MODEL_HEAD_DIMS:
@@ -998,9 +1043,7 @@ def check_model():
         if head_dim > 128:
             say("model check (head_dim %d): flash launches %s" % (
                 head_dim, {k: n for k, n in counts[head_dim].items() if n}))
-            hopper = ("flash_fwd",) + (
-                ("flash_bwd_dq", "flash_bwd_dkv")
-                if fa.padded_head_dim(head_dim) == 256 else ())
+            hopper = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
             if not all(counts[head_dim][n + "_kernel"] == 2
                        and counts[head_dim][n + "_simt_kernel"] == 0
                        for n in hopper):
@@ -1385,9 +1428,9 @@ def print_ptxas(text: str):
 
 
 FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
-            ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+            ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_wide")),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
-                               "flash_bwd_dkv_d256")),
+                               "flash_bwd_dkv_d256", "flash_bwd_dkv_wide")),
             ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",
                                    "flash_bwd_onepass_d256")),
             ("bn_stats", ("bn_stats_",)),
@@ -2027,23 +2070,24 @@ def train_decoder_f16(torch):
     return counts
 
 
-def train_decoder_hd256(torch):
-    """The main path of the Hopper kernels at head dim 256: the decoder
-    flagship (``train_flagship``'s configuration, bench.py:86-91, and its
-    Adam) with n_heads = n_kv_heads = d // 256 = 4 (Gemma 7B's head
-    width), bf16, one step through ``make_train_step`` and the engine under
-    HVD_TPU_FLASH_BWD=pallas (12 Hopper forwards, 12 Hopper dq and 12
-    Hopper dk/dv), STEPS more timed and one profiled, then one step from
-    the same weights under pallas_onepass (12 Hopper forwards and 12
-    Hopper one-pass backwards, their 64-row dq partial slots summed), STEPS
-    more timed and one profiled; every launch count set to 0 just before
-    each held step and read just after, no CUDA-core kernel.  Each held
-    step's loss and gradients are held against the same model's on the
-    plain attention path (HOROVOD_FLASH_ATTENTION=0) on the card, from the
-    same weights and data, by the flagship steps' rules
-    (``held_f16_step``); the logits take bf16 operands on both paths, so
-    that only attention differs.  -> {backward choice: its step's
-    counts}."""
+def train_decoder_wide(torch, head_dim, choices):
+    """The main path of the Hopper kernels from head dim 256 on: the
+    decoder flagship (``train_flagship``'s configuration, bench.py:86-91,
+    and its Adam) with n_heads = n_kv_heads = d // ``head_dim`` (4 heads of
+    256, Gemma 7B's head width; 2 heads of 512, the widest head past 256
+    that divides its d 1024), bf16, under each backward choice of
+    ``choices`` in turn from the same weights: one step through
+    ``make_train_step`` and the engine, STEPS more timed and one profiled.
+    Under HVD_TPU_FLASH_BWD=pallas 12 Hopper forwards, 12 Hopper dq and 12
+    Hopper dk/dv (past 256 their panel kernels); under pallas_onepass (at
+    256) 12 Hopper forwards and 12 Hopper one-pass backwards, their 64-row
+    dq partial slots summed; every launch count set to 0 just before each
+    held step and read just after, no CUDA-core kernel.  Each held step's
+    loss and gradients are held against the same model's on the plain
+    attention path (HOROVOD_FLASH_ATTENTION=0) on the card, from the same
+    weights and data, by the flagship steps' rules (``held_f16_step``);
+    the logits take bf16 operands on both paths, so that only attention
+    differs.  -> {backward choice: its step's counts}."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.convert import init_params, params_from_jax
     from horovod_tpu_torch.models.transformer import TransformerConfig, loss_fn
@@ -2053,8 +2097,9 @@ def train_decoder_hd256(torch):
     hvd.init()
     d, L, seq, batch = 1024, 12, 2048, 4
     cfg = TransformerConfig(vocab_size=8192, d_model=d, n_layers=L,
-                            n_heads=d // 256, n_kv_heads=d // 256,
+                            n_heads=d // head_dim, n_kv_heads=d // head_dim,
                             d_ff=d * 3, max_seq=seq, logits_dtype="bf16")
+    label = "hd%d decoder" % head_dim
     t0 = time.perf_counter()
     build, shard_batch = make_train_step(
         cfg, lambda ps: torch.optim.Adam(ps, 1e-3))
@@ -2074,16 +2119,17 @@ def train_decoder_hd256(torch):
     if any(fa.launch_counts().values()):
         raise AssertionError("the plain attention path launched flash "
                              "kernels: %s" % fa.launch_counts())
-    say("hd256 decoder: d%d L%d %d heads of %d, seq %d, batch %d, bf16; "
-        "set-up and the plain path's loss and gradients %.1f s"
-        % (d, L, cfg.n_heads, cfg.head_dim, seq, batch,
-           time.perf_counter() - t0))
+    say("%s: d%d L%d %d heads of %d, seq %d, batch %d, bf16, %d "
+        "parameters; set-up and the plain path's loss and gradients %.1f s"
+        % (label, d, L, cfg.n_heads, cfg.head_dim, seq, batch,
+           sum(p.numel() for p in start), time.perf_counter() - t0))
     expected = {"pallas": {"flash_fwd_kernel": L, "flash_bwd_dq_kernel": L,
                            "flash_bwd_dkv_kernel": L},
                 "pallas_onepass": {"flash_fwd_kernel": L,
                                    "flash_bwd_onepass_kernel": L}}
     counts = {}
-    for choice, want_counts in expected.items():
+    for choice in choices:
+        want_counts = expected[choice]
         with torch.no_grad():
             for p, p0 in zip(model.parameters(), start):
                 p.copy_(p0)
@@ -2094,17 +2140,17 @@ def train_decoder_hd256(torch):
             torch.cuda.synchronize()
             took = time.perf_counter() - t
         counts[choice] = fa.launch_counts()
-        say("launches on the hd256 decoder path (1 step, %s): %s"
-            % (choice, counts[choice]))
+        say("launches on the %s path (1 step, %s): %s"
+            % (label, choice, counts[choice]))
         check_counts(counts[choice], want_counts)
-        held_f16_step("hd256 decoder (%s)" % choice, took, got, want,
+        held_f16_step("%s (%s)" % (label, choice), took, got, want,
                       {n: p.grad for n, p in model.named_parameters()},
                       plain, L)
         times, last, frozen = timed_steps(torch, step, data, choice)
         med = statistics.median(times)
-        say("hd256 decoder: %d more steps (%s), ms %s, median step_ms %.2f, "
-            "tok/s %.1f, %d of them frozen, last loss %.6f" % (
-                STEPS, choice, ["%.2f" % x for x in times], med,
+        say("%s: %d more steps (%s), ms %s, median step_ms %.2f, tok/s "
+            "%.1f, %d of them frozen, last loss %.6f" % (
+                label, STEPS, choice, ["%.2f" % x for x in times], med,
                 batch * seq / med * 1e3, frozen, last))
         with flash_bwd_env(choice):
             profile_step(torch, step, data, med)
@@ -3393,8 +3439,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     f16_counts = train_bert_f16(torch)
     torch.cuda.empty_cache()
-    hd256_counts = train_decoder_hd256(torch)
+    hd256_counts = train_decoder_wide(torch, 256,
+                                      ("pallas", "pallas_onepass"))
     hd256_fwd = sum(c["flash_fwd_kernel"] for c in hd256_counts.values())
+    torch.cuda.empty_cache()
+    hd512_counts = train_decoder_wide(torch, 512, ("pallas",))["pallas"]
     torch.cuda.empty_cache()
     with flash_bwd_env("pallas_onepass"):
         adasum_counts, adasum_prof = train_bert_adasum(torch)
@@ -3509,16 +3558,20 @@ def main() -> int:
                       for label, c in f16_paths.items()),
             f16_record[name][1]) for name in F16_HOPPER) + "; " +
         "flash_fwd_d256 and flash_fwd_d384 (the Hopper forward from 256 on, "
-        "bf16 and f16) held at %s and %s (phase 2; their records bf16 at %s "
-        "and %s, SDPA in bf16 their library_ms), launched %d times in the "
-        "hd256 decoder's two steps (phase 4; flash_fwd_d256's launches) and "
-        "%d times in the small decoder at head_dim 320 (phase 3, padded to "
-        "384; flash_fwd_d384's launches: no phase-4 path runs a head dim "
-        "past 256)" % (", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
-                       shape_label(*WIDE_BH_D256_SHAPE),
-                       shape_label(*HOPPER_FWD_SHAPES[0]),
-                       shape_label(*WIDER_HEAD_SHAPES[0]),
-                       hd256_fwd, model_counts[320]["flash_fwd_kernel"])
+        "bf16 and f16) held at %s, %s and %s and %s (phase 2; their records "
+        "bf16 at %s and %s, SDPA in bf16 their library_ms), launched %d "
+        "times in the hd256 decoder's two steps (phase 4; flash_fwd_d256's "
+        "launches), %d times in the hd512 decoder step (phase 4) and %d "
+        "times in the small decoder at head_dim 320 (phase 3, padded to "
+        "384; flash_fwd_d384's launches: these two)" % (
+            ", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
+            shape_label(*DECODER_D512_SHAPE),
+            shape_label(*WIDE_BH_D256_SHAPE),
+            shape_label(*WIDE_BH_D384_SHAPE),
+            shape_label(*HOPPER_FWD_SHAPES[0]),
+            shape_label(*WIDER_HEAD_SHAPES[0]), hd256_fwd,
+            hd512_counts["flash_fwd_kernel"],
+            model_counts[320]["flash_fwd_kernel"])
         + "; flash_bwd_dq_d256, flash_bwd_dkv_d256 and "
         "flash_bwd_onepass_d256 (the Hopper dq, dk/dv and one-pass at 256, "
         "bf16 and f16; the one-pass's partials in 64-row slots) held at %s "
@@ -3531,6 +3584,21 @@ def main() -> int:
                 hd256_counts["pallas"]["flash_bwd_dq_kernel"],
                 hd256_counts["pallas"]["flash_bwd_dkv_kernel"],
                 hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"])
+        + "; flash_bwd_dq_d384 and flash_bwd_dkv_d384 (the Hopper dq and "
+        "dk/dv past 256, bf16 and f16; panels of 256 + 128 columns) held at "
+        "%s, %s and %s, their panels bit for bit (phase 2; their records "
+        "bf16 at %s, SDPA's bf16 backward their library_ms), launched %d "
+        "and %d times in the hd512 decoder step under pallas (phase 4) and "
+        "%d and %d times in the small decoder at head_dim 320 (phase 3, "
+        "padded to 384; the records' launches: these two)" % (
+            ", ".join(shape_label(*s) for s in WIDER_HEAD_SHAPES),
+            shape_label(*DECODER_D512_SHAPE),
+            shape_label(*WIDE_BH_D384_SHAPE),
+            shape_label(*WIDER_HEAD_SHAPES[0]),
+            hd512_counts["flash_bwd_dq_kernel"],
+            hd512_counts["flash_bwd_dkv_kernel"],
+            model_counts[320]["flash_bwd_dq_kernel"],
+            model_counts[320]["flash_bwd_dkv_kernel"])
         + "; " + "; ".join(
             "%s, %s_d256 and %s_d384 (the f32 %s on Hopper, split TF32) held "
             "at %s and %s (phase 2; their records at %s, %s and %s, SDPA in "
@@ -3602,14 +3670,21 @@ def main() -> int:
     for name, kern, shape, launches in (
             ("flash_fwd_d256", "flash_fwd", HOPPER_FWD_SHAPES[0], hd256_fwd),
             ("flash_fwd_d384", "flash_fwd", WIDER_HEAD_SHAPES[0],
-             model_counts[320]["flash_fwd_kernel"]),
+             hd512_counts["flash_fwd_kernel"]
+             + model_counts[320]["flash_fwd_kernel"]),
             ("flash_bwd_dq_d256", "flash_bwd_dq", WIDE_HEAD_SHAPES[0],
              hd256_counts["pallas"]["flash_bwd_dq_kernel"]),
             ("flash_bwd_dkv_d256", "flash_bwd_dkv", WIDE_HEAD_SHAPES[0],
              hd256_counts["pallas"]["flash_bwd_dkv_kernel"]),
             ("flash_bwd_onepass_d256", "flash_bwd_onepass",
              WIDE_HEAD_SHAPES[0],
-             hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"])):
+             hd256_counts["pallas_onepass"]["flash_bwd_onepass_kernel"]),
+            ("flash_bwd_dq_d384", "flash_bwd_dq", WIDER_HEAD_SHAPES[0],
+             hd512_counts["flash_bwd_dq_kernel"]
+             + model_counts[320]["flash_bwd_dq_kernel"]),
+            ("flash_bwd_dkv_d384", "flash_bwd_dkv", WIDER_HEAD_SHAPES[0],
+             hd512_counts["flash_bwd_dkv_kernel"]
+             + model_counts[320]["flash_bwd_dkv_kernel"])):
         rec = flash[shape][kern]
         out.append({"name": name, "route": "cuda",
                     "source": sources[kern][0],

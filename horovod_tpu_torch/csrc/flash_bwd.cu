@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
-// in bf16 and in f16.
+// in bf16 and in f16, at head dims 32, 64, 128, 256 and every multiple of
+// 128 past 256.
 //
 // Replaces: horovod_tpu/ops/pallas_kernels.py _flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel, launched by _flash_attention_bwd_flat (the default
@@ -87,13 +88,58 @@
 //          a consumer fits beside the ring.
 // Both dk/dv kernels mask P by kv::dead (flash_bwd_kv.cuh).
 //
+// Past 256 (every head dim padded to a multiple of 128 past 256): a
+// consumer's dq, or dK and dV of a 64-row k block, is wider than one
+// wgmma's N (256), and the D-256 plans' resident tiles no longer fit (Q and
+// dO of 128 rows take 192 KB at D 384; K and V of 64 rows 160 KB at 640).
+// So both kernels take the forward's plan past 256 (flash_fwd.cu): a
+// block owns one panel z of the outputs' columns, [256 z, 256 z + W), W
+// 256, or 128 for the last panel of an odd multiple of 128 (384 = 256 +
+// 128, 640 = 256 + 256 + 128), one launch per width with the panels on
+// gridDim.z; the scores take every column, streamed by TMA in 64-column
+// chunks (m64n64k16 wgmma; a chunk's stage goes back once the next
+// chunk's group is issued and its own read), and the output product reads
+// a W-column panel MN-major from a ring of its own.  Every panel block
+// streams the chunks in one order, chunk 0 first, so all the blocks of a
+// tile form the same P and dS bit for bit (tools/chip_fault_check.py
+// plants another order).  Each forms S and dP once per panel: at D 384
+// dq does 10 D FLOP a live pair for the function's 6 and dk/dv 12 for 8.
+// Bound at BH 32, S 2048, D 384, causal: 154.7 + 206.2 GFLOP, 0.1564 +
+// 0.2086 ms at 989 TFLOP/s; this design's 257.8 + 309.3 GFLOP, 0.2607 +
+// 0.3128 ms.
+//   dq     (flash_bwd_dq_wide_kernel<T, W, CAUSAL>): one block per (bh,
+//          128-row q tile, panel), longest causal rows first.  Per 64-row
+//          k tile the producer streams D/64 (Q, K) chunks then D/64 (dO, V)
+//          chunks (Q and dO 128 x 64, K and V 64 x 64: 24 KB a stage, six
+//          stages, 144 KB), then K's W-column panel (64 x W, two stages,
+//          64 KB at W 256): 208 KB.  A consumer owns 64 q rows: S and dP
+//          (32 registers each), P and dS as the D-256 plan, dq_panel += dS
+//          K[:, panel] (W / 2 registers), left from registers to the rows
+//          below S.
+//   dk/dv  (flash_bwd_dkv_wide_kernel<T, W, CAUSAL>): one block per (bh,
+//          64-row k block, panel), kv256's split of the products: per
+//          64-row q tile consumer 0 forms S^T = K Q^T over every chunk of
+//          its ring (K and Q 64 x 64: 16 KB a stage, four stages, 64 KB),
+//          P^T and dV_panel += P^T dO[:, panel]; consumer 1 dP^T = V dO^T
+//          over its ring (V and dO, 64 KB), dS^T = P^T (dP^T - delta) and
+//          dK_panel += dS^T Q[:, panel]; P^T crosses in f32 through the
+//          16 KB exchange tile under two mbarriers.  K and V are re-read
+//          chunk by chunk for every q tile.  dO's and Q's W-column panels
+//          of the q tile come through rings of their own (one 32 KB stage
+//          each at W 256, two of 16 KB at W 128: 64 KB): 208 KB.  lse and
+//          delta are read from device memory into registers; dv and dk
+//          leave in T from registers to the rows below S.
+//
 // Left on the table: overlap inside a consumer of one tile's elementwise
 // work with the next tile's products (each tile now runs products,
 // softmax, products in series), ping-pong of the two consumers, a
 // persistent grid (at BERT's S 384 a dq block walks three k tiles and a
 // dk/dv block six q tiles), and 128-row q tiles in the dk/dv kernel; at
 // D 256 the dk/dv consumer 1 waits each tile for consumer 0's P^T, which a
-// second exchange tile would hide (no room for it beside the ring now).
+// second exchange tile would hide (no room for it beside the ring now);
+// past 256, S and dP formed once per tile into shared memory and the
+// panels walked from there, and K and V resident where they fit (up to
+// 384) instead of re-read per q tile in dk/dv.
 #include "flash_bwd_kv.cuh"
 
 namespace hvdflash {
@@ -129,6 +175,60 @@ struct Plan {
                 "the f32 dq tile fits in the ring");
 };
 
+// The k tiles of BK rows that the q tile from q0 reads.  Causal liveness,
+// as in the TPU kernel: k tile t is live while t*BK <= q0 + BQ - 1.
+template <int BK, bool CAUSAL>
+__device__ __forceinline__ int live_k_tiles(int q0, int S) {
+  const int nk = (S + BK - 1) / BK;
+  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  return kend;
+}
+
+// lse (in log2 units) and delta of a consumer thread's rows r0 and r0 + 8
+// of head bh; a row past S reads 0, its Q and dO are zeros, so its dS is 0
+// and not stored.
+__device__ __forceinline__ void q_rows(float (&ls)[2], float (&dl)[2],
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta, int bh,
+                                       int r0, int S) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t at = (size_t)bh * S + row;
+    ls[h] = row < S ? lse[at] * kv::LOG2E : 0.f;
+    dl[h] = row < S ? delta[at] : 0.f;
+  }
+}
+
+// dS = P (dP - delta) of rows r0, r0 + 8 against the BK k columns from k0,
+// P = exp2(S log2e - lse log2e), packed to pairs of T in the accumulator's
+// layout (wgmma's register A layout); the mask only where the tile
+// crosses the diagonal of the consumer's rows from w0, or S.
+template <typename T, int BK, bool CAUSAL>
+__device__ __forceinline__ void ds_tile(uint32_t (&pds)[BK / 4], const float (&sc)[BK / 2],
+                                        const float (&dp)[BK / 2], const float (&ls)[2],
+                                        const float (&dl)[2], int r0, int w0, int k0,
+                                        int c2, int S) {
+  const bool mask = (CAUSAL && k0 + BK - 1 > w0) || k0 + BK > S;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * h + e;
+        float p = exp2f(fmaf(sc[x], kv::LOG2E, -ls[h]));
+        if (mask) {
+          const int row = r0 + 8 * h, col = k0 + 8 * j + c2 + e;
+          if (!(col < S && (!CAUSAL || col <= row))) p = 0.f;
+        }
+        d[e] = p * (dp[x] - dl[h]);
+      }
+      pds[2 * j + h] = pack<T>(d[0], d[1]);
+    }
+}
+
 }  // namespace dqtile
 
 template <typename T, int D, bool CAUSAL>
@@ -144,7 +244,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
   using PB = Panels<D>;     // (rows, D) tiles of T
   using PF = Panels<D, 4>;  // a consumer's f32 (64, D) dq tile
   constexpr int BQ = dqtile::BQ, BK = L::BK, PER = L::PER, SLOTS = L::SLOTS;
-  constexpr float LOG2E = kv::LOG2E;
   extern __shared__ unsigned char raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
@@ -154,10 +253,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
-  const int nk = (S + BK - 1) / BK;
-  // Causal liveness, as in the TPU kernel: k tile t is live while
-  // t*BK <= q0 + BQ - 1.
-  const int kend = CAUSAL ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  const int kend = dqtile::live_k_tiles<BK, CAUSAL>(q0, S);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -202,16 +298,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
     const int c2 = 2 * (lane % 4);                      // first k column of a pair
     const unsigned char* sq = smem + L::q + 64 * wg * PB::SWZ;
     const unsigned char* sg = smem + L::g + 64 * wg * PB::SWZ;
-    // lse (in log2 units) and delta of this thread's two rows; a row past
-    // S reads 0, its Q and dO are zeros, so its dS is 0 and not stored
     float ls[2], dl[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + rl + 8 * h;
-      const size_t at = (size_t)bh * S + row;
-      ls[h] = row < S ? lse[at] * LOG2E : 0.f;
-      dl[h] = row < S ? delta[at] : 0.f;
-    }
+    dqtile::q_rows(ls, dl, lse, delta, bh, q0 + rl, S);
     float acc[D / 2];  // dq: rows rl, rl + 8 of D columns
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -243,26 +331,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
       fence_regs(dp);
       if (L::WIDE) mbar_arrive(&empty[jv % SLOTS]);  // V's own slot: dP is formed
 
-      // dS = P (dP - delta), packed to pairs of T in the accumulator's layout
-      const bool mask = (CAUSAL && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S;
       uint32_t pds[BK / 4];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float d[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int x = 4 * j + 2 * h + e;
-            float p = exp2f(fmaf(sc[x], LOG2E, -ls[h]));
-            if (mask) {
-              const int row = q0 + rl + 8 * h, col = k0 + 8 * j + c2 + e;
-              if (!(col < S && (!CAUSAL || col <= row))) p = 0.f;
-            }
-            d[e] = p * (dp[x] - dl[h]);
-          }
-          pds[2 * j + h] = pack<T>(d[0], d[1]);
-        }
+      dqtile::ds_tile<T, BK, CAUSAL>(pds, sc, dp, ls, dl, q0 + rl, q0 + 64 * wg, k0, c2,
+                                     S);
 
       // dq += dS K: A from registers, K MN-major
       fence_regs(acc);
@@ -423,19 +494,510 @@ static cudaError_t run_dkv(const T* q, const T* k, const T* v, const T* g,
     return launch_dkv<T, D, CAUSAL>(q, k, v, g, lse, delta, dk, dv, bh, s, stream);
 }
 
+// ---------------------------------------------------------- past 256
+
+namespace wide {
+
+constexpr int CW = 64;  // columns per score chunk (one 128-byte swizzled box)
+constexpr int BK = 64;  // k rows per tile (dq) or block (dk/dv)
+
+// (acc, 64 rows x 64 columns f32) (+)= A B^T over one 64-column chunk: A
+// the consumer's 64 rows at sa, B 64 rows at sb, both K-major; one
+// committed group.
+template <typename T>
+__device__ __forceinline__ void chunk_mma(float (&acc)[32], const unsigned char* sa,
+                                          const unsigned char* sb, bool accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk)
+    MmaSS<64, 0, 0, T>::run(acc, desc_kmajor<CW, 64>(sa, kk), desc_kmajor<CW, 64>(sb, kk),
+                            accumulate || kk > 0);
+  wgmma_commit();
+}
+
+// acc (64 rows x W columns f32) += A B: A 64 columns of packed T pairs in
+// the accumulator's layout (P^T, dS or dS^T), B a 64-row W-column panel
+// read MN-major.
+template <typename T, int W>
+__device__ __forceinline__ void panel_mma(float (&acc)[W / 2], const uint32_t (&pa)[16],
+                                          const unsigned char* sb) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+    MmaRS<W, 1, T>::run(acc, a, desc_mnmajor<W, 64>(sb, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// d past 256, a multiple of 128: launch(W 256, first panel 0, d / 256
+// panels), then launch(W 128, d / 256, 1) where d is an odd multiple of
+// 128 (the forward's split).
+template <typename F256, typename F128>
+static cudaError_t by_panels(int d, F256 launch256, F128 launch128) {
+  cudaError_t err = launch256(0, d / 256);
+  if (err == cudaSuccess && d % 256) err = launch128(d / 256, 1);
+  return err;
+}
+
+// dq: 128-row q tiles, SA stages of (Q or dO chunk 128 x 64, K or V chunk
+// 64 x 64), two stages of K's W-column panel.
+namespace dq {
+constexpr int BQ = dqtile::BQ, SA = 6, KS = 2;
+template <typename T, int W>
+struct Smem {
+  static constexpr size_t qc = BQ * CW * sizeof(T);          // 16 KB
+  static constexpr size_t chunk = qc + BK * CW * sizeof(T);  // 24 KB
+  static constexpr size_t kp = BK * W * sizeof(T);           // 32 or 16 KB
+  static constexpr size_t k = SA * chunk;                    // KS x kp after the ring
+  static constexpr size_t bar = k + KS * kp;
+  static constexpr size_t bytes = bar + 8 * 2 * (SA + KS) + 1024;  // + alignment
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+}  // namespace dq
+
+// dk/dv: 64-row q tiles; ring A (K, Q chunks, consumer 0) and ring B (V,
+// dO chunks, consumer 1) of SR stages; TS stages each of dO's and Q's
+// W-column panel of the q tile; the P^T exchange tile.
+namespace dkv {
+constexpr int BQ = 64, SR = 4;
+template <typename T, int W>
+struct Smem {
+  static constexpr int TS = W == 256 ? 1 : 2;
+  static constexpr size_t c = 64 * CW * sizeof(T);       // one 64-row chunk, 8 KB
+  static constexpr size_t stage = 2 * c;                 // (K, Q) or (V, dO)
+  static constexpr size_t b = SR * stage;                // ring B after ring A
+  static constexpr size_t t = 2 * SR * stage;            // [dO's, Q's][TS] panels
+  static constexpr size_t pt = BQ * W * sizeof(T);       // 32 or 16 KB
+  static constexpr size_t xp = t + 2 * TS * pt;          // P^T, BK x BQ f32
+  static constexpr size_t bar = xp + BK * BQ * sizeof(float);
+  static constexpr size_t bytes = bar + 8 * (4 * SR + 4 * TS + 2) + 1024;  // + alignment
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+}  // namespace dkv
+
+}  // namespace wide
+
+template <typename T, int W, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mg,
+                         float* __restrict__ dq, const float* __restrict__ lse,
+                         const float* __restrict__ delta, int S, int DW, int z0) {
+  using L = wide::dq::Smem<T, W>;
+  constexpr int BQ = wide::dq::BQ, BK = wide::BK, CW = wide::CW;
+  constexpr int SA = wide::dq::SA, KS = wide::dq::KS;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* cfull = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* cempty = cfull + SA;
+  uint64_t* kfull = cempty + SA;
+  uint64_t* kempty = kfull + KS;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  const int z = z0 + blockIdx.z;  // dq's columns [256 z, 256 z + W)
+  const int nc = DW / CW;
+  const int kend = dqtile::live_k_tiles<BK, CAUSAL>(q0, S);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(&cfull[s], 1);
+      mbar_init(&cempty[s], 256);  // every consumer thread
+    }
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: per k tile nc (Q, K) chunks, nc (dO, V), K's panel
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int n = 0;  // chunks requested
+      for (int i = 0; i < kend; ++i) {
+        const int k0 = i * BK;
+        for (int c = 0; c < 2 * nc; ++c, ++n) {
+          // one chunk order in every panel block: chunk 0 first
+          const int s = n % SA, col = CW * (c % nc);
+          mbar_wait(&cempty[s], ((n / SA) & 1) ^ 1);
+          mbar_arrive_expect_tx(&cfull[s], L::chunk);
+          unsigned char* sc = smem + s * L::chunk;
+          tma_load_3d(sc, c < nc ? mq : mg, &cfull[s], col, q0, bh);
+          tma_load_3d(sc + L::qc, c < nc ? mk : mv, &cfull[s], col, k0, bh);
+        }
+        const int s = i % KS;
+        mbar_wait(&kempty[s], ((i / KS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kfull[s], L::kp);
+        unsigned char* sk = smem + L::k + s * L::kp;
+        for (int p = 0; p < W / CW; ++p)
+          tma_load_3d(sk + p * BK * 128, mk, &kfull[s], 256 * z + CW * p, k0, bh);
+      }
+    }
+  } else {  // consumers: q rows [q0 + 64 wg, q0 + 64 wg + 64), dq's panel z
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 64 * wg + 16 * (t / 32) + lane / 4;  // first q row in the tile; +8
+    const int c2 = 2 * (lane % 4);                      // first k column of a pair
+    float ls[2], dl[2];
+    dqtile::q_rows(ls, dl, lse, delta, bh, q0 + rl, S);
+    float acc[W / 2];  // dq: rows rl, rl + 8 of the panel's W columns
+#pragma unroll
+    for (int x = 0; x < W / 2; ++x) acc[x] = 0.f;
+
+    int n = 0;  // chunks consumed
+    for (int i = 0; i < kend; ++i) {
+      const int k0 = i * BK;
+      // S = Q K^T, then dP = dO V^T, each summed chunk by chunk over every
+      // column; a chunk's stage goes back once the next chunk's group is
+      // issued and its own has been read
+      float sc[BK / 2], dp[BK / 2];
+      for (int c = 0; c < 2 * nc; ++c, ++n) {
+        const int s = n % SA;
+        mbar_wait(&cfull[s], (n / SA) & 1);
+        const unsigned char* sa = smem + s * L::chunk + 64 * wg * 128;
+        const unsigned char* sb = smem + s * L::chunk + L::qc;
+        if (c < nc)
+          wide::chunk_mma<T>(sc, sa, sb, c > 0);
+        else
+          wide::chunk_mma<T>(dp, sa, sb, c > nc);
+        if (c > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(&cempty[(n - 1) % SA]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&cempty[(n - 1) % SA]);
+
+      uint32_t pds[BK / 4];
+      dqtile::ds_tile<T, BK, CAUSAL>(pds, sc, dp, ls, dl, q0 + rl, q0 + 64 * wg, k0, c2,
+                                     S);
+
+      // dq += dS K[:, panel]: K's W-column panel read MN-major
+      const int s = i % KS;
+      mbar_wait(&kfull[s], (i / KS) & 1);
+      wide::panel_mma<T, W>(acc, pds, smem + L::k + s * L::kp);
+      mbar_arrive(&kempty[s]);
+    }
+
+    // Epilogue: dq in f32 from registers straight to the panel's columns
+    // of the rows below S.
+    float* out = dq + (size_t)bh * S * DW + 256 * z + c2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rl + 8 * h;
+      if (row < S) {
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j)
+          *reinterpret_cast<float2*>(out + (size_t)row * DW + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, int W, bool CAUSAL>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mg,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S, int DW, int z0) {
+  using L = wide::dkv::Smem<T, W>;
+  constexpr int BQ = wide::dkv::BQ, BK = wide::BK, CW = wide::CW;
+  constexpr int SR = wide::dkv::SR, TS = L::TS;
+  constexpr float LOG2E = kv::LOG2E;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* afull = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* aempty = afull + SR;
+  uint64_t* bfull = aempty + SR;
+  uint64_t* bempty = bfull + SR;
+  uint64_t* tfull = bempty + SR;  // [0, TS) dO's panel, [TS, 2 TS) Q's
+  uint64_t* tempty = tfull + 2 * TS;
+  uint64_t* xfull = tempty + 2 * TS;  // P^T written (consumer 0's 128 threads)
+  uint64_t* xempty = xfull + 1;       // P^T read (consumer 1's 128 threads)
+  float* xp = reinterpret_cast<float*>(smem + L::xp);
+
+  // bh on gridDim.x; k block 0, the longest causal one, first
+  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
+  const int z = z0 + blockIdx.z;  // dk's and dv's columns [256 z, 256 z + W)
+  const int nc = DW / CW;
+  const int nq = (S + BQ - 1) / BQ;
+  // q tiles before qstart lie wholly above the causal diagonal of this k block
+  const int qstart = CAUSAL ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SR; ++s) {
+      mbar_init(&afull[s], 1);
+      mbar_init(&aempty[s], 128);  // consumer 0
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], 128);  // consumer 1
+    }
+    for (int x = 0; x < 2 * TS; ++x) {
+      mbar_init(&tfull[x], 1);
+      mbar_init(&tempty[x], 128);
+    }
+    mbar_init(xfull, 128);
+    mbar_init(xempty, 128);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: per q tile nc chunks into each ring, then the panels
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int n = 0;
+      for (int i = 0; i < nq - qstart; ++i) {
+        const int q0 = (qstart + i) * BQ;
+        for (int c = 0; c < nc; ++c, ++n) {
+          // one chunk order in every panel block: chunk 0 first
+          const int s = n % SR, col = CW * c, par = ((n / SR) & 1) ^ 1;
+          unsigned char* sa = smem + s * L::stage;
+          mbar_wait(&aempty[s], par);
+          mbar_arrive_expect_tx(&afull[s], L::stage);
+          tma_load_3d(sa, mk, &afull[s], col, k0, bh);
+          tma_load_3d(sa + L::c, mq, &afull[s], col, q0, bh);
+          unsigned char* sb = smem + L::b + s * L::stage;
+          mbar_wait(&bempty[s], par);
+          mbar_arrive_expect_tx(&bfull[s], L::stage);
+          tma_load_3d(sb, mv, &bfull[s], col, k0, bh);
+          tma_load_3d(sb + L::c, mg, &bfull[s], col, q0, bh);
+        }
+        for (int r = 0; r < 2; ++r) {  // dO's panel (consumer 0), Q's (consumer 1)
+          const int x = r * TS + i % TS;
+          unsigned char* st = smem + L::t + x * L::pt;
+          mbar_wait(&tempty[x], ((i / TS) & 1) ^ 1);
+          mbar_arrive_expect_tx(&tfull[x], L::pt);
+          for (int p = 0; p < W / CW; ++p)
+            tma_load_3d(st + p * BQ * 128, r ? mq : mg, &tfull[x], 256 * z + CW * p, q0,
+                        bh);
+        }
+      }
+    }
+  } else {  // consumers of k rows [k0, k0 + 64): 0 owns dV, 1 owns dK
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 16 * (t / 32) + lane / 4;  // first k row of the block; +8
+    const int c2 = 2 * (lane % 4);            // first q column of a pair
+    uint64_t* full = wg ? bfull : afull;
+    uint64_t* empty = wg ? bempty : aempty;
+    const unsigned char* ring = smem + (wg ? L::b : 0);
+    const float* rows = wg ? delta : lse;
+    float acc[W / 2];  // dV (consumer 0) or dK (consumer 1): rows rl, rl + 8
+#pragma unroll
+    for (int x = 0; x < W / 2; ++x) acc[x] = 0.f;
+
+    int n = 0;  // chunks of this consumer's ring
+    for (int i = 0; i < nq - qstart; ++i) {
+      const int q0 = (qstart + i) * BQ;
+      // lse (consumer 0, in log2 units) or delta (consumer 1) of this
+      // thread's q columns 8 j + c2 + e (at 2 j + e), 0 past S
+      float rv[BQ / 4];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + 8 * j + c2 + e;
+          rv[2 * j + e] = q < S ? rows[(size_t)bh * S + q] * (wg ? 1.f : LOG2E) : 0.f;
+        }
+
+      // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T.  Rows rl, rl + 8
+      // (k) of BQ q columns, summed chunk by chunk over every column.
+      float st[BQ / 2];
+      for (int c = 0; c < nc; ++c, ++n) {
+        const int s = n % SR;
+        mbar_wait(&full[s], (n / SR) & 1);
+        const unsigned char* sa = ring + s * L::stage;
+        wide::chunk_mma<T>(st, sa, sa + L::c, c > 0);
+        if (c > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(&empty[(n - 1) % SR]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(st);
+      mbar_arrive(&empty[(n - 1) % SR]);
+
+      // Consumer 0: P^T, masked, to the exchange tile in f32 (thread t's
+      // values at [x][t], the layout consumer 1's thread t holds dP^T in)
+      // and packed to T.  Consumer 1: dS^T = P^T (dP^T - delta) from it,
+      // packed to T.
+      uint32_t pa[BQ / 4];
+      if (wg == 0) {
+        const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * h + e;
+              st[x] = exp2f(fmaf(st[x], LOG2E, -rv[2 * j + e]));
+              if (masked && kv::dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
+                st[x] = 0.f;
+            }
+            pa[2 * j + h] = pack<T>(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+          }
+        mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
+#pragma unroll
+        for (int x = 0; x < BQ / 2; ++x) xp[x * 128 + t] = st[x];
+        mbar_arrive(xfull);
+      } else {
+        mbar_wait(xfull, i & 1);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * h + e;
+              d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);
+            }
+            pa[2 * j + h] = pack<T>(d[0], d[1]);
+          }
+        mbar_arrive(xempty);
+      }
+
+      // consumer 0: dV += P^T dO[:, panel]; consumer 1: dK += dS^T Q[:, panel]
+      const int x = wg * TS + i % TS;
+      mbar_wait(&tfull[x], (i / TS) & 1);
+      wide::panel_mma<T, W>(acc, pa, smem + L::t + x * L::pt);
+      mbar_arrive(&tempty[x]);
+    }
+
+    // Epilogue: dv (consumer 0) or dk (consumer 1) in T from registers
+    // straight to the panel's columns of the k rows below S.
+    T* out = (wg ? dk : dv) + (size_t)bh * S * DW + 256 * z + c2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = k0 + rl + 8 * h;
+      if (row < S) {
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * DW + 8 * j) =
+              pack<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// The four inputs as maps of 64-column chunks: q and g in boxes of
+// `qrows` rows, k and v of 64.
+template <typename T>
+static cudaError_t chunk_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                              CUtensorMap* mg, const T* q, const T* k, const T* v,
+                              const T* g, int bh, int s, int d, uint32_t qrows) {
+  cudaError_t err;
+  if ((err = panel_map<wide::CW>(mq, q, s, bh, qrows, d)) != cudaSuccess ||
+      (err = panel_map<wide::CW>(mg, g, s, bh, qrows, d)) != cudaSuccess ||
+      (err = panel_map<wide::CW>(mk, k, s, bh, wide::BK, d)) != cudaSuccess)
+    return err;
+  return panel_map<wide::CW>(mv, v, s, bh, wide::BK, d);
+}
+
+// One launch of panels [z0, z0 + nz) of W columns each.
+template <typename T, int W, bool CAUSAL>
+static cudaError_t launch_dq_panels(const CUtensorMap& mq, const CUtensorMap& mk,
+                                    const CUtensorMap& mv, const CUtensorMap& mg,
+                                    const float* lse, const float* delta, float* dq,
+                                    int bh, int s, int d, int z0, int nz,
+                                    cudaStream_t stream) {
+  const size_t bytes = wide::dq::Smem<T, W>::bytes;
+  auto kernel = flash_bwd_dq_wide_kernel<T, W, CAUSAL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (s + wide::dq::BQ - 1) / wide::dq::BQ, nz);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mg, dq, lse, delta, s, d, z0);
+  return cudaGetLastError();
+}
+
+template <typename T, int W, bool CAUSAL>
+static cudaError_t launch_dkv_panels(const CUtensorMap& mq, const CUtensorMap& mk,
+                                     const CUtensorMap& mv, const CUtensorMap& mg,
+                                     const float* lse, const float* delta, T* dk, T* dv,
+                                     int bh, int s, int d, int z0, int nz,
+                                     cudaStream_t stream) {
+  const size_t bytes = wide::dkv::Smem<T, W>::bytes;
+  auto kernel = flash_bwd_dkv_wide_kernel<T, W, CAUSAL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (s + wide::BK - 1) / wide::BK, nz);
+  kernel<<<grid, 384, bytes, stream>>>(mq, mk, mv, mg, lse, delta, dk, dv, s, d, z0);
+  return cudaGetLastError();
+}
+
+template <typename T, bool CAUSAL>
+static cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* g,
+                                  const float* lse, const float* delta, float* dq,
+                                  int bh, int s, int d, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg;
+  cudaError_t err = chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
+                                  wide::dq::BQ);
+  if (err != cudaSuccess) return err;
+  return wide::by_panels(
+      d,
+      [&](int z0, int nz) {
+        return launch_dq_panels<T, 256, CAUSAL>(mq, mk, mv, mg, lse, delta, dq, bh, s,
+                                                d, z0, nz, stream);
+      },
+      [&](int z0, int nz) {
+        return launch_dq_panels<T, 128, CAUSAL>(mq, mk, mv, mg, lse, delta, dq, bh, s,
+                                                d, z0, nz, stream);
+      });
+}
+
+template <typename T, bool CAUSAL>
+static cudaError_t launch_dkv_wide(const T* q, const T* k, const T* v, const T* g,
+                                   const float* lse, const float* delta, T* dk, T* dv,
+                                   int bh, int s, int d, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg;
+  cudaError_t err = chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
+                                  wide::dkv::BQ);
+  if (err != cudaSuccess) return err;
+  return wide::by_panels(
+      d,
+      [&](int z0, int nz) {
+        return launch_dkv_panels<T, 256, CAUSAL>(mq, mk, mv, mg, lse, delta, dk, dv, bh,
+                                                 s, d, z0, nz, stream);
+      },
+      [&](int z0, int nz) {
+        return launch_dkv_panels<T, 128, CAUSAL>(mq, mk, mv, mg, lse, delta, dk, dv, bh,
+                                                 s, d, z0, nz, stream);
+      });
+}
+
 }  // namespace hvdflash
 
 // dtype: 1 float16, 2 bfloat16 (the codes of flash_simt.cu).  d: 32, 64,
-// 128 or 256.  Each returns a cudaError_t (cudaErrorInvalidValue for a
-// dtype or d it does not take).
-#define HVD_BWD_WIDTHS(CASE, T) \
-  switch (d) {                  \
-    CASE(T, 32)                 \
-    CASE(T, 64)                 \
-    CASE(T, 128)                \
-    CASE(T, 256)                \
-    default:                    \
-      return (int)cudaErrorInvalidValue; \
+// 128, 256, or a multiple of 128 past 256.  Each returns a cudaError_t
+// (cudaErrorInvalidValue for a dtype or d it does not take).
+#define HVD_BWD_WIDTHS(CASE, WIDE, T)           \
+  switch (d) {                                  \
+    CASE(T, 32)                                 \
+    CASE(T, 64)                                 \
+    CASE(T, 128)                                \
+    CASE(T, 256)                                \
+    default:                                    \
+      if (d > 256 && d % 128 == 0) WIDE(T)      \
+      return (int)cudaErrorInvalidValue;        \
   }
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -456,9 +1018,19 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
     return causal ? launch_dq<T, DD, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, st)  \
                   : launch_dq<T, DD, false>(Q, K, V, G, LSE, DEL, DQ, bh, s, st); \
   }
-  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)
-  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DQ, __nv_bfloat16)
+#define HVD_DQ_WIDE(T)                                                        \
+  {                                                                           \
+    auto Q = static_cast<const T*>(q);                                        \
+    auto K = static_cast<const T*>(k);                                        \
+    auto V = static_cast<const T*>(v);                                        \
+    auto G = static_cast<const T*>(g);                                        \
+    return causal ? launch_dq_wide<T, true>(Q, K, V, G, LSE, DEL, DQ, bh, s, d, st)  \
+                  : launch_dq_wide<T, false>(Q, K, V, G, LSE, DEL, DQ, bh, s, d, st); \
+  }
+  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, HVD_DQ_WIDE, __half)
+  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DQ, HVD_DQ_WIDE, __nv_bfloat16)
   return (int)cudaErrorInvalidValue;
+#undef HVD_DQ_WIDE
 #undef HVD_DQ
 }
 
@@ -482,9 +1054,22 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
         ? run_dkv<T, DD, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st)       \
         : run_dkv<T, DD, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, st);     \
   }
-  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __half)
-  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DKV, __nv_bfloat16)
+#define HVD_DKV_WIDE(T)                                                        \
+  {                                                                            \
+    auto Q = static_cast<const T*>(q);                                         \
+    auto K = static_cast<const T*>(k);                                         \
+    auto V = static_cast<const T*>(v);                                         \
+    auto G = static_cast<const T*>(g);                                         \
+    auto DK = static_cast<T*>(dk);                                             \
+    auto DV = static_cast<T*>(dv);                                             \
+    return causal                                                              \
+        ? launch_dkv_wide<T, true>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, d, st)   \
+        : launch_dkv_wide<T, false>(Q, K, V, G, LSE, DEL, DK, DV, bh, s, d, st); \
+  }
+  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, HVD_DKV_WIDE, __half)
+  if (dtype == 2) HVD_BWD_WIDTHS(HVD_DKV, HVD_DKV_WIDE, __nv_bfloat16)
   return (int)cudaErrorInvalidValue;
+#undef HVD_DKV_WIDE
 #undef HVD_DKV
 }
 #undef HVD_BWD_WIDTHS

@@ -25,18 +25,18 @@ of the same function.  ``flash_fwd``/``flash_bwd`` pick the plain
 version only for tensors on the CPU; on CUDA they launch the kernels that
 ``_kernels_for`` names for the inputs' dtype and padded width, which
 raise on anything they do not take.  The Hopper kernels take bf16 and
-f16: the forward (``csrc/flash_fwd.cu``) at every padded width (32, 64,
-128, 256 and every multiple of 128 past 256), dq and dk/dv
-(``flash_bwd.cu``) and the one-pass backward (``flash_bwd_onepass.cu``)
-at 32, 64, 128 and 256; and f32: the forward in split TF32
+f16: the forward (``csrc/flash_fwd.cu``), dq and dk/dv (``flash_bwd.cu``)
+at every padded width (32, 64, 128, 256 and every multiple of 128 past
+256), and the one-pass backward (``flash_bwd_onepass.cu``) at 32, 64, 128
+and 256; and f32: the forward in split TF32
 (``csrc/flash_fwd_f32.cu``, ``flash_fwd_f32_kernel``) at every padded
 width, and dq, dk/dv and the one-pass backward (``csrc/flash_bwd_f32.cu``,
 ``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel`` and
 ``flash_bwd_onepass_f32_kernel``: split TF32, dP on the CUDA cores) at
 every padded width.  Their CUDA-core twins (``csrc/flash_simt.cu``,
 ``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
-whatever the Hopper kernels do not: the three backward kernels in bf16
-and f16 past 256.  Any other dtype raises.
+whatever the Hopper kernels do not: the one-pass backward in bf16 and f16
+past 256.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -57,8 +57,8 @@ _HEAD_DIMS = (32, 64, 128, 256)
 
 class _PaddedWidths:
     """Every width ``padded_head_dim`` gives: 32, 64, 128, 256 and each
-    multiple of 128 past 256 (the widths of the Hopper forward and of the
-    CUDA-core kernels)."""
+    multiple of 128 past 256 (the widths of the Hopper forward, dq and
+    dk/dv and of the CUDA-core kernels)."""
 
     def __contains__(self, width) -> bool:
         return width in _HEAD_DIMS or (width > 256 and width % 128 == 0)
@@ -237,9 +237,11 @@ def flash_fwd_kernel(q, k, v, causal: bool):
 
 
 def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dq (``csrc/flash_bwd.cu``), bf16 or f16, up to 256 (at 256
-    its wide plan: 64-row K and V tiles in three ring slots) -> dq f32,
-    pre-scaled units."""
+    """Hopper dq (``csrc/flash_bwd.cu``), bf16 or f16, at every padded
+    width (at 256 its wide plan: 64-row K and V tiles in three ring slots;
+    past 256 one block per 256-column panel of dq, and one launch for a
+    last 128-column panel, the scores streamed in 64-column chunks) -> dq
+    f32, pre-scaled units."""
     bh, s, d = _check_kernel_args(flash_bwd_dq_kernel, (q, k, v, g),
                                   (lse, delta))
     dq = torch.empty(bh, s, d, dtype=torch.float32, device=q.device)
@@ -253,8 +255,10 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, causal: bool):
 
 
 def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
-    """Hopper dk/dv (``csrc/flash_bwd.cu``), bf16 or f16, up to 256 (at
-    256 its own plan: 64-row k blocks whose consumers own dV and dK) ->
+    """Hopper dk/dv (``csrc/flash_bwd.cu``), bf16 or f16, at every padded
+    width (from 256 on 64-row k blocks whose consumers own dV and dK; past
+    256 one block per 256-column panel of dk and dv, and one launch for a
+    last 128-column panel, the scores streamed in 64-column chunks) ->
     (dk, dv) in k's dtype."""
     bh, s, d = _check_kernel_args(flash_bwd_dkv_kernel, (q, k, v, g),
                                   (lse, delta))
@@ -457,10 +461,10 @@ SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
 F32_KERNELS = (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
                flash_bwd_dkv_f32_kernel, flash_bwd_onepass_f32_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS + F32_KERNELS
-# The Hopper forward takes every padded width, dq, dk/dv and the one-pass
+# The Hopper forward, dq and dk/dv take every padded width, the one-pass
 # those up to 256.
-for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, _HEAD_DIMS, _HEAD_DIMS,
-                                   _HEAD_DIMS)):
+for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, PADDED_WIDTHS,
+                                   PADDED_WIDTHS, _HEAD_DIMS)):
     _k.widths, _k.dtypes = _w, HOPPER_DTYPES
 for _k in SIMT_KERNELS:
     _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
@@ -485,8 +489,8 @@ def _kernels_for(dtype, width: int):
     retry after a failure.  Each step takes a Hopper kernel where one takes
     the dtype and the width (the bf16 and f16 family or the f32 one,
     ``F32_KERNELS``), else its CUDA-core twin: bf16 and f16 at up to 256
-    run all four on Hopper, and past 256 the forward on Hopper and the
-    three backward kernels on the CUDA cores; f32 runs all four on Hopper
+    run all four on Hopper, and past 256 the forward, dq and dk/dv on
+    Hopper and the one-pass on the CUDA cores; f32 runs all four on Hopper
     (split TF32) at every width."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "

@@ -52,19 +52,22 @@ def _one_torch_thread():
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384])
 def test_f16_route(width):
     """f16 at up to 256: the four Hopper kernels; past it the Hopper
-    forward and the three CUDA-core backward kernels, as bf16 goes."""
+    forward, dq and dk/dv and the CUDA-core one-pass, as bf16 goes."""
     want = (fa.HOPPER_KERNELS if width <= 256 else
-            (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:])
+            fa.HOPPER_KERNELS[:3] + (fa.flash_bwd_onepass_simt_kernel,))
     assert fa._kernels_for(torch.float16, width) == want
     assert fa._kernels_for(torch.bfloat16, width) == want
 
 
 def test_hopper_backward_takes_f16():
     """The Hopper dq and dk/dv wrappers take f16 and bf16 (the check
-    before the device passes them) and no f32, at widths up to 256."""
+    before the device passes them) and no f32, at every padded width (32,
+    64, 128, 256 and each multiple of 128 past 256), as the forward."""
     for kern in (fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel):
         assert set(kern.dtypes) == {torch.float16, torch.bfloat16}
-        assert tuple(kern.widths) == (32, 64, 128, 256)
+        assert kern.widths is fa.PADDED_WIDTHS
+        assert all(w in kern.widths for w in (32, 64, 128, 256, 384, 640))
+        assert not any(w in kern.widths for w in (16, 300, 385))
 
 
 def test_signatures_carry_the_dtype_code():

@@ -52,12 +52,13 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384, 512, 640, 1024])
 def test_forward_takes_every_padded_width(width):
-    """The Hopper forward's widths are ``PADDED_WIDTHS``; its dq, dk/dv
-    and one-pass take 32, 64, 128 and 256."""
+    """The Hopper forward's widths are ``PADDED_WIDTHS``, and so are its
+    dq's and dk/dv's; the one-pass takes 32, 64, 128 and 256."""
     assert fa.flash_fwd_kernel.widths is fa.PADDED_WIDTHS
     assert width in fa.flash_fwd_kernel.widths
     for kern in fa.HOPPER_KERNELS[1:3]:
-        assert (width in kern.widths) == (width <= 256)
+        assert kern.widths is fa.PADDED_WIDTHS
+        assert width in kern.widths
     assert (width in fa.flash_bwd_onepass_kernel.widths) == (width <= 256)
 
 
@@ -87,15 +88,15 @@ def test_forward_refuses_f32_before_the_device():
 def test_route_table(dtype, width):
     """(fwd, dq, dk/dv, one-pass) by dtype and padded width: f32 the
     forward, dq, dk/dv and the one-pass on Hopper (``F32_KERNELS``); bf16
-    and f16 all on Hopper up to 256, and past 256 the forward on Hopper and
-    the backward on the CUDA cores."""
+    and f16 all on Hopper up to 256, and past 256 the forward, dq and dk/dv
+    on Hopper and the one-pass on the CUDA cores."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
         want = fa.F32_KERNELS
     elif width <= 256:
         want = fa.HOPPER_KERNELS
     else:
-        want = (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:]
+        want = fa.HOPPER_KERNELS[:3] + (fa.flash_bwd_onepass_simt_kernel,)
     assert route == want
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths

@@ -65,15 +65,17 @@ def test_padded_head_dim_is_the_references_past_256(d):
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [384, 512, 640, 1024])
 def test_route_past_256(dtype, width):
-    """Every dtype at a multiple of 128 past 256: bf16 and f16 the forward
-    on Hopper (``flash_fwd_kernel``) and dq, dk/dv and the one-pass on the
-    CUDA cores; f32 all four on Hopper (split TF32, ``F32_KERNELS``); each
-    kernel taking the dtype and the width."""
+    """Every dtype at a multiple of 128 past 256: bf16 and f16 the forward,
+    dq and dk/dv on Hopper (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``,
+    ``flash_bwd_dkv_kernel``) and the one-pass on the CUDA cores; f32 all
+    four on Hopper (split TF32, ``F32_KERNELS``); each kernel taking the
+    dtype and the width."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
         assert route == fa.F32_KERNELS
     else:
-        assert route == (fa.flash_fwd_kernel,) + fa.SIMT_KERNELS[1:]
+        assert route == fa.HOPPER_KERNELS[:3] + (
+            fa.flash_bwd_onepass_simt_kernel,)
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths
 

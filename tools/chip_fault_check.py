@@ -82,10 +82,21 @@ stored over the first's partial instead of added to it, a causal slot's
 rows above its diagonal left unwritten, the last panel's partial columns
 past 256 left unwritten, and dS read from the exchange tile before its
 barrier (a race, held at BERT-Large's shape and at S 2048 at D 256 and
-384).  The older
+384).  Past 256 the Hopper dq and dk/dv are their panel kernels
+(``flash_bwd_dq_wide_kernel``, ``flash_bwd_dkv_wide_kernel``), held at
+the Hopper units past 256 (HOPPER_FWD_SHAPES at 384 and 640, and
+WIDE_BH_D384_SHAPE, in bf16 and f16, with the panel agreement); four
+faults are theirs and must fail there alone (``ONLY_AT``) and in no other
+kernel (``ONLY_KERNEL``): the panel blocks after panel 0 streaming the
+score chunks in another order (which must fail the panel agreement and
+no other output, ``ONLY_OUTPUT``), the last 128-column panel not
+launched, dq's last 64-column chunk of dP dropped, and dk/dv's consumer
+1 reading P^T before its barrier.  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
-rows past S, the last q tile, f16 read as bf16) lie in code that both
-widths run, or are planted in both dk/dv kernels.  The first case,
+rows past S, the last q tile, f16 read as bf16) lie in code that every
+width runs (dq's row reads, live tiles and dS are ``dqtile``'s helpers,
+which its panel kernel shares; the f16 entries' macro launches all
+plans), or are planted in both dk/dv kernels.  The first case,
 ``none``,
 applies no edit; names on the command line run ``none`` and those faults
 only.
@@ -130,6 +141,9 @@ _DQ_MAP = "panel_map<D>(&mdq, dq, s, bh, 64)"
 # dq's row stores at D 256
 _DQ256_STORE = ("        if (row < S) {\n#pragma unroll\n"
                 "          for (int j = 0; j < D / 8; ++j)")
+# the comment above the Hopper dk/dv consumers' lse and delta reads past 256
+_DKV_WIDE_ROWS = ("      // lse (consumer 0, in log2 units) or delta (consumer 1) "
+                  "of this")
 # the CUDA-core kernels' loops over the 128-column panels of the scores
 _SIMT_PANELS = tuple("for (int p = 0; p < np; ++p) {  // " + c for c in (
     "S = Q K^T over every panel", "S again, V's panel with the last",
@@ -372,14 +386,15 @@ FAULTS = {
         "64-row slot skipped (its dk, dv unwritten, its partial left out)"),
     "dq_f16_read_as_bf16": (
         "flash_bwd.cu",
-        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __half)",
-        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, __nv_bfloat16)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, HVD_DQ_WIDE, __half)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DQ, HVD_DQ_WIDE, __nv_bfloat16)",
         "f16 Hopper dq: f16 inputs run through the bf16 instance (a bf16 "
         "tensor map, bf16 products, dS packed to bf16)"),
     "dkv_f16_read_as_bf16": (
         "flash_bwd.cu",
-        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __half)",
-        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, __nv_bfloat16)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, HVD_DKV_WIDE, __half)",
+        "  if (dtype == 1) HVD_BWD_WIDTHS(HVD_DKV, HVD_DKV_WIDE, "
+        "__nv_bfloat16)",
         "f16 Hopper dk/dv: f16 inputs run through the bf16 instance (bf16 "
         "tensor maps, products, P and dS packed to bf16)"),
     "simt_wide_panel_skipped": (
@@ -495,6 +510,42 @@ FAULTS = {
         "f32 one-pass on Hopper: consumer 0 reads dS from the exchange tile "
         "without waiting for consumer 1 to write it (a race: P^T or a part "
         "of dS)"),
+    "bwd_wide_panel_chunk_order": (
+        "flash_bwd.cu",
+        ("          const int s = n % SA, col = CW * (c % nc);",
+         "          const int s = n % SR, col = CW * c, "
+         "par = ((n / SR) & 1) ^ 1;"),
+        ("          const int s = n % SA, col = CW * ((c + z) % nc);",
+         "          const int s = n % SR, col = CW * ((c + z) % nc), "
+         "par = ((n / SR) & 1) ^ 1;"),
+        "Hopper dq and dk/dv past 256: a panel block other than panel 0 "
+        "streams the score chunks from chunk z on (S and dP summed in "
+        "another order, so P and dS off in their last bits)"),
+    "bwd_wide_last_panel": (
+        "flash_bwd.cu",
+        "  if (err == cudaSuccess && d % 256) err = launch128(d / 256, 1);",
+        "  (void)launch128;",
+        "Hopper dq and dk/dv past 256: the last 128-column panel not "
+        "launched (its columns of dq, dk and dv left unwritten)"),
+    "dq_wide_dp_last_chunk": (
+        "flash_bwd.cu",
+        "          tma_load_3d(sc, c < nc ? mq : mg, &cfull[s], col, q0, bh);",
+        "          tma_load_3d(sc, c < nc ? mq : mg, &cfull[s], "
+        "col + (c == 2 * nc - 1) * DW, q0, bh);",
+        "Hopper dq past 256: dP's last 64-column chunk dropped (dO's chunk "
+        "read past the tensor's width: zeros)"),
+    "dkv_wide_pt_before_barrier": (
+        "flash_bwd.cu",
+        (_DKV_WIDE_ROWS,
+         "              d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);"),
+        ("      float pt[BQ / 2];\n#pragma unroll\n"
+         "      for (int x = 0; x < BQ / 2; ++x) pt[x] = wg ? xp[x * 128 + t] "
+         ": 0.f;\n"
+         + _DKV_WIDE_ROWS,
+         "              d[e] = pt[x] * (st[x] - rv[2 * j + e]);"),
+        "Hopper dk/dv past 256: consumer 1 reads the P^T hand-over before "
+        "its barrier (at the start of each q tile, before its dP^T: the last "
+        "tile's P^T, or whatever the tile held)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -532,6 +583,7 @@ SIMT_ALL = (RAGGED, DECODER, BERT, RAGGED32, RAGGED128,
 # The Hopper forward's units from 256 on: chip_smoke's HOPPER_FWD_SHAPES
 # and WIDE_BH_D256_SHAPE in bf16 and f16.
 WIDE_BH_D256 = "BH65600 S64 D256 causal"
+WIDE_BH_D384 = "BH65600 S64 D384 causal"
 WIDE_DTYPES = ("bfloat16", "float16")
 
 
@@ -563,9 +615,11 @@ def wide_labels(shapes, dtypes=WIDE_DTYPES):
             for dtype in dtypes}
 
 
-# The Hopper dq and dk/dv at 256: the D 256 units, and the causal ones.
+# The Hopper dq and dk/dv at 256: the D 256 units, and the causal ones;
+# past 256 (their panel kernels): the D 384 and 640 units.
 D256 = WIDE + (WIDE_BH_D256,)
 D256_CAUSAL = WIDE[:2] + (WIDE_BH_D256,)
+PAST256 = WIDER + (WIDE_BH_D384,)
 MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "bn_bwd_red_last_chunk": {"stem"},
                 "fwd_diagonal_tile": CAUSAL,
@@ -615,9 +669,9 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 "simt_wide_panel_skipped": simt_labels(WIDER),
                 "f16_read_as_bf16": f16_labels(ALL),
                 "dq_f16_read_as_bf16": f16_labels(ALL)
-                | wide_labels(D256, ("float16",)),
+                | wide_labels(D256 + PAST256, ("float16",)),
                 "dkv_f16_read_as_bf16": f16_labels(ALL)
-                | wide_labels(D256, ("float16",)),
+                | wide_labels(D256 + PAST256, ("float16",)),
                 "fwd_f16_mask_off_by_one": f16_labels(CAUSAL),
                 # every D 256 shape sums four chunks
                 "fwd_d256_last_chunk": wide_labels(WIDE + (WIDE_BH_D256,)),
@@ -650,7 +704,17 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # on, not at the decoder's (consumer 0 reaches dS there
                 # after waiting for the second half-tile's load)
                 "f32_onepass_ds_before_barrier": f32_labels(
-                    {BERT, WIDE[0], WIDER[0]})}
+                    {BERT, WIDE[0], WIDER[0]}),
+                # a last bit of P or dS off shows in dq's f32 columns, and
+                # in dk's and dv's, where thousands of rows hold thousands
+                # of keys: the decoder's shape
+                "bwd_wide_panel_chunk_order": wide_labels(WIDER[:1]),
+                # every unit past 256 ends in a 128-column panel
+                "bwd_wide_last_panel": wide_labels(PAST256),
+                # and sums six or ten dP chunks
+                "dq_wide_dp_last_chunk": wide_labels(PAST256),
+                # a stale P^T from the second q tile on
+                "dkv_wide_pt_before_barrier": wide_labels(WIDER[:1])}
 # Faults that must fail nowhere but at these units: the D 256 code's own;
 # the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
@@ -665,6 +729,13 @@ ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
            "f32_fwd_mask_off_by_one": f32_labels(F32_ALL)}
 ONLY_AT.update({name: f32_labels(F32_ALL) for name in FAULTS
                 if name.startswith(("f32_bwd", "f32_onepass"))})
+# The Hopper dq's and dk/dv's plants past 256 fail nowhere but there.
+PAST256_FAULTS = {"bwd_wide_panel_chunk_order": {"flash_bwd_dq",
+                                                 "flash_bwd_dkv"},
+                  "bwd_wide_last_panel": {"flash_bwd_dq", "flash_bwd_dkv"},
+                  "dq_wide_dp_last_chunk": {"flash_bwd_dq"},
+                  "dkv_wide_pt_before_barrier": {"flash_bwd_dkv"}}
+ONLY_AT.update({name: wide_labels(PAST256) for name in PAST256_FAULTS})
 # The one-pass's plants at 256 and in f32 fail no kernel but the one-pass;
 # the f32 backward's none but the f32 dq, dk/dv and one-pass (whose body
 # is dk/dv's).
@@ -673,6 +744,10 @@ ONLY_KERNEL = {name: {"flash_bwd_onepass"} for name in ONLY_AT
 ONLY_KERNEL.update({name: {"flash_bwd_dq", "flash_bwd_dkv",
                            "flash_bwd_onepass"}
                     for name in ONLY_AT if name.startswith("f32_bwd")})
+ONLY_KERNEL.update(PAST256_FAULTS)
+# Faults whose failing outputs must all be these: the chunk-order plant
+# passes every plain-version limit and fails the panel agreement alone.
+ONLY_OUTPUT = {"bwd_wide_panel_chunk_order": {"panels"}}
 # What a check process that dies must have said: an error of a kernel's
 # execution (cudaErrorIllegalAddress 700, 714-719: hardware stack error,
 # illegal instruction, misaligned address, invalid address space, invalid
@@ -712,7 +787,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 nf, nb = len(cs.FLASH_SHAPES), len(cs.BN_SHAPES)
 ns, nd = len(cs.SIMT_SHAPES), len(cs.SIMT_DTYPES)
-wide = cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)
+wide = cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE, cs.WIDE_BH_D384_SHAPE)
 f32 = cs.F32_FWD_SHAPES + (cs.WIDE_BH_SHAPE,)
 for unit in json.loads(sys.argv[1]):
     print("AT %d" % unit, flush=True)
@@ -783,7 +858,8 @@ def unit_labels(cs):
                for shape in cs.FLASH_SHAPES]
             + ["%s %s hopper" % (cs.shape_label(*shape), dtype)
                for dtype in WIDE_DTYPES
-               for shape in cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,)]
+               for shape in cs.HOPPER_FWD_SHAPES + (cs.WIDE_BH_D256_SHAPE,
+                                                    cs.WIDE_BH_D384_SHAPE)]
             + ["%s float32 hopper_f32" % cs.shape_label(*shape)
                for shape in cs.F32_FWD_SHAPES + (cs.WIDE_BH_SHAPE,)])
 
@@ -844,11 +920,12 @@ def run_case(name, fault, labels, units=None):
     return readings, died
 
 
-def check_family(readings, labels, failed_kernels=None):
+def check_family(readings, labels, failed_kernels=None, failed_outputs=None):
     """Print each kernel output's readings at ``labels``; -> (the labels
     where an output is past its limit, whether an output would also fail
-    the max-scaled rule).  The kernels with an output past its limit are
-    added to ``failed_kernels`` when given."""
+    the max-scaled rule).  The kernels with an output past its limit, and
+    those outputs, are added to ``failed_kernels`` and ``failed_outputs``
+    when given."""
     failed_at, max_rule_fail = set(), False
     for label in labels:
         if label not in readings:
@@ -861,6 +938,8 @@ def check_family(readings, labels, failed_kernels=None):
                     failed_at.add(label)
                     if failed_kernels is not None:
                         failed_kernels.add(kern)
+                    if failed_outputs is not None:
+                        failed_outputs.add(out)
                 print("  %s %s at %s: worst %.4g, max abs err %.4g, "
                       "max-scaled limit %.4g" % (kern, out, label, e["worst"],
                                                  e["max_abs_err"], max_rule))
@@ -921,7 +1000,7 @@ def main(argv) -> int:
     ns = len(cs.SIMT_SHAPES) * len(cs.SIMT_DTYPES)
     simt_units = list(range(nf + nb + 2, nf + nb + 2 + ns))
     f16_units = list(range(nf + nb + 2 + ns, nf + nb + 2 + ns + nf))
-    nw = 2 * (len(cs.HOPPER_FWD_SHAPES) + 1)
+    nw = 2 * (len(cs.HOPPER_FWD_SHAPES) + 2)
     wide_units = list(range(nf + nb + 2 + ns + nf, nf + nb + 2 + ns + nf + nw))
     f32_units = list(range(nf + nb + 2 + ns + nf + nw, len(labels)))
     simt_labels_ = [labels[u] for u in simt_units]
@@ -968,9 +1047,10 @@ def main(argv) -> int:
         flash_at, flash_max = check_family(readings, flash_labels)
         bn_at, bn_max = check_family(readings, bn_labels)
         simt_at, _ = check_family(readings, simt_labels_)
-        failed_kernels = set()
+        failed_kernels, failed_outputs = set(), set()
         f16_at, _ = check_family(readings, f16_labels_)
-        wide_at, _ = check_family(readings, wide_labels_, failed_kernels)
+        wide_at, _ = check_family(readings, wide_labels_, failed_kernels,
+                                  failed_outputs)
         f32_at, _ = check_family(readings, f32_labels_, failed_kernels)
         flash_at |= cuda_deaths & set(flash_labels)
         f16_at |= cuda_deaths & set(f16_labels_)
@@ -1040,6 +1120,12 @@ def main(argv) -> int:
                 print("  kernels failing at its units: %s%s" % (
                     ", ".join(sorted(failed_kernels)) or "none",
                     "; FAILED OUTSIDE its kernel" if others else ""))
+            if name in ONLY_OUTPUT:
+                others = failed_outputs - ONLY_OUTPUT[name]
+                ok &= not others
+                print("  outputs failing at its units: %s%s" % (
+                    ", ".join(sorted(failed_outputs)) or "none",
+                    "; FAILED OUTSIDE its outputs" if others else ""))
     shutil.rmtree(WORK, ignore_errors=True)
     print("fault check: %s" % ("ok" if ok else "FAILED"))
     return 0 if ok else 1

@@ -6,7 +6,8 @@
 bf16, and the f32 forward, dq and dk/dv on Hopper (``flash_fwd_f32.cu``,
 ``flash_bwd_f32.cu``), on one GPU.
 
-    python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wide-onepass]
+    python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wider-bwd]
+                                     [--wide-onepass]
                                      [--f32-fwd] [--f32-split] [--f32-bwd]
                                      [--f32-onepass]
                                      [--sdpa-kernels] [--watchdog]
@@ -36,6 +37,9 @@ ms of the Hopper forward, its CUDA-core twin and SDPA (20 calls each).
 WIDE_HEAD_SHAPES and WIDE_BH_D256_SHAPE (``worst`` against chip_smoke's
 Hopper limits), and at the decoder's shape at 256 the device ms of each,
 its CUDA-core twin and SDPA's whole backward (20 calls each).
+``--wider-bwd`` does the same past 256: readings at WIDER_HEAD_SHAPES
+(with the panel agreement) and WIDE_BH_D384_SHAPE, times at the decoder's
+shape at 384 and at DECODER_D512_SHAPE.
 ``--wide-onepass`` probes the Hopper one-pass at head dim 256 alone (64-row
 partial slots): ``flash_bwd_onepass.cu``'s report, its readings in bf16
 and f16 at WIDE_HEAD_SHAPES and WIDE_BH_D256_SHAPE (``worst`` against
@@ -196,13 +200,18 @@ def wide_fwd(cs, fa, torch):
             torch.cuda.empty_cache()
 
 
-def wide_bwd(cs, fa, torch):
-    """The Hopper dq and dk/dv at 256: readings, then times beside their
-    CUDA-core twins and SDPA's backward."""
+def wide_bwd(cs, fa, torch, wider=False):
+    """The Hopper dq and dk/dv at 256 (past it with ``wider``: at 384 and
+    640, their panels too): readings, then times beside their CUDA-core
+    twins and SDPA's backward at the decoder's shape at that width (past
+    256 also at the hd512 decoder's attention, D 512)."""
     import torch.nn.functional as F
+    held = ([*cs.WIDER_HEAD_SHAPES, cs.WIDE_BH_D384_SHAPE] if wider else
+            [*cs.WIDE_HEAD_SHAPES, cs.WIDE_BH_D256_SHAPE])
+    timed = ([cs.WIDER_HEAD_SHAPES[0], cs.DECODER_D512_SHAPE] if wider else
+             [cs.WIDE_HEAD_SHAPES[0]])
     for dtype in ("bfloat16", "float16"):
-        for bh, s, d, causal in (list(cs.WIDE_HEAD_SHAPES)
-                                 + [cs.WIDE_BH_D256_SHAPE]):
+        for bh, s, d, causal in held:
             errs, _, _, _ = cs.kernel_errors(
                 fa, *cs.kernel_inputs(bh, s, d, dtype), causal)
             torch.cuda.synchronize()
@@ -214,28 +223,28 @@ def wide_bwd(cs, fa, torch):
                   flush=True)
             torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float16"):
-        bh, s, d, causal = cs.WIDE_HEAD_SHAPES[0]
-        q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
-        o, lse = fa.flash_fwd_kernel(q, k, v, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        bwd = (q, k, v, do, lse, delta, causal)
-        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
-                      for t in (q, k, v))
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                              scale=1.0)
-        do4 = do.view(1, bh, s, d)
-        times = {name: cs.time_ms(lambda f=f: f(*bwd), reps=reps)
-                 for name, f, reps in (
-                     ("dq", fa.flash_bwd_dq_kernel, 20),
-                     ("dkv", fa.flash_bwd_dkv_kernel, 20),
-                     ("dq_simt", fa.flash_bwd_dq_simt_kernel, 3),
-                     ("dkv_simt", fa.flash_bwd_dkv_simt_kernel, 3))}
-        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
-            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
-        print("times backward", dtype, cs.shape_label(bh, s, d, causal),
-              times, flush=True)
-        del q, k, v, do, o, q4, k4, v4, out4, do4
-        torch.cuda.empty_cache()
+        for bh, s, d, causal in timed:
+            q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
+            o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, causal)
+            q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                          for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal, scale=1.0)
+            do4 = do.view(1, bh, s, d)
+            times = {name: cs.time_ms(lambda f=f: f(*bwd), reps=reps)
+                     for name, f, reps in (
+                         ("dq", fa.flash_bwd_dq_kernel, 20),
+                         ("dkv", fa.flash_bwd_dkv_kernel, 20),
+                         ("dq_simt", fa.flash_bwd_dq_simt_kernel, 3),
+                         ("dkv_simt", fa.flash_bwd_dkv_simt_kernel, 3))}
+            times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+            print("times backward", dtype, cs.shape_label(bh, s, d, causal),
+                  times, flush=True)
+            del q, k, v, do, o, q4, k4, v4, out4, do4
+            torch.cuda.empty_cache()
 
 
 def wide_onepass(cs, fa, torch):
@@ -624,6 +633,8 @@ def main(argv) -> int:
         return 0
     wide = {"--wide-fwd": ("flash_fwd", wide_fwd),
             "--wide-bwd": ("flash_bwd", wide_bwd),
+            "--wider-bwd": ("flash_bwd", lambda cs, fa, torch: wide_bwd(
+                cs, fa, torch, wider=True)),
             "--wide-onepass": ("flash_bwd_onepass", wide_onepass),
             "--f32-fwd": ("flash_fwd_f32", f32_fwd),
             "--f32-bwd": ("flash_bwd_f32", f32_bwd),

@@ -23,12 +23,14 @@
    also with V's later panels copies of its first, whose outputs must
    agree bit for bit); the Hopper dq, dk/dv and one-pass (64-row dq
    partial slots, held slot by slot) in bf16 and f16 at head dim 256 (the
-   same three shapes, and untimed at BH 65,600), and the Hopper dq and
-   dk/dv past it (the five shapes at 384 and 640, their panels of 256 and
-   128 columns bit for bit against panel 0's on inputs whose later panels
-   copy their first, and untimed at BH 65,600, S 64, D 384); the Hopper
-   forward, dq and dk/dv also at the hd512 decoder's attention (BH 8, S
-   2048, D 512, causal), timed beside SDPA; the four
+   same three shapes, and untimed at BH 65,600), and the Hopper dq, dk/dv
+   and one-pass past it (the five shapes at 384 and 640, their panels of
+   256 and 128 columns bit for bit against panel 0's on inputs whose later
+   panels copy their first, the one-pass's 128-row partial slots in a
+   NaN-poisoned block and bit for bit over two launches, and untimed at
+   BH 65,600, S 64, D 384); the four Hopper kernels also at the hd512
+   decoder's attention (BH 8, S 2048, D 512, causal), timed beside SDPA;
+   the four
    BatchNorm
    kernels at four NormAct
    shapes of ResNet-50 (the stem, stage 4's last, a projection, and a
@@ -98,11 +100,13 @@
    choice from the same weights (12 Hopper forwards, then 12 Hopper dq
    and dk/dv or 12 Hopper one-pass backwards at D 256, no CUDA-core
    kernel); the decoder flagship with 2 heads of 512 (the widest head past
-   256 that divides its d 1024) in bf16, one step under ``pallas`` (12
-   Hopper forwards, dq and dk/dv past 256, no CUDA-core kernel); each
-   step's loss and gradients against the same model's on the plain
-   attention path on the card, then 5 more steps timed (under each choice
-   for BERT and the hd256 decoder).  Between the decoder and
+   256 that divides its d 1024) in bf16, one step under each backward
+   choice from the same weights (12 Hopper forwards, then 12 Hopper dq and
+   dk/dv or 12 Hopper one-pass backwards past 256, their 128-row dq slots
+   summed, no CUDA-core kernel); each step's loss and gradients against
+   the same model's on the plain attention path on the card, then 5 more
+   steps timed (under each choice for BERT and the hd256 and hd512
+   decoders).  Between the decoder and
    ResNet-50, the main path
    of the f32 kernels: the decoder at the same width and depth at dtype
    float32, one step through ``make_train_step`` under each backward
@@ -166,11 +170,11 @@
    ``HOROVOD_COLLECTIVE_TIMEOUT_SECS=1`` with ``mh.deadline.wedge:drop``
    must raise ``CollectiveDeadlineExceeded`` within 5 s, reject the next
    enqueue and shut down.
-5. Prints one JSON line of kernel records (thirty-six: the thirteen
+5. Prints one JSON line of kernel records (thirty-seven: the thirteen
    kernels, the f16 forms of the four Hopper ones, the Hopper forward at
-   D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256, the
-   Hopper dq and dk/dv at D 384, and the f32 forward, dq, dk/dv and
-   one-pass on Hopper at D 128, 256 and 384),
+   D 256 and at D 384, the Hopper dq, dk/dv and one-pass at D 256 and at
+   D 384, and the f32 forward, dq, dk/dv and one-pass on Hopper at D 128,
+   256 and 384),
    then as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  Needs a CUDA device
@@ -293,19 +297,20 @@ F32_FWD_SHAPES = SIMT_SHAPES
 # many columns past 256 (the forward's panel agreement keeps the Hopper
 # forward's 256, which its 128-column panels also meet).
 F32_BWD_PANEL = 128
-# The Hopper forward, dq and dk/dv from 256 on, held in bf16 and f16 under
-# the Hopper family's limits (KERNEL_TOL, F16_HOPPER_TOL: they cast P at
-# the running max) and timed beside SDPA (its backward beside dq and
-# dk/dv), and untimed at WIDE_BH_SHAPE's BH and S at D 256 and 384; at D
-# 256 (the first three shapes and WIDE_BH_D256_SHAPE) the Hopper one-pass
-# too, under the same limits.  Past 256 each is also held to itself: with
-# the inputs' later 256-column panels copies of their first
-# (``panel_agreement``: V's for the forward; Q's, K's, V's and dO's for dq
-# and dk/dv), every panel block must give its columns bit for bit as
-# panel 0's block does, which it can only when all of them formed the same
-# P (and dS).  DECODER_D512_SHAPE, the attention of the decoder flagship
-# with 2 heads of 512 (phase 4), is held and timed on the Hopper family
-# only.
+# The four Hopper kernels from 256 on, held in bf16 and f16 under the
+# Hopper family's limits (KERNEL_TOL, F16_HOPPER_TOL: they cast P at the
+# running max) and timed beside SDPA (its backward beside dq, dk/dv and
+# the one-pass), and untimed at WIDE_BH_SHAPE's BH and S at D 256 and 384
+# (the one-pass's partials in 64-row slots at 256, 128-row ones past it).
+# Past 256 each is also held to itself: with the inputs' later 256-column
+# panels copies of their first (``panel_agreement``: V's for the forward;
+# Q's, K's, V's and dO's for dq, dk/dv and the one-pass), every panel
+# block must give its columns bit for bit as panel 0's block does, which
+# it can only when all of them formed the same P (and dS); and the
+# one-pass's outputs against a second launch's, bit for bit (a slot is
+# one block's, its two k blocks summed in one order).
+# DECODER_D512_SHAPE, the attention of the decoder flagship with 2 heads
+# of 512 (phase 4), is held and timed on the Hopper family only.
 HOPPER_FWD_SHAPES = WIDE_HEAD_SHAPES + WIDER_HEAD_SHAPES
 WIDE_BH_D256_SHAPE = (65600, 64, 256, True)
 WIDE_BH_D384_SHAPE = (65600, 64, 384, True)
@@ -540,9 +545,8 @@ def flash_kernels(fa, dtype, family="hopper", width=128):
     """FLASH_KERNELS' wrappers of ``family`` ("hopper", "simt", the
     CUDA-core twins, or "hopper_f32", the f32 forward, dq and dk/dv on
     Hopper) that take inputs of ``dtype`` at head dim ``width``: the four
-    Hopper ones in bf16 and f16 up to 256 and the forward, dq and dk/dv
-    past it, the four CUDA-core ones in any dtype, the four f32 ones in f32
-    at every padded width."""
+    Hopper ones in bf16 and f16, the four CUDA-core ones in any dtype, the
+    four f32 ones in f32, each at every padded width."""
     import torch
     kernels = {"hopper": fa.HOPPER_KERNELS, "simt": fa.SIMT_KERNELS,
                "hopper_f32": fa.F32_KERNELS}[family]
@@ -589,18 +593,24 @@ def panel_agreement(fa, kern, q, k, v, do, causal, period=256):
         delta = (do.float() * o.float()).sum(-1)
         outs = kern(q, k, v, do, lse, delta, causal)
         outs = outs if isinstance(outs, tuple) else (outs,)
-    return bits_agreement(outs, [repeat(out) for out in outs])
+    return bits_agreement(outs, [repeat] * len(outs))
 
 
 def bits_agreement(outs, bases):
     """Each of ``outs`` against its twin in ``bases``, element for element
     -> compare's keys, ``worst`` 0 when every element agrees and 1 + the
-    count of those that do not."""
+    count of those that do not.  A base is a tensor, or a function that
+    gives the twin of a slice of its output; either is taken in chunks of
+    COMPARE_ELEMENTS along the leading axis, as ``compare`` does."""
     off, err, plain = 0, 0.0, 0.0
     for out, base in zip(outs, bases):
-        off += (out != base).sum().item()
-        err = max(err, (out.float() - base.float()).abs().max().item())
-        plain = max(plain, base.float().abs().max().item())
+        step = max(1, COMPARE_ELEMENTS * out.shape[0] // max(1, out.numel()))
+        for i in range(0, out.shape[0], step):
+            got = out[i:i + step]
+            want = base(got) if callable(base) else base[i:i + step]
+            off += (got != want).sum().item()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            plain = max(plain, want.float().abs().max().item())
     return {"max_abs_err": err, "worst": 0.0 if off == 0 else 1.0 + off,
             "max_abs_plain": plain}
 
@@ -612,24 +622,43 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
     its output "panels"): ({kernel: {output: compare(...)}}, whether the
     one-pass partials landed in a NaN-poisoned block, None where the
     family has no one-pass kernel at the width), plus lse and delta for
-    the timings."""
+    the timings.  Each kernel's outputs are held and freed before the next
+    kernel runs (at BH 65,600, D 384 the four kernels' outputs and their
+    plain versions would not fit on the card at once)."""
     import torch
     kern = flash_kernels(fa, dtype_name(q), family, q.shape[-1])
     tol = flash_tol(dtype_name(q), family)
+
+    def held(outs):
+        errs = {out: compare(got, want, *tol[out])
+                for out, (got, want) in outs.items()}
+        if family == "simt":
+            for out, (got, want) in outs.items():
+                if got.dtype in (torch.float16, torch.bfloat16):
+                    e = errs[out]
+                    e["off_share"] = (got != want).float().mean().item()
+                    e["worst"] = max(e["worst"],
+                                     e["off_share"] / F16_OFF_SHARE)
+        return errs
+
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
     bwd = (q, k, v, do, lse_ref, delta, causal)
     o, lse = kern["flash_fwd"](q, k, v, causal)
-    outputs = {"flash_fwd": {"o": (o, o_ref), "lse": (lse, lse_ref)}}
+    errs = {"flash_fwd": held({"o": (o, o_ref), "lse": (lse, lse_ref)})}
+    del o, lse, o_ref
     # The Hopper kernels sum dP in the tensor cores' order, so they are
     # held to dP - delta formed in f64 (``exact_dp``); the CUDA-core twins
     # follow the f32 plain version's order and are held to it.
     exact = family == "hopper"
     if "flash_bwd_dq" in kern:
         dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(*bwd, exact_dp=exact)
-        outputs["flash_bwd_dq"] = {"dq": (kern["flash_bwd_dq"](*bwd), dq_ref)}
+        errs["flash_bwd_dq"] = held({"dq": (kern["flash_bwd_dq"](*bwd),
+                                            dq_ref)})
+        del dq_ref
         dk, dv = kern["flash_bwd_dkv"](*bwd)
-        outputs["flash_bwd_dkv"] = {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+        errs["flash_bwd_dkv"] = held({"dk": (dk, dk_ref), "dv": (dv, dv_ref)})
+        del dk_ref, dv_ref, dk, dv
     poisoned = None
     if "flash_bwd_onepass" in kern:
         dqp_ref, dk1_ref, dv1_ref = fa.flash_bwd_onepass_reference(
@@ -645,41 +674,25 @@ def kernel_errors(fa, q, k, v, do, causal, family="hopper"):
         dqp, dk1, dv1 = kern["flash_bwd_onepass"](*bwd)
         torch.cuda.synchronize()
         poisoned = dqp.data_ptr() == poisoned_ptr
-        outputs["flash_bwd_onepass"] = {"dqp": (dqp, dqp_ref),
-                                        "dk": (dk1, dk1_ref),
-                                        "dv": (dv1, dv1_ref)}
-    errs = {name: {out: compare(got, want, *tol[out])
-                   for out, (got, want) in outs.items()}
-            for name, outs in outputs.items()}
-    if family == "hopper_f32" and "flash_bwd_onepass" in kern:
-        # A slot is one block's, summed in one order: its bits repeat.
-        again = kern["flash_bwd_onepass"](*bwd)
-        errs["flash_bwd_onepass"]["repeat"] = bits_agreement(
-            again, (dqp, dk1, dv1))
-        del again
-    if family == "simt":
-        for name, outs in outputs.items():
-            for out, (got, want) in outs.items():
-                if got.dtype in (torch.float16, torch.bfloat16):
-                    e = errs[name][out]
-                    e["off_share"] = (got != want).float().mean().item()
-                    e["worst"] = max(e["worst"],
-                                     e["off_share"] / F16_OFF_SHARE)
+        errs["flash_bwd_onepass"] = held({"dqp": (dqp, dqp_ref),
+                                          "dk": (dk1, dk1_ref),
+                                          "dv": (dv1, dv1_ref)})
+        del dqp_ref, dk1_ref, dv1_ref
+        if family == "hopper_f32" or (family == "hopper"
+                                      and q.shape[-1] > 256):
+            # A slot is one block's, summed in one order: its bits repeat.
+            again = kern["flash_bwd_onepass"](*bwd)
+            errs["flash_bwd_onepass"]["repeat"] = bits_agreement(
+                again, (dqp, dk1, dv1))
+            del again
+        del dqp, dk1, dv1
     if family in ("hopper", "hopper_f32") and q.shape[-1] > 256:
-        # the outputs are read: their memory goes to the copies below (at
-        # BH 65,600 both would not fit on the card at once)
-        del outputs, o, lse, o_ref
-        if "flash_bwd_dq" in kern:
-            del dq_ref, dk_ref, dv_ref, dk, dv
-        if poisoned is not None:
-            del dqp_ref, dk1_ref, dv1_ref, dqp, dk1, dv1
         torch.cuda.empty_cache()
         errs["flash_fwd"]["panels"] = panel_agreement(
             fa, kern["flash_fwd"], q, k, v, do, causal)
-        # The Hopper dq and dk/dv split their outputs into panels of 256
-        # columns past 256 (a last one of 128), the f32 backward kernels
-        # into panels of F32_BWD_PANEL; the Hopper family has no one-pass
-        # there.
+        # The Hopper dq, dk/dv and one-pass split their outputs into
+        # panels of 256 columns past 256 (a last one of 128), the f32
+        # backward kernels into panels of F32_BWD_PANEL.
         for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_onepass"):
             if name in kern:
                 errs[name]["panels"] = panel_agreement(
@@ -1432,7 +1445,8 @@ FAMILIES = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
             ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                                "flash_bwd_dkv_d256", "flash_bwd_dkv_wide")),
             ("flash_bwd_onepass", ("flash_bwd_onepass_kernel",
-                                   "flash_bwd_onepass_d256")),
+                                   "flash_bwd_onepass_d256",
+                                   "flash_bwd_onepass_wide")),
             ("bn_stats", ("bn_stats_",)),
             ("bn_apply", ("bn_apply_kernel",)),
             ("bn_bwd_red", ("bn_bwd_red_",)),
@@ -2070,6 +2084,18 @@ def train_decoder_f16(torch):
     return counts
 
 
+def wide_decoder_counts(layers):
+    """The launches one step of ``train_decoder_wide`` must count under
+    each backward choice, every other kernel's 0 (``check_counts``): one
+    Hopper forward a layer, then one Hopper dq and dk/dv or one Hopper
+    one-pass, at 256 and past it alike."""
+    return {"pallas": {"flash_fwd_kernel": layers,
+                       "flash_bwd_dq_kernel": layers,
+                       "flash_bwd_dkv_kernel": layers},
+            "pallas_onepass": {"flash_fwd_kernel": layers,
+                               "flash_bwd_onepass_kernel": layers}}
+
+
 def train_decoder_wide(torch, head_dim, choices):
     """The main path of the Hopper kernels from head dim 256 on: the
     decoder flagship (``train_flagship``'s configuration, bench.py:86-91,
@@ -2079,10 +2105,12 @@ def train_decoder_wide(torch, head_dim, choices):
     ``choices`` in turn from the same weights: one step through
     ``make_train_step`` and the engine, STEPS more timed and one profiled.
     Under HVD_TPU_FLASH_BWD=pallas 12 Hopper forwards, 12 Hopper dq and 12
-    Hopper dk/dv (past 256 their panel kernels); under pallas_onepass (at
-    256) 12 Hopper forwards and 12 Hopper one-pass backwards, their 64-row
-    dq partial slots summed; every launch count set to 0 just before each
-    held step and read just after, no CUDA-core kernel.  Each held step's
+    Hopper dk/dv (past 256 their panel kernels); under pallas_onepass 12
+    Hopper forwards and 12 Hopper one-pass backwards, their dq partial
+    slots (64 rows at 256, 128 past it, where the one-pass is dk/dv's
+    panel kernel walking a slot's two 64-row k blocks) summed by
+    ``partials.sum(1)``; every launch count set to 0 just before each held
+    step and read just after, no CUDA-core kernel.  Each held step's
     loss and gradients are held against the same model's on the plain
     attention path (HOROVOD_FLASH_ATTENTION=0) on the card, from the same
     weights and data, by the flagship steps' rules (``held_f16_step``);
@@ -2123,10 +2151,7 @@ def train_decoder_wide(torch, head_dim, choices):
         "parameters; set-up and the plain path's loss and gradients %.1f s"
         % (label, d, L, cfg.n_heads, cfg.head_dim, seq, batch,
            sum(p.numel() for p in start), time.perf_counter() - t0))
-    expected = {"pallas": {"flash_fwd_kernel": L, "flash_bwd_dq_kernel": L,
-                           "flash_bwd_dkv_kernel": L},
-                "pallas_onepass": {"flash_fwd_kernel": L,
-                                   "flash_bwd_onepass_kernel": L}}
+    expected = wide_decoder_counts(L)
     counts = {}
     for choice in choices:
         want_counts = expected[choice]
@@ -3443,7 +3468,9 @@ def main() -> int:
                                       ("pallas", "pallas_onepass"))
     hd256_fwd = sum(c["flash_fwd_kernel"] for c in hd256_counts.values())
     torch.cuda.empty_cache()
-    hd512_counts = train_decoder_wide(torch, 512, ("pallas",))["pallas"]
+    hd512 = train_decoder_wide(torch, 512, ("pallas", "pallas_onepass"))
+    hd512_counts = hd512["pallas"]
+    hd512_fwd = sum(c["flash_fwd_kernel"] for c in hd512.values())
     torch.cuda.empty_cache()
     with flash_bwd_env("pallas_onepass"):
         adasum_counts, adasum_prof = train_bert_adasum(torch)
@@ -3561,16 +3588,15 @@ def main() -> int:
         "bf16 and f16) held at %s, %s and %s and %s (phase 2; their records "
         "bf16 at %s and %s, SDPA in bf16 their library_ms), launched %d "
         "times in the hd256 decoder's two steps (phase 4; flash_fwd_d256's "
-        "launches), %d times in the hd512 decoder step (phase 4) and %d "
-        "times in the small decoder at head_dim 320 (phase 3, padded to "
+        "launches), %d times in the hd512 decoder's two steps (phase 4) and "
+        "%d times in the small decoder at head_dim 320 (phase 3, padded to "
         "384; flash_fwd_d384's launches: these two)" % (
             ", ".join(shape_label(*s) for s in HOPPER_FWD_SHAPES),
             shape_label(*DECODER_D512_SHAPE),
             shape_label(*WIDE_BH_D256_SHAPE),
             shape_label(*WIDE_BH_D384_SHAPE),
             shape_label(*HOPPER_FWD_SHAPES[0]),
-            shape_label(*WIDER_HEAD_SHAPES[0]), hd256_fwd,
-            hd512_counts["flash_fwd_kernel"],
+            shape_label(*WIDER_HEAD_SHAPES[0]), hd256_fwd, hd512_fwd,
             model_counts[320]["flash_fwd_kernel"])
         + "; flash_bwd_dq_d256, flash_bwd_dkv_d256 and "
         "flash_bwd_onepass_d256 (the Hopper dq, dk/dv and one-pass at 256, "
@@ -3599,6 +3625,17 @@ def main() -> int:
             hd512_counts["flash_bwd_dkv_kernel"],
             model_counts[320]["flash_bwd_dq_kernel"],
             model_counts[320]["flash_bwd_dkv_kernel"])
+        + "; flash_bwd_onepass_d384 (the Hopper one-pass past 256, bf16 and "
+        "f16; dk/dv's panel kernel walking a 128-row dq slot's two k "
+        "blocks) held at %s, %s and %s, its partials in a NaN-poisoned "
+        "block, its panels and a second launch bit for bit (phase 2; its "
+        "record bf16 at %s, SDPA's bf16 backward its library_ms), launched "
+        "%d times in the hd512 decoder step under pallas_onepass (phase 4)"
+        % (", ".join(shape_label(*s) for s in WIDER_HEAD_SHAPES),
+           shape_label(*DECODER_D512_SHAPE),
+           shape_label(*WIDE_BH_D384_SHAPE),
+           shape_label(*WIDER_HEAD_SHAPES[0]),
+           hd512["pallas_onepass"]["flash_bwd_onepass_kernel"])
         + "; " + "; ".join(
             "%s, %s_d256 and %s_d384 (the f32 %s on Hopper, split TF32) held "
             "at %s and %s (phase 2; their records at %s, %s and %s, SDPA in "
@@ -3670,8 +3707,7 @@ def main() -> int:
     for name, kern, shape, launches in (
             ("flash_fwd_d256", "flash_fwd", HOPPER_FWD_SHAPES[0], hd256_fwd),
             ("flash_fwd_d384", "flash_fwd", WIDER_HEAD_SHAPES[0],
-             hd512_counts["flash_fwd_kernel"]
-             + model_counts[320]["flash_fwd_kernel"]),
+             hd512_fwd + model_counts[320]["flash_fwd_kernel"]),
             ("flash_bwd_dq_d256", "flash_bwd_dq", WIDE_HEAD_SHAPES[0],
              hd256_counts["pallas"]["flash_bwd_dq_kernel"]),
             ("flash_bwd_dkv_d256", "flash_bwd_dkv", WIDE_HEAD_SHAPES[0],
@@ -3684,7 +3720,10 @@ def main() -> int:
              + model_counts[320]["flash_bwd_dq_kernel"]),
             ("flash_bwd_dkv_d384", "flash_bwd_dkv", WIDER_HEAD_SHAPES[0],
              hd512_counts["flash_bwd_dkv_kernel"]
-             + model_counts[320]["flash_bwd_dkv_kernel"])):
+             + model_counts[320]["flash_bwd_dkv_kernel"]),
+            ("flash_bwd_onepass_d384", "flash_bwd_onepass",
+             WIDER_HEAD_SHAPES[0],
+             hd512["pallas_onepass"]["flash_bwd_onepass_kernel"])):
         rec = flash[shape][kern]
         out.append({"name": name, "route": "cuda",
                     "source": sources[kern][0],

@@ -116,19 +116,21 @@
 //          (32 registers each), P and dS as the D-256 plan, dq_panel += dS
 //          K[:, panel] (W / 2 registers), left from registers to the rows
 //          below S.
-//   dk/dv  (flash_bwd_dkv_wide_kernel<T, W, CAUSAL>): one block per (bh,
-//          64-row k block, panel), kv256's split of the products: per
-//          64-row q tile consumer 0 forms S^T = K Q^T over every chunk of
-//          its ring (K and Q 64 x 64: 16 KB a stage, four stages, 64 KB),
-//          P^T and dV_panel += P^T dO[:, panel]; consumer 1 dP^T = V dO^T
-//          over its ring (V and dO, 64 KB), dS^T = P^T (dP^T - delta) and
-//          dK_panel += dS^T Q[:, panel]; P^T crosses in f32 through the
-//          16 KB exchange tile under two mbarriers.  K and V are re-read
-//          chunk by chunk for every q tile.  dO's and Q's W-column panels
-//          of the q tile come through rings of their own (one 32 KB stage
-//          each at W 256, two of 16 KB at W 128: 64 KB): 208 KB.  lse and
-//          delta are read from device memory into registers; dv and dk
-//          leave in T from registers to the rows below S.
+//   dk/dv  (flash_bwd_dkv_wide_kernel<T, W, CAUSAL>, body
+//          flash_bwd_kv.cuh's wide::kv_body, which the one-pass kernel
+//          past 256 shares): one block per (bh, 64-row k block, panel),
+//          kv256's split of the products: per 64-row q tile consumer 0
+//          forms S^T = K Q^T over every chunk of its ring (K and Q 64 x
+//          64: 16 KB a stage, four stages, 64 KB), P^T and dV_panel +=
+//          P^T dO[:, panel]; consumer 1 dP^T = V dO^T over its ring (V
+//          and dO, 64 KB), dS^T = P^T (dP^T - delta) and dK_panel += dS^T
+//          Q[:, panel]; P^T crosses in f32 through the 16 KB exchange tile
+//          under two mbarriers.  K and V are re-read chunk by chunk for
+//          every q tile.  dO's and Q's W-column panels of the q tile come
+//          through rings of their own (one 32 KB stage each at W 256, two
+//          of 16 KB at W 128: 64 KB): 208 KB.  lse and delta are read from
+//          device memory into registers; dv and dk leave in T from
+//          registers to the rows below S.
 //
 // Left on the table: overlap inside a consumer of one tile's elementwise
 // work with the next tile's products (each tile now runs products,
@@ -498,51 +500,6 @@ static cudaError_t run_dkv(const T* q, const T* k, const T* v, const T* g,
 
 namespace wide {
 
-constexpr int CW = 64;  // columns per score chunk (one 128-byte swizzled box)
-constexpr int BK = 64;  // k rows per tile (dq) or block (dk/dv)
-
-// (acc, 64 rows x 64 columns f32) (+)= A B^T over one 64-column chunk: A
-// the consumer's 64 rows at sa, B 64 rows at sb, both K-major; one
-// committed group.
-template <typename T>
-__device__ __forceinline__ void chunk_mma(float (&acc)[32], const unsigned char* sa,
-                                          const unsigned char* sb, bool accumulate) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < CW / 16; ++kk)
-    MmaSS<64, 0, 0, T>::run(acc, desc_kmajor<CW, 64>(sa, kk), desc_kmajor<CW, 64>(sb, kk),
-                            accumulate || kk > 0);
-  wgmma_commit();
-}
-
-// acc (64 rows x W columns f32) += A B: A 64 columns of packed T pairs in
-// the accumulator's layout (P^T, dS or dS^T), B a 64-row W-column panel
-// read MN-major.
-template <typename T, int W>
-__device__ __forceinline__ void panel_mma(float (&acc)[W / 2], const uint32_t (&pa)[16],
-                                          const unsigned char* sb) {
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-    MmaRS<W, 1, T>::run(acc, a, desc_mnmajor<W, 64>(sb, kk), 1);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-}
-
-// d past 256, a multiple of 128: launch(W 256, first panel 0, d / 256
-// panels), then launch(W 128, d / 256, 1) where d is an odd multiple of
-// 128 (the forward's split).
-template <typename F256, typename F128>
-static cudaError_t by_panels(int d, F256 launch256, F128 launch128) {
-  cudaError_t err = launch256(0, d / 256);
-  if (err == cudaSuccess && d % 256) err = launch128(d / 256, 1);
-  return err;
-}
-
 // dq: 128-row q tiles, SA stages of (Q or dO chunk 128 x 64, K or V chunk
 // 64 x 64), two stages of K's W-column panel.
 namespace dq {
@@ -558,26 +515,6 @@ struct Smem {
   static_assert(bytes <= 232448, "a block's shared memory");
 };
 }  // namespace dq
-
-// dk/dv: 64-row q tiles; ring A (K, Q chunks, consumer 0) and ring B (V,
-// dO chunks, consumer 1) of SR stages; TS stages each of dO's and Q's
-// W-column panel of the q tile; the P^T exchange tile.
-namespace dkv {
-constexpr int BQ = 64, SR = 4;
-template <typename T, int W>
-struct Smem {
-  static constexpr int TS = W == 256 ? 1 : 2;
-  static constexpr size_t c = 64 * CW * sizeof(T);       // one 64-row chunk, 8 KB
-  static constexpr size_t stage = 2 * c;                 // (K, Q) or (V, dO)
-  static constexpr size_t b = SR * stage;                // ring B after ring A
-  static constexpr size_t t = 2 * SR * stage;            // [dO's, Q's][TS] panels
-  static constexpr size_t pt = BQ * W * sizeof(T);       // 32 or 16 KB
-  static constexpr size_t xp = t + 2 * TS * pt;          // P^T, BK x BQ f32
-  static constexpr size_t bar = xp + BK * BQ * sizeof(float);
-  static constexpr size_t bytes = bar + 8 * (4 * SR + 4 * TS + 2) + 1024;  // + alignment
-  static_assert(bytes <= 232448, "a block's shared memory");
-};
-}  // namespace dkv
 
 }  // namespace wide
 
@@ -715,200 +652,9 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mg,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int S, int DW, int z0) {
-  using L = wide::dkv::Smem<T, W>;
-  constexpr int BQ = wide::dkv::BQ, BK = wide::BK, CW = wide::CW;
-  constexpr int SR = wide::dkv::SR, TS = L::TS;
-  constexpr float LOG2E = kv::LOG2E;
-  extern __shared__ unsigned char raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* afull = reinterpret_cast<uint64_t*>(smem + L::bar);
-  uint64_t* aempty = afull + SR;
-  uint64_t* bfull = aempty + SR;
-  uint64_t* bempty = bfull + SR;
-  uint64_t* tfull = bempty + SR;  // [0, TS) dO's panel, [TS, 2 TS) Q's
-  uint64_t* tempty = tfull + 2 * TS;
-  uint64_t* xfull = tempty + 2 * TS;  // P^T written (consumer 0's 128 threads)
-  uint64_t* xempty = xfull + 1;       // P^T read (consumer 1's 128 threads)
-  float* xp = reinterpret_cast<float*>(smem + L::xp);
-
-  // bh on gridDim.x; k block 0, the longest causal one, first
-  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
-  const int z = z0 + blockIdx.z;  // dk's and dv's columns [256 z, 256 z + W)
-  const int nc = DW / CW;
-  const int nq = (S + BQ - 1) / BQ;
-  // q tiles before qstart lie wholly above the causal diagonal of this k block
-  const int qstart = CAUSAL ? k0 / BQ : 0;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < SR; ++s) {
-      mbar_init(&afull[s], 1);
-      mbar_init(&aempty[s], 128);  // consumer 0
-      mbar_init(&bfull[s], 1);
-      mbar_init(&bempty[s], 128);  // consumer 1
-    }
-    for (int x = 0; x < 2 * TS; ++x) {
-      mbar_init(&tfull[x], 1);
-      mbar_init(&tempty[x], 128);
-    }
-    mbar_init(xfull, 128);
-    mbar_init(xempty, 128);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {  // producer: per q tile nc chunks into each ring, then the panels
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
-      int n = 0;
-      for (int i = 0; i < nq - qstart; ++i) {
-        const int q0 = (qstart + i) * BQ;
-        for (int c = 0; c < nc; ++c, ++n) {
-          // one chunk order in every panel block: chunk 0 first
-          const int s = n % SR, col = CW * c, par = ((n / SR) & 1) ^ 1;
-          unsigned char* sa = smem + s * L::stage;
-          mbar_wait(&aempty[s], par);
-          mbar_arrive_expect_tx(&afull[s], L::stage);
-          tma_load_3d(sa, mk, &afull[s], col, k0, bh);
-          tma_load_3d(sa + L::c, mq, &afull[s], col, q0, bh);
-          unsigned char* sb = smem + L::b + s * L::stage;
-          mbar_wait(&bempty[s], par);
-          mbar_arrive_expect_tx(&bfull[s], L::stage);
-          tma_load_3d(sb, mv, &bfull[s], col, k0, bh);
-          tma_load_3d(sb + L::c, mg, &bfull[s], col, q0, bh);
-        }
-        for (int r = 0; r < 2; ++r) {  // dO's panel (consumer 0), Q's (consumer 1)
-          const int x = r * TS + i % TS;
-          unsigned char* st = smem + L::t + x * L::pt;
-          mbar_wait(&tempty[x], ((i / TS) & 1) ^ 1);
-          mbar_arrive_expect_tx(&tfull[x], L::pt);
-          for (int p = 0; p < W / CW; ++p)
-            tma_load_3d(st + p * BQ * 128, r ? mq : mg, &tfull[x], 256 * z + CW * p, q0,
-                        bh);
-        }
-      }
-    }
-  } else {  // consumers of k rows [k0, k0 + 64): 0 owns dV, 1 owns dK
-    setmaxnreg_inc<240>();
-    const int t = threadIdx.x % 128, lane = t % 32;
-    const int rl = 16 * (t / 32) + lane / 4;  // first k row of the block; +8
-    const int c2 = 2 * (lane % 4);            // first q column of a pair
-    uint64_t* full = wg ? bfull : afull;
-    uint64_t* empty = wg ? bempty : aempty;
-    const unsigned char* ring = smem + (wg ? L::b : 0);
-    const float* rows = wg ? delta : lse;
-    float acc[W / 2];  // dV (consumer 0) or dK (consumer 1): rows rl, rl + 8
-#pragma unroll
-    for (int x = 0; x < W / 2; ++x) acc[x] = 0.f;
-
-    int n = 0;  // chunks of this consumer's ring
-    for (int i = 0; i < nq - qstart; ++i) {
-      const int q0 = (qstart + i) * BQ;
-      // lse (consumer 0, in log2 units) or delta (consumer 1) of this
-      // thread's q columns 8 j + c2 + e (at 2 j + e), 0 past S
-      float rv[BQ / 4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = q0 + 8 * j + c2 + e;
-          rv[2 * j + e] = q < S ? rows[(size_t)bh * S + q] * (wg ? 1.f : LOG2E) : 0.f;
-        }
-
-      // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T.  Rows rl, rl + 8
-      // (k) of BQ q columns, summed chunk by chunk over every column.
-      float st[BQ / 2];
-      for (int c = 0; c < nc; ++c, ++n) {
-        const int s = n % SR;
-        mbar_wait(&full[s], (n / SR) & 1);
-        const unsigned char* sa = ring + s * L::stage;
-        wide::chunk_mma<T>(st, sa, sa + L::c, c > 0);
-        if (c > 0) {
-          wgmma_wait<1>();
-          mbar_arrive(&empty[(n - 1) % SR]);
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(st);
-      mbar_arrive(&empty[(n - 1) % SR]);
-
-      // Consumer 0: P^T, masked, to the exchange tile in f32 (thread t's
-      // values at [x][t], the layout consumer 1's thread t holds dP^T in)
-      // and packed to T.  Consumer 1: dS^T = P^T (dP^T - delta) from it,
-      // packed to T.
-      uint32_t pa[BQ / 4];
-      if (wg == 0) {
-        const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * h + e;
-              st[x] = exp2f(fmaf(st[x], LOG2E, -rv[2 * j + e]));
-              if (masked && kv::dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
-                st[x] = 0.f;
-            }
-            pa[2 * j + h] = pack<T>(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
-          }
-        mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
-#pragma unroll
-        for (int x = 0; x < BQ / 2; ++x) xp[x * 128 + t] = st[x];
-        mbar_arrive(xfull);
-      } else {
-        mbar_wait(xfull, i & 1);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float d[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * h + e;
-              d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);
-            }
-            pa[2 * j + h] = pack<T>(d[0], d[1]);
-          }
-        mbar_arrive(xempty);
-      }
-
-      // consumer 0: dV += P^T dO[:, panel]; consumer 1: dK += dS^T Q[:, panel]
-      const int x = wg * TS + i % TS;
-      mbar_wait(&tfull[x], (i / TS) & 1);
-      wide::panel_mma<T, W>(acc, pa, smem + L::t + x * L::pt);
-      mbar_arrive(&tempty[x]);
-    }
-
-    // Epilogue: dv (consumer 0) or dk (consumer 1) in T from registers
-    // straight to the panel's columns of the k rows below S.
-    T* out = (wg ? dk : dv) + (size_t)bh * S * DW + 256 * z + c2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = k0 + rl + 8 * h;
-      if (row < S) {
-#pragma unroll
-        for (int j = 0; j < W / 8; ++j)
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * DW + 8 * j) =
-              pack<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      }
-    }
-  }
-}
-
-// The four inputs as maps of 64-column chunks: q and g in boxes of
-// `qrows` rows, k and v of 64.
-template <typename T>
-static cudaError_t chunk_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
-                              CUtensorMap* mg, const T* q, const T* k, const T* v,
-                              const T* g, int bh, int s, int d, uint32_t qrows) {
-  cudaError_t err;
-  if ((err = panel_map<wide::CW>(mq, q, s, bh, qrows, d)) != cudaSuccess ||
-      (err = panel_map<wide::CW>(mg, g, s, bh, qrows, d)) != cudaSuccess ||
-      (err = panel_map<wide::CW>(mk, k, s, bh, wide::BK, d)) != cudaSuccess)
-    return err;
-  return panel_map<wide::CW>(mv, v, s, bh, wide::BK, d);
+  // no partials: the body does not read dqp
+  wide::kv_body<T, W, CAUSAL, false>(mq, mk, mv, mg, lse, delta, dk, dv, nullptr, S, DW,
+                                     z0);
 }
 
 // One launch of panels [z0, z0 + nz) of W columns each.
@@ -934,7 +680,7 @@ static cudaError_t launch_dkv_panels(const CUtensorMap& mq, const CUtensorMap& m
                                      const float* lse, const float* delta, T* dk, T* dv,
                                      int bh, int s, int d, int z0, int nz,
                                      cudaStream_t stream) {
-  const size_t bytes = wide::dkv::Smem<T, W>::bytes;
+  const size_t bytes = wide::dkv::Smem<T, W, false>::bytes;
   auto kernel = flash_bwd_dkv_wide_kernel<T, W, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -949,8 +695,8 @@ static cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* g
                                   const float* lse, const float* delta, float* dq,
                                   int bh, int s, int d, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
-  cudaError_t err = chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
-                                  wide::dq::BQ);
+  cudaError_t err = wide::chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
+                                        wide::dq::BQ);
   if (err != cudaSuccess) return err;
   return wide::by_panels(
       d,
@@ -969,8 +715,8 @@ static cudaError_t launch_dkv_wide(const T* q, const T* k, const T* v, const T* 
                                    const float* lse, const float* delta, T* dk, T* dv,
                                    int bh, int s, int d, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
-  cudaError_t err = chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
-                                  wide::dkv::BQ);
+  cudaError_t err = wide::chunk_maps<T>(&mq, &mk, &mv, &mg, q, k, v, g, bh, s, d,
+                                        wide::dkv::BQ);
   if (err != cudaSuccess) return err;
   return wide::by_panels(
       d,

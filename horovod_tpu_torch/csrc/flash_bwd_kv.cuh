@@ -2,16 +2,17 @@
 // k rows: flash_bwd.cu's dk/dv kernels and flash_bwd_onepass.cu's
 // one-pass kernels, which add the f32 dq partials (PARTIALS).  Up to D
 // 128 kv::ktile_body (128-row k tiles); at D 256 kv256::kblock_body
-// (64-row k blocks, below).  Same function as the TPU's
+// (64-row k blocks, below); past 256 wide::kv_body (panels of the
+// outputs' columns, last below).  Same function as the TPU's
 // _flash_bwd_dkv_kernel and _flash_bwd_onepass_kernel, q pre-scaled by
 // 1/sqrt(D):
 //   p  = exp(q k^T - lse), 0 where masked
 //   ds = p * (g v^T - delta)            (delta = rowsum(g * o), from the caller)
 //   dv = p^T g     (p cast to g's dtype), summed over the q tiles in f32
 //   dk = ds^T q    (ds cast to q's dtype), likewise
-//   with PARTIALS: dqp[bh, t] = ds[:, k block t] k[k block t]  (ds cast to
-//   k's dtype, f32 out), one (S, D) slot per k block: 128 rows up to D
-//   128, 64 at D 256.
+//   with PARTIALS: dqp[bh, t] = ds[:, slot t] k[slot t]  (ds cast to k's
+//   dtype, f32 out), one (S, D) slot per onepass_block_k rows of k: 128
+//   up to D 128 and past 256, 64 at D 256.
 //
 // Design of kv::ktile_body: the TPU kernels kept this k tile's dk and dv
 // in VMEM scratch across the sequential q axis of their grid.  Here one
@@ -646,4 +647,434 @@ __device__ __forceinline__ void kblock_body(
 }
 
 }  // namespace kv256
+
+// ----------------------------------------------------- the panels past 256
+//
+// flash_bwd.cu's dk/dv kernel past 256 (flash_bwd_dkv_wide_kernel) and,
+// with PARTIALS, the one-pass kernel there (flash_bwd_onepass.cu's
+// flash_bwd_onepass_wide_kernel).  A block owns one panel z of the
+// outputs' columns, [256 z, 256 z + W), W 256 or 128 for the last panel
+// of an odd multiple of 128, one launch per width (by_panels) with the
+// panels on gridDim.z.  kv256's split of the products: per 64-row q tile
+// consumer 0 forms S^T = K Q^T over every 64-column chunk of its ring (K
+// and Q chunks), P^T and dV_panel += P^T dO[:, panel]; consumer 1 dP^T =
+// V dO^T over its ring (V and dO chunks), dS^T = P^T (dP^T - delta) and
+// dK_panel += dS^T Q[:, panel]; P^T crosses in f32 through the 16 KB
+// exchange tile under two mbarriers.  Every panel block streams the
+// chunks in one order, chunk 0 first, so all the blocks of a k block form
+// the same P and dS bit for bit.  dO's and Q's W-column panels of the q
+// tile come through rings of their own (TS stages each); lse and delta
+// are read into registers; dk and dv leave in T from registers.
+//
+// Without PARTIALS (dk/dv) a block owns one 64-row k block: two rings of
+// SR = 4 stages (2 x 64 KB), dO's and Q's panels (one 32 KB stage each at
+// W 256, two 16 KB ones at W 128: 64 KB) and the exchange tile: 208 KB.
+//
+// With PARTIALS (the one-pass) a block owns a 128-row dq slot, the
+// onepass_block_k past 256 (ops/flash_attention.py), and walks its two
+// 64-row k blocks in turn (one where the second starts at or past S), as
+// the f32 one-pass does (flash_bwd_f32.cu): dk and dv of a k block are
+// stored after its walk, and dqp[bh, slot] = ds[:, slot] k[slot] takes
+// both.  Consumer 1 also writes dS^T (k rows, q columns) to shared memory
+// as T under a third mbarrier (dsfull), and each consumer forms W / 2
+// columns of the partial's q rows by one more wgmma, dS (q x k, read
+// MN-major from dS^T) times K's W-column panel of the k block (64 x W,
+// read MN-major from column (W / 2) wg), in pieces of 64 columns, each
+// into 32 f32 registers beside its W / 2 of dV or dK and stored from
+// registers to the slot's rows below S before the next is formed (the
+// whole W / 4 at once spilled at W 256: 256 bytes).  The second k block adds its partial to
+// what the first stored: each thread reads back only the elements it
+// wrote itself, so there is no fence and no atomic, and the bits repeat.
+// A causal slot's rows above its diagonal (those before its first k
+// block) are written as zeros in this panel's columns.  K's panel is
+// loaded once a k block (after the first q tile's chunks) and reloaded
+// for the second once both consumers' last partials of the first have
+// read it (kempty).  dS^T is free to overwrite once consumer 0 has sent
+// the next P^T, which it does only after its partial of the last tile.
+// Shared memory at W 256: the rings take SR = 3 stages (2 x 48 KB), the
+// panels 64 KB, the exchange 16 KB, K's panel 32 KB and dS^T 8 KB: 216
+// KB (four stages would take 248, past the 227 a block may hold); at W
+// 128 200 KB.
+namespace wide {
+
+using namespace sm90;
+
+constexpr int CW = 64;  // columns per score chunk (one 128-byte swizzled box)
+constexpr int BK = 64;  // k rows per tile (dq) or block (dk/dv, one-pass)
+
+// (acc, 64 rows x 64 columns f32) (+)= A B^T over one 64-column chunk: A
+// the consumer's 64 rows at sa, B 64 rows at sb, both K-major; one
+// committed group.
+template <typename T>
+__device__ __forceinline__ void chunk_mma(float (&acc)[32], const unsigned char* sa,
+                                          const unsigned char* sb, bool accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk)
+    MmaSS<64, 0, 0, T>::run(acc, desc_kmajor<CW, 64>(sa, kk), desc_kmajor<CW, 64>(sb, kk),
+                            accumulate || kk > 0);
+  wgmma_commit();
+}
+
+// acc (64 rows x W columns f32) += A B: A 64 columns of packed T pairs in
+// the accumulator's layout (P^T, dS or dS^T), B a 64-row W-column panel
+// read MN-major.
+template <typename T, int W>
+__device__ __forceinline__ void panel_mma(float (&acc)[W / 2], const uint32_t (&pa)[16],
+                                          const unsigned char* sb) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+    MmaRS<W, 1, T>::run(acc, a, desc_mnmajor<W, 64>(sb, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// d past 256, a multiple of 128: launch(W 256, first panel 0, d / 256
+// panels), then launch(W 128, d / 256, 1) where d is an odd multiple of
+// 128 (the forward's split).
+template <typename F256, typename F128>
+static cudaError_t by_panels(int d, F256 launch256, F128 launch128) {
+  cudaError_t err = launch256(0, d / 256);
+  if (err == cudaSuccess && d % 256) err = launch128(d / 256, 1);
+  return err;
+}
+
+// The four inputs as maps of 64-column chunks: q and g in boxes of
+// `qrows` rows, k and v of 64.
+template <typename T>
+inline cudaError_t chunk_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                              CUtensorMap* mg, const T* q, const T* k, const T* v,
+                              const T* g, int bh, int s, int d, uint32_t qrows) {
+  cudaError_t err;
+  if ((err = panel_map<CW>(mq, q, s, bh, qrows, d)) != cudaSuccess ||
+      (err = panel_map<CW>(mg, g, s, bh, qrows, d)) != cudaSuccess ||
+      (err = panel_map<CW>(mk, k, s, bh, BK, d)) != cudaSuccess)
+    return err;
+  return panel_map<CW>(mv, v, s, bh, BK, d);
+}
+
+// dk/dv and the one-pass: 64-row q tiles; ring A (K, Q chunks, consumer
+// 0) and ring B (V, dO chunks, consumer 1) of SR stages; TS stages each of
+// dO's and Q's W-column panel of the q tile; the P^T exchange tile; with
+// PARTIALS K's W-column panel of the k block and the dS^T tile.
+namespace dkv {
+constexpr int BQ = 64;
+template <typename T, int W, bool PARTIALS>
+struct Smem {
+  static constexpr int SR = PARTIALS ? 3 : 4;
+  static constexpr int TS = W == 256 ? 1 : 2;
+  static constexpr int NKB = PARTIALS ? 2 : 1;          // k blocks a block walks
+  static constexpr size_t c = 64 * CW * sizeof(T);       // one 64-row chunk, 8 KB
+  static constexpr size_t stage = 2 * c;                 // (K, Q) or (V, dO)
+  static constexpr size_t b = SR * stage;                // ring B after ring A
+  static constexpr size_t t = 2 * SR * stage;            // [dO's, Q's][TS] panels
+  static constexpr size_t pt = BQ * W * sizeof(T);       // 32 or 16 KB
+  static constexpr size_t xp = t + 2 * TS * pt;          // P^T, BK x BQ f32
+  static constexpr size_t kp = xp + BK * BQ * sizeof(float);  // K's panel (PARTIALS)
+  static constexpr size_t kpb = PARTIALS ? BK * W * sizeof(T) : 0;
+  static constexpr size_t ds = kp + kpb;                 // dS^T, BK x BQ of T
+  static constexpr size_t bar = ds + (PARTIALS ? BK * BQ * sizeof(T) : 0);
+  static constexpr size_t bytes =                        // + alignment
+      bar + 8 * (4 * SR + 4 * TS + 2 + 3 * PARTIALS) + 1024;
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+}  // namespace dkv
+
+// The block of head blockIdx.x, panel z0 + blockIdx.z and k rows
+// [blockIdx.y NKB 64, + NKB 64): without PARTIALS one k block (dqp not
+// read), with PARTIALS the dq slot blockIdx.y of (BH, gridDim.y, S, DW)
+// f32 partials and its k blocks below S in turn.
+template <typename T, int W, bool CAUSAL, bool PARTIALS>
+__device__ __forceinline__ void kv_body(
+    const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+    const CUtensorMap& mg, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dqp, int S, int DW, int z0) {
+  using L = dkv::Smem<T, W, PARTIALS>;
+  constexpr int BQ = dkv::BQ, SR = L::SR, TS = L::TS;
+  constexpr float LOG2E = kv::LOG2E;
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* afull = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* aempty = afull + SR;
+  uint64_t* bfull = aempty + SR;
+  uint64_t* bempty = bfull + SR;
+  uint64_t* tfull = bempty + SR;  // [0, TS) dO's panel, [TS, 2 TS) Q's
+  uint64_t* tempty = tfull + 2 * TS;
+  uint64_t* xfull = tempty + 2 * TS;  // P^T written (consumer 0's 128 threads)
+  uint64_t* xempty = xfull + 1;       // P^T read (consumer 1's 128 threads)
+  uint64_t* kfull = xempty + 1;       // PARTIALS: K's panel of the k block landed
+  uint64_t* kempty = kfull + 1;       // PARTIALS: both consumers are done with it
+  uint64_t* dsfull = kempty + 1;      // PARTIALS: dS^T written (consumer 1's)
+  float* xp = reinterpret_cast<float*>(smem + L::xp);
+
+  // bh on gridDim.x; k block 0, the longest causal one, first
+  const int bh = blockIdx.x, kfirst = blockIdx.y * L::NKB * BK;
+  const int z = z0 + blockIdx.z;  // the outputs' columns [256 z, 256 z + W)
+  const int nb = PARTIALS ? min(L::NKB, (S - kfirst + BK - 1) / BK) : 1;
+  const int nc = DW / CW;
+  const int nq = (S + BQ - 1) / BQ;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SR; ++s) {
+      mbar_init(&afull[s], 1);
+      mbar_init(&aempty[s], 128);  // consumer 0
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], 128);  // consumer 1
+    }
+    for (int x = 0; x < 2 * TS; ++x) {
+      mbar_init(&tfull[x], 1);
+      mbar_init(&tempty[x], 128);
+    }
+    mbar_init(xfull, 128);
+    mbar_init(xempty, 128);
+    if (PARTIALS) {
+      mbar_init(kfull, 1);
+      mbar_init(kempty, 256);  // every consumer thread
+      mbar_init(dsfull, 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: per q tile nc chunks into each ring, then the panels
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int n = 0, i = 0;  // chunks, q tiles (over the k blocks)
+      for (int b = 0; b < nb; ++b) {
+        const int k0 = kfirst + b * BK;
+        // q tiles before qstart lie wholly above the causal diagonal of this k block
+        const int qstart = CAUSAL ? k0 / BQ : 0;
+        for (int qt = qstart; qt < nq; ++qt, ++i) {
+          const int q0 = qt * BQ;
+          for (int c = 0; c < nc; ++c, ++n) {
+            // one chunk order in every panel block: chunk 0 first
+            const int s = n % SR, col = CW * c, par = ((n / SR) & 1) ^ 1;
+            unsigned char* sa = smem + s * L::stage;
+            mbar_wait(&aempty[s], par);
+            mbar_arrive_expect_tx(&afull[s], L::stage);
+            tma_load_3d(sa, mk, &afull[s], col, k0, bh);
+            tma_load_3d(sa + L::c, mq, &afull[s], col, q0, bh);
+            unsigned char* sb = smem + L::b + s * L::stage;
+            mbar_wait(&bempty[s], par);
+            mbar_arrive_expect_tx(&bfull[s], L::stage);
+            tma_load_3d(sb, mv, &bfull[s], col, k0, bh);
+            tma_load_3d(sb + L::c, mg, &bfull[s], col, q0, bh);
+          }
+          if constexpr (PARTIALS) {
+            if (qt == qstart) {  // K's W-column panel of the k block
+              mbar_wait(kempty, (b & 1) ^ 1);
+              mbar_arrive_expect_tx(kfull, L::kpb);
+              for (int p = 0; p < W / CW; ++p)
+                tma_load_3d(smem + L::kp + p * BK * 128, mk, kfull, 256 * z + CW * p,
+                            k0, bh);
+            }
+          }
+          for (int r = 0; r < 2; ++r) {  // dO's panel (consumer 0), Q's (consumer 1)
+            const int x = r * TS + i % TS;
+            unsigned char* st = smem + L::t + x * L::pt;
+            mbar_wait(&tempty[x], ((i / TS) & 1) ^ 1);
+            mbar_arrive_expect_tx(&tfull[x], L::pt);
+            for (int p = 0; p < W / CW; ++p)
+              tma_load_3d(st + p * BQ * 128, r ? mq : mg, &tfull[x], 256 * z + CW * p, q0,
+                          bh);
+          }
+        }
+      }
+    }
+  } else {  // consumers of each k block: 0 owns dV, 1 owns dK
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int rl = 16 * (t / 32) + lane / 4;  // first k row of the block (q row of dq); +8
+    const int c2 = 2 * (lane % 4);            // first q column (partial column) of a pair
+    uint64_t* full = wg ? bfull : afull;
+    uint64_t* empty = wg ? bempty : aempty;
+    const unsigned char* ring = smem + (wg ? L::b : 0);
+    const float* rows = wg ? delta : lse;
+    unsigned char* sds = smem + L::ds;
+    // PARTIALS: this block's slot from this panel's first column; a causal
+    // slot's rows above its diagonal (before its first k block) are zeros
+    float* slot = nullptr;
+    if constexpr (PARTIALS) {
+      slot = dqp + ((size_t)bh * gridDim.y + blockIdx.y) * S * DW + 256 * z;
+      if (CAUSAL)
+        for (int e = t + 128 * wg; e < kfirst * (W / 4); e += 256)
+          reinterpret_cast<float4*>(slot + (size_t)(e / (W / 4)) * DW)[e % (W / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+    int n = 0, i = 0;  // chunks of this consumer's ring, q tiles
+    for (int b = 0; b < nb; ++b) {
+      const int k0 = kfirst + b * BK;
+      float acc[W / 2];  // dV (consumer 0) or dK (consumer 1): rows rl, rl + 8
+#pragma unroll
+      for (int x = 0; x < W / 2; ++x) acc[x] = 0.f;
+      for (int qt = CAUSAL ? k0 / BQ : 0; qt < nq; ++qt, ++i) {
+        const int q0 = qt * BQ;
+        // lse (consumer 0, in log2 units) or delta (consumer 1) of this
+        // thread's q columns 8 j + c2 + e (at 2 j + e), 0 past S
+        float rv[BQ / 4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = q0 + 8 * j + c2 + e;
+            rv[2 * j + e] = q < S ? rows[(size_t)bh * S + q] * (wg ? 1.f : LOG2E) : 0.f;
+          }
+
+        // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T.  Rows rl, rl + 8
+        // (k) of BQ q columns, summed chunk by chunk over every column.
+        float st[BQ / 2];
+        for (int c = 0; c < nc; ++c, ++n) {
+          const int s = n % SR;
+          mbar_wait(&full[s], (n / SR) & 1);
+          const unsigned char* sa = ring + s * L::stage;
+          chunk_mma<T>(st, sa, sa + L::c, c > 0);
+          if (c > 0) {
+            wgmma_wait<1>();
+            mbar_arrive(&empty[(n - 1) % SR]);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(st);
+        mbar_arrive(&empty[(n - 1) % SR]);
+
+        // Consumer 0: P^T, masked, to the exchange tile in f32 (thread t's
+        // values at [x][t], the layout consumer 1's thread t holds dP^T in)
+        // and packed to T.  Consumer 1: dS^T = P^T (dP^T - delta) from it,
+        // packed to T (with PARTIALS also stored to shared memory).
+        uint32_t pa[BQ / 4];
+        if (wg == 0) {
+          const bool masked = (CAUSAL && q0 < k0 + BK - 1) || q0 + BQ > S || k0 + BK > S;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * h + e;
+                st[x] = exp2f(fmaf(st[x], LOG2E, -rv[2 * j + e]));
+                if (masked && kv::dead<CAUSAL>(q0 + 8 * j + c2 + e, k0 + rl + 8 * h, S))
+                  st[x] = 0.f;
+              }
+              pa[2 * j + h] = pack<T>(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+            }
+          mbar_wait(xempty, (i & 1) ^ 1);  // consumer 1 has read the last P^T
+#pragma unroll
+          for (int x = 0; x < BQ / 2; ++x) xp[x * 128 + t] = st[x];
+          mbar_arrive(xfull);
+        } else {
+          mbar_wait(xfull, i & 1);
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float d[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * h + e;
+                d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);
+              }
+              pa[2 * j + h] = pack<T>(d[0], d[1]);
+            }
+          mbar_arrive(xempty);
+          if constexpr (PARTIALS) {
+            // dS^T (k rows, q columns) to shared memory: both consumers'
+            // partials of the last tile have read it (consumer 0's came
+            // before the P^T this thread waited for)
+#pragma unroll
+            for (int x = 0; x < BQ / 4; ++x)
+              *reinterpret_cast<uint32_t*>(
+                  sds + panel_offset<BQ, BK>(rl + 8 * (x % 2), 8 * (x / 2) + c2)) = pa[x];
+            fence_proxy_async();
+            mbar_arrive(dsfull);
+          }
+        }
+
+        // consumer 0: dV += P^T dO[:, panel]; consumer 1: dK += dS^T Q[:, panel]
+        const int x = wg * TS + i % TS;
+        mbar_wait(&tfull[x], (i / TS) & 1);
+        panel_mma<T, W>(acc, pa, smem + L::t + x * L::pt);
+        mbar_arrive(&tempty[x]);
+
+        if constexpr (PARTIALS) {
+          // The partial's q rows [q0, q0 + 64) of this consumer's W / 2
+          // columns of the panel, in pieces of 64 columns (32 registers,
+          // each stored before the next is formed): dS (q x k, A MN-major)
+          // K[:, piece] (k x 64, MN-major), then from registers to the rows
+          // below S (q rows rl, rl + 8 of the tile).  The second k block
+          // adds to what the first stored (the same thread, the same
+          // elements), read while the piece's wgmma runs.
+          constexpr int PN = W / 2;
+          mbar_wait(kfull, b & 1);
+          mbar_wait(dsfull, i & 1);
+          float* out = slot + (size_t)q0 * DW + PN * wg + c2;
+#pragma unroll
+          for (int pc = 0; pc < PN / 64; ++pc) {
+            float dq[32];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+              MmaSS<64, 1, 1, T>::run(
+                  dq, desc_mnmajor<BQ, BK>(sds, kk),
+                  desc_mnmajor<W, BK>(smem + L::kp, kk, PN * wg + 64 * pc), kk > 0);
+            wgmma_commit();
+            float2 was[2][8];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) was[h][j] = make_float2(0.f, 0.f);
+            if (b > 0) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                if (q0 + rl + 8 * h < S)
+#pragma unroll
+                  for (int j = 0; j < 8; ++j)
+                    was[h][j] = *reinterpret_cast<const float2*>(
+                        out + (size_t)(rl + 8 * h) * DW + 64 * pc + 8 * j);
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fence_regs(dq);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = rl + 8 * h;
+              if (q0 + row < S) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                  *reinterpret_cast<float2*>(out + (size_t)row * DW + 64 * pc + 8 * j) =
+                      make_float2(dq[4 * j + 2 * h] + was[h][j].x,
+                                  dq[4 * j + 2 * h + 1] + was[h][j].y);
+              }
+            }
+          }
+          if (qt == nq - 1) mbar_arrive(kempty);  // K's panel is free
+        }
+      }
+
+      // dv (consumer 0) or dk (consumer 1) of the k block in T from
+      // registers straight to the panel's columns of its rows below S.
+      T* out = (wg ? dk : dv) + (size_t)bh * S * DW + 256 * z + c2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = k0 + rl + 8 * h;
+        if (row < S) {
+#pragma unroll
+          for (int j = 0; j < W / 8; ++j)
+            *reinterpret_cast<uint32_t*>(out + (size_t)row * DW + 8 * j) =
+                pack<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wide
 }  // namespace hvdflash

@@ -26,17 +26,16 @@ version only for tensors on the CPU; on CUDA they launch the kernels that
 ``_kernels_for`` names for the inputs' dtype and padded width, which
 raise on anything they do not take.  The Hopper kernels take bf16 and
 f16: the forward (``csrc/flash_fwd.cu``), dq and dk/dv (``flash_bwd.cu``)
-at every padded width (32, 64, 128, 256 and every multiple of 128 past
-256), and the one-pass backward (``flash_bwd_onepass.cu``) at 32, 64, 128
-and 256; and f32: the forward in split TF32
+and the one-pass backward (``flash_bwd_onepass.cu``) at every padded width
+(32, 64, 128, 256 and every multiple of 128 past 256); and f32: the
+forward in split TF32
 (``csrc/flash_fwd_f32.cu``, ``flash_fwd_f32_kernel``) at every padded
 width, and dq, dk/dv and the one-pass backward (``csrc/flash_bwd_f32.cu``,
 ``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel`` and
 ``flash_bwd_onepass_f32_kernel``: split TF32, dP on the CUDA cores) at
 every padded width.  Their CUDA-core twins (``csrc/flash_simt.cu``,
-``*_simt_kernel``) take f32, f16 and bf16 at every padded width, and run
-whatever the Hopper kernels do not: the one-pass backward in bf16 and f16
-past 256.  Any other dtype raises.
+``*_simt_kernel``) take f32, f16 and bf16 at every padded width and run on
+no route: they stay as a second reference.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -57,8 +56,7 @@ _HEAD_DIMS = (32, 64, 128, 256)
 
 class _PaddedWidths:
     """Every width ``padded_head_dim`` gives: 32, 64, 128, 256 and each
-    multiple of 128 past 256 (the widths of the Hopper forward, dq and
-    dk/dv and of the CUDA-core kernels)."""
+    multiple of 128 past 256 (the widths of every flash kernel)."""
 
     def __contains__(self, width) -> bool:
         return width in _HEAD_DIMS or (width > 256 and width % 128 == 0)
@@ -274,9 +272,12 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, causal: bool):
 
 def flash_bwd_onepass_kernel(q, k, v, g, lse, delta, causal: bool):
     """Hopper one-pass backward (``csrc/flash_bwd_onepass.cu``), bf16 or
-    f16, up to 256 (at 256 64-row k blocks whose consumers split the
-    products, as dk/dv's there) -> (dq partials f32 (BH, nk, S, D), one
-    slot per ``onepass_block_k(D)`` rows of k, dk, dv in k's dtype)."""
+    f16, at every padded width (at 256 64-row k blocks whose consumers
+    split the products, as dk/dv's there; past 256 dk/dv's panel plan, one
+    block per 128-row dq slot and 256-column panel, and one launch for a
+    last 128-column panel, the block walking the slot's two 64-row k
+    blocks) -> (dq partials f32 (BH, nk, S, D), one slot per
+    ``onepass_block_k(D)`` rows of k, dk, dv in k's dtype)."""
     bh, s, d = _check_kernel_args(flash_bwd_onepass_kernel, (q, k, v, g),
                                   (lse, delta))
     bk = onepass_block_k(d)
@@ -461,17 +462,12 @@ SIMT_KERNELS = (flash_fwd_simt_kernel, flash_bwd_dq_simt_kernel,
 F32_KERNELS = (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
                flash_bwd_dkv_f32_kernel, flash_bwd_onepass_f32_kernel)
 KERNELS = HOPPER_KERNELS + SIMT_KERNELS + F32_KERNELS
-# The Hopper forward, dq and dk/dv take every padded width, the one-pass
-# those up to 256.
-for _k, _w in zip(HOPPER_KERNELS, (PADDED_WIDTHS, PADDED_WIDTHS,
-                                   PADDED_WIDTHS, _HEAD_DIMS)):
-    _k.widths, _k.dtypes = _w, HOPPER_DTYPES
-for _k in SIMT_KERNELS:
-    _k.widths, _k.dtypes = PADDED_WIDTHS, SIMT_DTYPES
-for _k in F32_KERNELS:
-    _k.widths, _k.dtypes = PADDED_WIDTHS, (torch.float32,)
-for _k in KERNELS:
-    _k.launches = 0
+# Every kernel takes every padded width, each family its dtypes.
+for _fam, _dtypes in ((HOPPER_KERNELS, HOPPER_DTYPES),
+                      (SIMT_KERNELS, SIMT_DTYPES),
+                      (F32_KERNELS, (torch.float32,))):
+    for _k in _fam:
+        _k.widths, _k.dtypes, _k.launches = PADDED_WIDTHS, _dtypes, 0
 
 
 def reset_launch_counts():
@@ -486,12 +482,10 @@ def launch_counts() -> dict:
 def _kernels_for(dtype, width: int):
     """(fwd, dq, dk/dv, one-pass) kernels for CUDA tensors of ``dtype`` at
     a padded head dim of ``width``: chosen by the two alone, never as a
-    retry after a failure.  Each step takes a Hopper kernel where one takes
-    the dtype and the width (the bf16 and f16 family or the f32 one,
-    ``F32_KERNELS``), else its CUDA-core twin: bf16 and f16 at up to 256
-    run all four on Hopper, and past 256 the forward, dq and dk/dv on
-    Hopper and the one-pass on the CUDA cores; f32 runs all four on Hopper
-    (split TF32) at every width."""
+    retry after a failure.  Each step takes the Hopper kernel that takes
+    the dtype and the width: bf16 and f16 run the four ``HOPPER_KERNELS``
+    and f32 the four ``F32_KERNELS`` (split TF32), at every padded width.
+    No route takes a CUDA-core twin."""
     if dtype not in SIMT_DTYPES:
         raise ValueError("flash attention on CUDA takes f32, f16 or bf16, "
                          "got %s" % dtype)
@@ -499,10 +493,7 @@ def _kernels_for(dtype, width: int):
         raise ValueError("flash attention on CUDA takes a head dim "
                          "zero-padded to one of %s, got %d"
                          % (PADDED_WIDTHS, width))
-    hopper = zip(HOPPER_KERNELS, F32_KERNELS)
-    return tuple(next((h for h in hs if dtype in h.dtypes
-                       and width in h.widths), c)
-                 for hs, c in zip(hopper, SIMT_KERNELS))
+    return F32_KERNELS if dtype == torch.float32 else HOPPER_KERNELS
 
 
 def flash_fwd(q, k, v, causal: bool):

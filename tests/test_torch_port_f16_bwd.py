@@ -1,16 +1,16 @@
 """f16 on the Hopper dq and dk/dv kernels, and the loss-scaled decoder step.
 
-On the card, f16 at head dims up to 256 runs all four Hopper flash
+On the card, f16 at every padded head dim runs all four Hopper flash
 kernels (``csrc/flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_onepass.cu``,
 each templated on bf16 and f16, the element type passed to the C entry as
-a dtype code); past 256 the Hopper forward and the CUDA-core
-backward.  Here on the CPU: the route, the wrappers' dtypes and the code each passes to its entry
-(through a stand-in library), ``make_train_step(grad_scaler=)`` on a tiny
-f32 decoder (a power-of-two scale leaves the steps bit for bit, an
-overflowing one skips them and backs off), and a small f16 decoder on the
-port's plain path (the functions the f16 kernels compute) against the JAX
-decoder at float16, whose Pallas flash runs in interpret mode, under the
-default ``pallas`` backward.
+a dtype code).  Here on the CPU: the route, the wrappers' dtypes and the
+code each passes to its entry (through a stand-in library),
+``make_train_step(grad_scaler=)`` on a tiny f32 decoder (a power-of-two
+scale leaves the steps bit for bit, an overflowing one skips them and
+backs off), and a small f16 decoder on the port's plain path (the
+functions the f16 kernels compute) against the JAX decoder at float16,
+whose Pallas flash runs in interpret mode, under the default ``pallas``
+backward.
 
 Tolerances of the f16 decoder: both sides round activations, P and dS to
 f16 (2^-11 relative a rounding), but at other places (the JAX kernel
@@ -51,12 +51,10 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384])
 def test_f16_route(width):
-    """f16 at up to 256: the four Hopper kernels; past it the Hopper
-    forward, dq and dk/dv and the CUDA-core one-pass, as bf16 goes."""
-    want = (fa.HOPPER_KERNELS if width <= 256 else
-            fa.HOPPER_KERNELS[:3] + (fa.flash_bwd_onepass_simt_kernel,))
-    assert fa._kernels_for(torch.float16, width) == want
-    assert fa._kernels_for(torch.bfloat16, width) == want
+    """f16 at every padded width: the four Hopper kernels, as bf16 goes
+    (past 256 the one-pass too)."""
+    assert fa._kernels_for(torch.float16, width) == fa.HOPPER_KERNELS
+    assert fa._kernels_for(torch.bfloat16, width) == fa.HOPPER_KERNELS
 
 
 def test_hopper_backward_takes_f16():

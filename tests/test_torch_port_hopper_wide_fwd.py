@@ -5,10 +5,9 @@ heads against the JAX package's.
 ``flash_fwd_kernel`` (``csrc/flash_fwd.cu``) takes bf16 and f16 at every
 width ``padded_head_dim`` gives: 32, 64, 128, 256 and each multiple of 128
 past 256.  So on the card bf16 and f16 run the forward on Hopper at every
-width, dq, dk/dv (``csrc/flash_bwd.cu``) and the one-pass backward
-(``csrc/flash_bwd_onepass.cu``) on Hopper up to 256, and the backward
-past 256 on the CUDA cores; f32 runs all four on Hopper (``F32_KERNELS``,
-split TF32).  Here, on the CPU, the
+width, and so do dq, dk/dv (``csrc/flash_bwd.cu``) and the one-pass
+backward (``csrc/flash_bwd_onepass.cu``); f32 runs all four on Hopper
+(``F32_KERNELS``, split TF32).  Here, on the CPU, the
 wrappers raise on what they do not take before they look at the device,
 and the decoder runs the plain versions.
 
@@ -53,13 +52,12 @@ def _one_torch_thread():
 @pytest.mark.parametrize("width", [32, 64, 128, 256, 384, 512, 640, 1024])
 def test_forward_takes_every_padded_width(width):
     """The Hopper forward's widths are ``PADDED_WIDTHS``, and so are its
-    dq's and dk/dv's; the one-pass takes 32, 64, 128 and 256."""
+    dq's, dk/dv's and the one-pass's."""
     assert fa.flash_fwd_kernel.widths is fa.PADDED_WIDTHS
     assert width in fa.flash_fwd_kernel.widths
-    for kern in fa.HOPPER_KERNELS[1:3]:
+    for kern in fa.HOPPER_KERNELS[1:]:
         assert kern.widths is fa.PADDED_WIDTHS
         assert width in kern.widths
-    assert (width in fa.flash_bwd_onepass_kernel.widths) == (width <= 256)
 
 
 @pytest.mark.parametrize("width", [257, 300])
@@ -88,15 +86,9 @@ def test_forward_refuses_f32_before_the_device():
 def test_route_table(dtype, width):
     """(fwd, dq, dk/dv, one-pass) by dtype and padded width: f32 the
     forward, dq, dk/dv and the one-pass on Hopper (``F32_KERNELS``); bf16
-    and f16 all on Hopper up to 256, and past 256 the forward, dq and dk/dv
-    on Hopper and the one-pass on the CUDA cores."""
+    and f16 all four on Hopper (``HOPPER_KERNELS``) at every width."""
     route = fa._kernels_for(dtype, width)
-    if dtype == torch.float32:
-        want = fa.F32_KERNELS
-    elif width <= 256:
-        want = fa.HOPPER_KERNELS
-    else:
-        want = fa.HOPPER_KERNELS[:3] + (fa.flash_bwd_onepass_simt_kernel,)
+    want = fa.F32_KERNELS if dtype == torch.float32 else fa.HOPPER_KERNELS
     assert route == want
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths

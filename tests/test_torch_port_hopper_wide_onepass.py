@@ -5,14 +5,15 @@ decoder with 256-wide heads under ``HVD_TPU_FLASH_BWD=pallas_onepass``
 against the JAX decoder.
 
 ``flash_bwd_onepass_kernel`` (``csrc/flash_bwd_onepass.cu``) takes bf16 and
-f16 at 32, 64, 128 and 256; at 256 a block holds 64 rows of K and V (the
-dk/dv plan there, ``flash_bwd_kv.cuh``'s ``kv256::kblock_body``), so its
-dq partials come one slot per 64 rows of k (``onepass_block_k``), where
-every other width keeps 128.  The CUDA-core twin and the plain version
-take the same slots.  So on the card bf16 and f16 run all four flash
-kernels on Hopper up to 256.  Here, on the CPU, the wrapper raises on
-what it does not take before it looks at the device, and the plain
-versions run.  The plain backward with dP - delta formed in f64
+f16 at every padded width (past 256:
+``test_torch_port_hopper_wider_onepass.py``); at 256 a block holds 64 rows
+of K and V (the dk/dv plan there, ``flash_bwd_kv.cuh``'s
+``kv256::kblock_body``), so its dq partials come one slot per 64 rows of
+k (``onepass_block_k``), where every other width keeps 128.  The
+CUDA-core twin and the plain version take the same slots.  So on the card
+bf16 and f16 run all four flash kernels on Hopper.  Here, on the CPU,
+the wrapper raises on what it does not take before it looks at the
+device, and the plain versions run.  The plain backward with dP - delta formed in f64
 (``exact_dp``, what ``chip_smoke.py`` holds the Hopper backward kernels
 to on the card) is the f32 plain version up to f32 rounding.
 

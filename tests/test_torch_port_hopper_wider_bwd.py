@@ -10,7 +10,8 @@ take bf16 and f16 at every padded width: past 256 one block per panel of
 the outputs' columns (256, and a last 128 at an odd multiple of 128), the
 scores summed over every 64-column chunk in one order in every panel
 block.  So on the card bf16 and f16 past 256 run the forward, dq and
-dk/dv on Hopper and the one-pass on the CUDA cores.  Here, on the CPU, the
+dk/dv on Hopper, and the one-pass too
+(``test_torch_port_hopper_wider_onepass.py``).  Here, on the CPU, the
 wrappers raise on what they do not take before they look at the device,
 and the plain versions run.
 
@@ -82,12 +83,14 @@ def test_wrappers_past_256_refuse_f32_and_unpadded_widths(kern):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_chip_smoke_holds_the_hopper_backward_past_256(dtype):
     """``chip_smoke.flash_kernels`` names the Hopper forward, dq and dk/dv
-    (and no one-pass) at 384 in bf16 and f16: the kernels its phase 2
-    holds at WIDER_HEAD_SHAPES."""
+    (and, since the one-pass past 256 is on Hopper too, the one-pass) at
+    384 in bf16 and f16: the kernels its phase 2 holds at
+    WIDER_HEAD_SHAPES."""
     kern = chip_smoke.flash_kernels(fa, dtype, "hopper", 384)
     assert kern == {"flash_fwd": fa.flash_fwd_kernel,
                     "flash_bwd_dq": fa.flash_bwd_dq_kernel,
-                    "flash_bwd_dkv": fa.flash_bwd_dkv_kernel}
+                    "flash_bwd_dkv": fa.flash_bwd_dkv_kernel,
+                    "flash_bwd_onepass": fa.flash_bwd_onepass_kernel}
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,9 +6,8 @@ package pads any to a multiple of 128: zero columns add 0 to every
 product) and slices the outputs back; on the card, bf16 and f16 at 256
 run the Hopper forward, dq, dk/dv and one-pass backward
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/flash_bwd_onepass.cu``), f32 the Hopper f32 forward, dq and
-dk/dv (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``) and the
-CUDA-core one-pass (``csrc/flash_simt.cu``);
+``csrc/flash_bwd_onepass.cu``), f32 the Hopper f32 forward, dq, dk/dv
+and one-pass (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``);
 here the plain versions run.  The JAX side runs
 ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its Pallas kernels
 in interpret mode, under both backward choices (``HVD_TPU_FLASH_BWD``,
@@ -173,7 +172,7 @@ F32 = dict(zip(("fwd", "dq", "dkv", "onepass"), fa.F32_KERNELS))
 def test_route_by_dtype_and_width(dtype, width):
     """bf16 and f16 at up to 256: the four Hopper kernels (at 256 the
     one-pass with 64-row dq partial slots); f32: the Hopper f32 forward,
-    dq and dk/dv and the CUDA-core one-pass.  Each kernel routed to takes
+    dq, dk/dv and one-pass.  Each kernel routed to takes
     the dtype and width."""
     route = dict(zip(("fwd", "dq", "dkv", "onepass"),
                      fa._kernels_for(dtype, width)))

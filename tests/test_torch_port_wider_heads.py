@@ -3,14 +3,13 @@ and the route each (dtype, width) takes on the card.
 
 Past 256, ``flash_attention`` zero-pads a head dim to the next multiple
 of 128, as the JAX package's ``_d_pad`` pads every head dim (zero columns
-add 0 to every product), and slices the outputs back; on the card the
-bf16 and f16 backward and the f32 one-pass there run the CUDA-core
-kernels (``csrc/flash_simt.cu``), which split the width into 128-column
-panels, one block each, and cast as the plain versions run here do; the
-forward runs on Hopper in bf16 and f16 (``csrc/flash_fwd.cu``: o in
-panels of 256 columns and a last one of 128) and in f32
-(``csrc/flash_fwd_f32.cu``, split TF32: o in panels of 128 columns), and
-so do the f32 dq and dk/dv (``csrc/flash_bwd_f32.cu``).  The
+add 0 to every product), and slices the outputs back; on the card all
+four flash kernels run on Hopper in every dtype: in bf16 and f16 the
+forward, dq, dk/dv and one-pass (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_bwd_onepass.cu``: the outputs in
+panels of 256 columns and a last one of 128), in f32 split TF32
+(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``: panels of 128
+columns).  The
 JAX side runs ``horovod_tpu.ops.pallas_kernels.flash_attention`` with its
 Pallas kernels in interpret mode, under both backward choices
 (``HVD_TPU_FLASH_BWD``, read by both packages).
@@ -65,17 +64,16 @@ def test_padded_head_dim_is_the_references_past_256(d):
                                    torch.bfloat16])
 @pytest.mark.parametrize("width", [384, 512, 640, 1024])
 def test_route_past_256(dtype, width):
-    """Every dtype at a multiple of 128 past 256: bf16 and f16 the forward,
-    dq and dk/dv on Hopper (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``,
-    ``flash_bwd_dkv_kernel``) and the one-pass on the CUDA cores; f32 all
-    four on Hopper (split TF32, ``F32_KERNELS``); each kernel taking the
-    dtype and the width."""
+    """Every dtype at a multiple of 128 past 256: bf16 and f16 all four on
+    Hopper (``HOPPER_KERNELS``: the forward, dq, dk/dv and one-pass), f32
+    all four on Hopper (split TF32, ``F32_KERNELS``), none on the CUDA
+    cores; each kernel taking the dtype and the width."""
     route = fa._kernels_for(dtype, width)
     if dtype == torch.float32:
         assert route == fa.F32_KERNELS
     else:
-        assert route == fa.HOPPER_KERNELS[:3] + (
-            fa.flash_bwd_onepass_simt_kernel,)
+        assert route == fa.HOPPER_KERNELS
+    assert not set(route) & set(fa.SIMT_KERNELS)
     for kern in route:
         assert dtype in kern.dtypes and width in kern.widths
 

@@ -82,16 +82,25 @@ stored over the first's partial instead of added to it, a causal slot's
 rows above its diagonal left unwritten, the last panel's partial columns
 past 256 left unwritten, and dS read from the exchange tile before its
 barrier (a race, held at BERT-Large's shape and at S 2048 at D 256 and
-384).  Past 256 the Hopper dq and dk/dv are their panel kernels
-(``flash_bwd_dq_wide_kernel``, ``flash_bwd_dkv_wide_kernel``), held at
-the Hopper units past 256 (HOPPER_FWD_SHAPES at 384 and 640, and
-WIDE_BH_D384_SHAPE, in bf16 and f16, with the panel agreement); four
-faults are theirs and must fail there alone (``ONLY_AT``) and in no other
-kernel (``ONLY_KERNEL``): the panel blocks after panel 0 streaming the
-score chunks in another order (which must fail the panel agreement and
-no other output, ``ONLY_OUTPUT``), the last 128-column panel not
-launched, dq's last 64-column chunk of dP dropped, and dk/dv's consumer
-1 reading P^T before its barrier.  The older
+384).  Past 256 the Hopper dq, dk/dv and one-pass are their panel
+kernels (``flash_bwd_dq_wide_kernel``, and ``flash_bwd_dkv_wide_kernel``
+and ``flash_bwd_onepass_wide_kernel`` on ``flash_bwd_kv.cuh``'s
+``wide::kv_body``), held at the Hopper units past 256
+(HOPPER_FWD_SHAPES at 384 and 640, and WIDE_BH_D384_SHAPE, in bf16 and
+f16, with the panel agreement, the one-pass's partials also in a
+NaN-poisoned block and over a second launch); eight faults are theirs
+and must fail there alone (``ONLY_AT``) and in no other kernel
+(``ONLY_KERNEL``): the panel blocks after panel 0 streaming the score
+chunks in another order (which must fail the panel agreement and no
+other output, ``ONLY_OUTPUT``), the last 128-column panel not launched,
+dq's last 64-column chunk of dP dropped, consumer 1 of the shared body
+reading P^T before its barrier (dk/dv and the one-pass), and four of the
+one-pass's, which must fail no kernel but it: a 128-row slot's second k
+block stored over the first's partial instead of added to it, the last
+128-column panel's partial columns left unwritten, consumer 0 reading
+dS^T before its barrier (a race, made to lose by a sleep in consumer 1
+before its write), and a causal slot's rows above its diagonal left
+unwritten.  The older
 dq and dk/dv faults (the masks, the diagonal tile, K's transpose bit,
 rows past S, the last q tile, f16 read as bf16) lie in code that every
 width runs (dq's row reads, live tiles and dS are ``dqtile``'s helpers,
@@ -141,8 +150,9 @@ _DQ_MAP = "panel_map<D>(&mdq, dq, s, bh, 64)"
 # dq's row stores at D 256
 _DQ256_STORE = ("        if (row < S) {\n#pragma unroll\n"
                 "          for (int j = 0; j < D / 8; ++j)")
-# the comment above the Hopper dk/dv consumers' lse and delta reads past 256
-_DKV_WIDE_ROWS = ("      // lse (consumer 0, in log2 units) or delta (consumer 1) "
+# the comment above the Hopper dk/dv and one-pass consumers' lse and delta
+# reads past 256
+_DKV_WIDE_ROWS = ("        // lse (consumer 0, in log2 units) or delta (consumer 1) "
                   "of this")
 # the CUDA-core kernels' loops over the 128-column panels of the scores
 _SIMT_PANELS = tuple("for (int p = 0; p < np; ++p) {  // " + c for c in (
@@ -228,14 +238,14 @@ FAULTS = {
         "one-pass at D 256: a k block's dq partial stored into the next "
         "64-row block's slot (the last block's into its own)"),
     "onepass_d256_ds_before_barrier": (
-        _KV, "        mbar_wait(dsfull, i & 1);",
-        "        if (wg == 1) mbar_wait(dsfull, i & 1);",
+        _KV, "\n        mbar_wait(dsfull, i & 1);",
+        "\n        if (wg == 1) mbar_wait(dsfull, i & 1);",
         "one-pass at D 256: consumer 0 reads the dS^T tile without waiting "
         "for consumer 1's barrier (a race: the last tile's dS, or a half "
         "written one)"),
     "onepass_d256_last_chunk": (
-        _KV, "            for (int j = 0; j < PN / 8; ++j)",
-        "            for (int j = 0; j < PN / 8 - 8 * wg; ++j)",
+        _KV, "\n            for (int j = 0; j < PN / 8; ++j)",
+        "\n            for (int j = 0; j < PN / 8 - 8 * wg; ++j)",
         "one-pass at D 256: the last 64-column chunk of the dq partial "
         "(consumer 1's store of columns 192-255) left unwritten"),
     "onepass_d256_dead_rows": (
@@ -511,22 +521,23 @@ FAULTS = {
         "without waiting for consumer 1 to write it (a race: P^T or a part "
         "of dS)"),
     "bwd_wide_panel_chunk_order": (
-        "flash_bwd.cu",
+        ("flash_bwd.cu", _KV),
         ("          const int s = n % SA, col = CW * (c % nc);",
-         "          const int s = n % SR, col = CW * c, "
+         "            const int s = n % SR, col = CW * c, "
          "par = ((n / SR) & 1) ^ 1;"),
         ("          const int s = n % SA, col = CW * ((c + z) % nc);",
-         "          const int s = n % SR, col = CW * ((c + z) % nc), "
+         "            const int s = n % SR, col = CW * ((c + z) % nc), "
          "par = ((n / SR) & 1) ^ 1;"),
-        "Hopper dq and dk/dv past 256: a panel block other than panel 0 "
-        "streams the score chunks from chunk z on (S and dP summed in "
-        "another order, so P and dS off in their last bits)"),
+        "Hopper dq, dk/dv and one-pass past 256: a panel block other than "
+        "panel 0 streams the score chunks from chunk z on (S and dP summed "
+        "in another order, so P and dS off in their last bits)"),
     "bwd_wide_last_panel": (
-        "flash_bwd.cu",
+        _KV,
         "  if (err == cudaSuccess && d % 256) err = launch128(d / 256, 1);",
         "  (void)launch128;",
-        "Hopper dq and dk/dv past 256: the last 128-column panel not "
-        "launched (its columns of dq, dk and dv left unwritten)"),
+        "Hopper dq, dk/dv and one-pass past 256: the last 128-column panel "
+        "not launched (its columns of dq, dk, dv and the partials left "
+        "unwritten)"),
     "dq_wide_dp_last_chunk": (
         "flash_bwd.cu",
         "          tma_load_3d(sc, c < nc ? mq : mg, &cfull[s], col, q0, bh);",
@@ -535,17 +546,45 @@ FAULTS = {
         "Hopper dq past 256: dP's last 64-column chunk dropped (dO's chunk "
         "read past the tensor's width: zeros)"),
     "dkv_wide_pt_before_barrier": (
-        "flash_bwd.cu",
+        _KV,
         (_DKV_WIDE_ROWS,
-         "              d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);"),
-        ("      float pt[BQ / 2];\n#pragma unroll\n"
-         "      for (int x = 0; x < BQ / 2; ++x) pt[x] = wg ? xp[x * 128 + t] "
+         "                d[e] = xp[x * 128 + t] * (st[x] - rv[2 * j + e]);"),
+        ("        float pt[BQ / 2];\n#pragma unroll\n"
+         "        for (int x = 0; x < BQ / 2; ++x) pt[x] = wg ? xp[x * 128 + t] "
          ": 0.f;\n"
          + _DKV_WIDE_ROWS,
-         "              d[e] = pt[x] * (st[x] - rv[2 * j + e]);"),
-        "Hopper dk/dv past 256: consumer 1 reads the P^T hand-over before "
-        "its barrier (at the start of each q tile, before its dP^T: the last "
-        "tile's P^T, or whatever the tile held)"),
+         "                d[e] = pt[x] * (st[x] - rv[2 * j + e]);"),
+        "Hopper dk/dv and one-pass past 256 (one body): consumer 1 reads "
+        "the P^T hand-over before its barrier (at the start of each q tile, "
+        "before its dP^T: the last tile's P^T, or whatever the tile held)"),
+    "onepass_wide_second_block_stored_over": (
+        _KV, "            if (b > 0) {", "            if (b < 0) {",
+        "Hopper one-pass past 256: a 128-row slot's second k block stores "
+        "its partial over the first's instead of adding to it"),
+    "onepass_wide_last_panel": (
+        _KV, "              if (q0 + row < S) {",
+        "              if (q0 + row < S && W == 256) {",
+        "Hopper one-pass past 256: the last 128-column panel's partial "
+        "columns left unwritten (dk and dv whole)"),
+    "onepass_wide_ds_before_barrier": (
+        _KV,
+        ("            // dS^T (k rows, q columns) to shared memory: both "
+         "consumers'",
+         "          mbar_wait(dsfull, i & 1);"),
+        ("            __nanosleep(10000);\n"
+         "            // dS^T (k rows, q columns) to shared memory: both "
+         "consumers'",
+         "          if (wg) mbar_wait(dsfull, i & 1);"),
+        "Hopper one-pass past 256: consumer 0 reads dS^T for its partial "
+        "without waiting for consumer 1 to write it (a race, made to lose "
+        "by 10 us of sleep in consumer 1 before its write: the last tile's "
+        "dS^T, or whatever the tile held)"),
+    "onepass_wide_dead_rows": (
+        _KV, "      if (CAUSAL)\n        for (int e = t + 128 * wg;",
+        "      if (!CAUSAL)\n        for (int e = t + 128 * wg;",
+        "Hopper one-pass past 256: a causal slot's rows above its diagonal "
+        "left unwritten (zeroed in a full one instead, where the partial "
+        "then overwrites them)"),
     "bn_bwd_dx_last_tile": (
         "batch_norm.cu",
         "  float k[VEC], dbm[VEC], dgm[VEC];\n",
@@ -714,7 +753,15 @@ MUST_FAIL_AT = {"bn_stats_last_chunk": {"stem"},
                 # and sums six or ten dP chunks
                 "dq_wide_dp_last_chunk": wide_labels(PAST256),
                 # a stale P^T from the second q tile on
-                "dkv_wide_pt_before_barrier": wide_labels(WIDER[:1])}
+                "dkv_wide_pt_before_barrier": wide_labels(WIDER[:1]),
+                # every unit past 256 but S 64 (one k block) has a slot
+                # whose second k block adds to the first's partial
+                "onepass_wide_second_block_stored_over": wide_labels(WIDER),
+                "onepass_wide_last_panel": wide_labels(PAST256),
+                "onepass_wide_ds_before_barrier": wide_labels(WIDER[:1]),
+                # the causal units with a second slot (S 2048, S 130)
+                "onepass_wide_dead_rows": wide_labels(
+                    (WIDER[0], WIDER[1], WIDER[3]))}
 # Faults that must fail nowhere but at these units: the D 256 code's own;
 # the one-pass's at 256 also in no kernel but the one-pass.
 ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
@@ -729,12 +776,15 @@ ONLY_AT = {"dq_d256_last_chunk": wide_labels(D256),
            "f32_fwd_mask_off_by_one": f32_labels(F32_ALL)}
 ONLY_AT.update({name: f32_labels(F32_ALL) for name in FAULTS
                 if name.startswith(("f32_bwd", "f32_onepass"))})
-# The Hopper dq's and dk/dv's plants past 256 fail nowhere but there.
-PAST256_FAULTS = {"bwd_wide_panel_chunk_order": {"flash_bwd_dq",
-                                                 "flash_bwd_dkv"},
-                  "bwd_wide_last_panel": {"flash_bwd_dq", "flash_bwd_dkv"},
+# The Hopper dq's, dk/dv's and one-pass's plants past 256 fail nowhere but
+# there (the dk/dv and one-pass kernels past 256 share a body).
+_WIDE_KV = {"flash_bwd_dkv", "flash_bwd_onepass"}
+PAST256_FAULTS = {"bwd_wide_panel_chunk_order": {"flash_bwd_dq"} | _WIDE_KV,
+                  "bwd_wide_last_panel": {"flash_bwd_dq"} | _WIDE_KV,
                   "dq_wide_dp_last_chunk": {"flash_bwd_dq"},
-                  "dkv_wide_pt_before_barrier": {"flash_bwd_dkv"}}
+                  "dkv_wide_pt_before_barrier": _WIDE_KV}
+PAST256_FAULTS.update({name: {"flash_bwd_onepass"} for name in FAULTS
+                       if name.startswith("onepass_wide")})
 ONLY_AT.update({name: wide_labels(PAST256) for name in PAST256_FAULTS})
 # The one-pass's plants at 256 and in f32 fail no kernel but the one-pass;
 # the f32 backward's none but the f32 dq, dk/dv and one-pass (whose body

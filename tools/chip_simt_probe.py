@@ -7,7 +7,7 @@ bf16, and the f32 forward, dq and dk/dv on Hopper (``flash_fwd_f32.cu``,
 ``flash_bwd_f32.cu``), on one GPU.
 
     python3 tools/chip_simt_probe.py [--wide-fwd] [--wide-bwd] [--wider-bwd]
-                                     [--wide-onepass]
+                                     [--wide-onepass] [--wider-onepass]
                                      [--f32-fwd] [--f32-split] [--f32-bwd]
                                      [--f32-onepass]
                                      [--sdpa-kernels] [--watchdog]
@@ -15,6 +15,8 @@ bf16, and the f32 forward, dq and dk/dv on Hopper (``flash_fwd_f32.cu``,
     python3 tools/chip_simt_probe.py --narrow-bwd [--tree DIR]
     python3 tools/chip_simt_probe.py --f32-bwd-times [--tree DIR]
     python3 tools/chip_simt_probe.py --f32-bwd-parts
+    python3 tools/chip_simt_probe.py --wider-onepass-times [--tree DIR]
+    python3 tools/chip_simt_probe.py --wider-onepass-parts
 
 Builds the kernels, prints the card, the build time and ``nvcc``'s
 register and spill report for those four sources, then each kernel's
@@ -47,6 +49,10 @@ chip_smoke's Hopper limits, the partials in a NaN-poisoned block), and at
 the decoder's shape at 256 the device ms of the kernel, of the kernel
 with the partials' sum (``flash_bwd`` under ``pallas_onepass``), of its
 CUDA-core twin and of SDPA's whole backward.
+``--wider-onepass`` does the same past 256 (128-row partial slots):
+readings at WIDER_HEAD_SHAPES (with the panel agreement and a second
+launch bit for bit) and WIDE_BH_D384_SHAPE, times at the decoder's shape
+at 384 and at DECODER_D512_SHAPE, beside the Hopper dq and dk/dv too.
 ``--f32-fwd`` probes the f32 forward on Hopper (``flash_fwd_f32.cu``,
 split TF32) alone: its report, its readings at chip_smoke's
 F32_FWD_SHAPES (past 256 with the panel agreement) and WIDE_BH_SHAPE
@@ -115,7 +121,15 @@ that in turns on this checkout and on copies under ``build/`` whose f32
 dq and dk/dv leave out dP (``no_dp``), the split-TF32 score products
 (``no_scores``: S and S^T from their fragments' bits) or the output
 products (``no_outputs``), and this checkout again, each in a process of
-its own: what each part costs (their outputs are not held); ``--tree DIR`` takes
+its own: what each part costs (their outputs are not held);
+``--wider-onepass-times`` times only the Hopper one-pass past 256 (alone
+and with the partials' sum, where the tree's one-pass takes the width)
+and the Hopper dq and dk/dv in bf16 at the decoder's shape at 384 and at
+DECODER_D512_SHAPE, 20 calls each, and ``--wider-onepass-parts`` runs it
+in turns on this checkout and on copies whose one-pass past 256 leaves
+out the second k block's read-back (``no_readback``), the partial's
+stores (``no_stores``) or its product and stores (``no_partial``), and
+this checkout again; ``--tree DIR`` takes
 ``chip_smoke.py``
 and the package from another checkout (an unpacked parent commit, say,
 under ``build/``), so that one call can time two trees in turns.
@@ -247,14 +261,19 @@ def wide_bwd(cs, fa, torch, wider=False):
             torch.cuda.empty_cache()
 
 
-def wide_onepass(cs, fa, torch):
-    """The Hopper one-pass at 256: readings, then times beside the
-    variant with the partials' sum, its CUDA-core twin and SDPA's
-    backward."""
+def wide_onepass(cs, fa, torch, wider=False):
+    """The Hopper one-pass at 256 (past it with ``wider``: at 384 and 640,
+    its panels and a second launch too): readings, then times beside the
+    variant with the partials' sum, its CUDA-core twin and SDPA's backward
+    at the decoder's shape at that width (past 256 also beside the Hopper
+    dq and dk/dv, and at the hd512 decoder's attention, D 512)."""
     import torch.nn.functional as F
+    held = ([*cs.WIDER_HEAD_SHAPES, cs.WIDE_BH_D384_SHAPE] if wider else
+            [*cs.WIDE_HEAD_SHAPES, cs.WIDE_BH_D256_SHAPE])
+    timed = ([cs.WIDER_HEAD_SHAPES[0], cs.DECODER_D512_SHAPE] if wider else
+             [cs.WIDE_HEAD_SHAPES[0]])
     for dtype in ("bfloat16", "float16"):
-        for bh, s, d, causal in (list(cs.WIDE_HEAD_SHAPES)
-                                 + [cs.WIDE_BH_D256_SHAPE]):
+        for bh, s, d, causal in held:
             errs, poisoned, _, _ = cs.kernel_errors(
                 fa, *cs.kernel_inputs(bh, s, d, dtype), causal)
             torch.cuda.synchronize()
@@ -265,29 +284,34 @@ def wide_onepass(cs, fa, torch):
                   flush=True)
             torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float16"):
-        bh, s, d, causal = cs.WIDE_HEAD_SHAPES[0]
-        q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
-        o, lse = fa.flash_fwd_kernel(q, k, v, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        bwd = (q, k, v, do, lse, delta, causal)
-        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
-                      for t in (q, k, v))
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                              scale=1.0)
-        do4 = do.view(1, bh, s, d)
-        times = {"onepass": cs.time_ms(
-            lambda: fa.flash_bwd_onepass_kernel(*bwd), reps=20)}
-        with cs.flash_bwd_env("pallas_onepass"):
-            times["onepass_and_sum"] = cs.time_ms(lambda: fa.flash_bwd(*bwd),
-                                                  reps=20)
-        times["onepass_simt"] = cs.time_ms(
-            lambda: fa.flash_bwd_onepass_simt_kernel(*bwd), reps=3)
-        times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
-            out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
-        print("times one-pass", dtype, cs.shape_label(bh, s, d, causal),
-              times, flush=True)
-        del q, k, v, do, o, q4, k4, v4, out4, do4, bwd
-        torch.cuda.empty_cache()
+        for bh, s, d, causal in timed:
+            q, k, v, do = cs.kernel_inputs(bh, s, d, dtype)
+            o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, causal)
+            q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_()
+                          for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal, scale=1.0)
+            do4 = do.view(1, bh, s, d)
+            times = {"onepass": cs.time_ms(
+                lambda: fa.flash_bwd_onepass_kernel(*bwd), reps=20)}
+            with cs.flash_bwd_env("pallas_onepass"):
+                times["onepass_and_sum"] = cs.time_ms(
+                    lambda: fa.flash_bwd(*bwd), reps=20)
+            if wider:
+                times["dq"] = cs.time_ms(
+                    lambda: fa.flash_bwd_dq_kernel(*bwd), reps=20)
+                times["dkv"] = cs.time_ms(
+                    lambda: fa.flash_bwd_dkv_kernel(*bwd), reps=20)
+            times["onepass_simt"] = cs.time_ms(
+                lambda: fa.flash_bwd_onepass_simt_kernel(*bwd), reps=3)
+            times["sdpa_bwd"] = cs.time_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), reps=20)
+            print("times one-pass", dtype, cs.shape_label(bh, s, d, causal),
+                  times, flush=True)
+            del q, k, v, do, o, q4, k4, v4, out4, do4, bwd
+            torch.cuda.empty_cache()
 
 
 def f32_fwd(cs, fa, torch):
@@ -537,6 +561,62 @@ F32_BWD_PARTS = (
      "      mma3<W>("))
 
 
+# The Hopper one-pass past 256 with a part of its dq partial left out, in
+# copies of flash_bwd_kv.cuh: the second k block's read-back (it stores
+# over the first's partial), the partial's stores (and so the read-back),
+# the partial's product and stores (the dS^T hand-over and K's panel
+# stay).
+WIDER_ONEPASS_PARTS = (
+    ("no_readback", "            if (b > 0) {", "            if (b < 0) {"),
+    ("no_stores", "              if (q0 + row < S) {",
+     "              if (q0 + row < 0) {"),
+    ("no_partial", "          for (int pc = 0; pc < PN / 64; ++pc) {",
+     "          for (int pc = 0; pc < 0; ++pc) {"),
+)
+
+
+def wider_onepass_times(cs, fa, torch):
+    """Device ms (20 calls each) in bf16 at the decoder's shape at 384 and
+    at DECODER_D512_SHAPE of the Hopper one-pass, alone and with the
+    partials' sum, where the tree's one-pass takes the width, and of the
+    Hopper dq and dk/dv; no readings, no report."""
+    for bh, s, d, causal in (cs.WIDER_HEAD_SHAPES[0], cs.DECODER_D512_SHAPE):
+        q, k, v, do = cs.kernel_inputs(bh, s, d, "bfloat16")
+        o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, causal)
+        times = {}
+        if d in fa.flash_bwd_onepass_kernel.widths:
+            times["onepass"] = cs.time_ms(
+                lambda: fa.flash_bwd_onepass_kernel(*bwd), reps=20)
+            with cs.flash_bwd_env("pallas_onepass"):
+                times["onepass_and_sum"] = cs.time_ms(
+                    lambda: fa.flash_bwd(*bwd), reps=20)
+        times["dq"] = cs.time_ms(lambda: fa.flash_bwd_dq_kernel(*bwd),
+                                 reps=20)
+        times["dkv"] = cs.time_ms(lambda: fa.flash_bwd_dkv_kernel(*bwd),
+                                  reps=20)
+        print("times bfloat16", cs.shape_label(bh, s, d, causal), times,
+              flush=True)
+        del q, k, v, do, o, lse, delta, bwd
+        torch.cuda.empty_cache()
+
+
+def wider_onepass_parts(repo):
+    """``--wider-onepass-times`` on this checkout, on each
+    WIDER_ONEPASS_PARTS copy and on this checkout again, each in a process
+    of its own."""
+    trees = [repo] + [probe_copy(repo, "onepass-" + name, "flash_bwd_kv.cuh",
+                                 (old,), (new,))
+                      for name, old, new in WIDER_ONEPASS_PARTS] + [repo]
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--wider-onepass-times", "--tree", tree]
+                             ).returncode
+    return rc
+
+
 def f32_bwd_parts(repo):
     """``--f32-bwd-times`` on this checkout, on each F32_BWD_PARTS copy
     and on this checkout again, each in a process of its own."""
@@ -603,6 +683,8 @@ def main(argv) -> int:
                           HEAD_MAJOR)
     if "--f32-bwd-parts" in argv:
         return f32_bwd_parts(repo)
+    if "--wider-onepass-parts" in argv:
+        return wider_onepass_parts(repo)
     if "--tree" in argv:
         repo = os.path.abspath(argv[argv.index("--tree") + 1])
     sys.path.insert(0, repo)
@@ -626,16 +708,21 @@ def main(argv) -> int:
             return 0
     t0 = time.perf_counter()
     print("build", _build.build_all(), time.perf_counter() - t0, flush=True)
-    if "--narrow-bwd" in argv or "--f32-bwd-times" in argv:
-        print("tree", repo, flush=True)
-        (narrow_bwd if "--narrow-bwd" in argv else f32_bwd_times)(cs, fa,
-                                                                  torch)
-        return 0
+    times = {"--narrow-bwd": narrow_bwd, "--f32-bwd-times": f32_bwd_times,
+             "--wider-onepass-times": wider_onepass_times}
+    for arg, run in times.items():
+        if arg in argv:
+            print("tree", repo, flush=True)
+            run(cs, fa, torch)
+            return 0
     wide = {"--wide-fwd": ("flash_fwd", wide_fwd),
             "--wide-bwd": ("flash_bwd", wide_bwd),
             "--wider-bwd": ("flash_bwd", lambda cs, fa, torch: wide_bwd(
                 cs, fa, torch, wider=True)),
             "--wide-onepass": ("flash_bwd_onepass", wide_onepass),
+            "--wider-onepass": ("flash_bwd_onepass",
+                                lambda cs, fa, torch: wide_onepass(
+                                    cs, fa, torch, wider=True)),
             "--f32-fwd": ("flash_fwd_f32", f32_fwd),
             "--f32-bwd": ("flash_bwd_f32", f32_bwd),
             "--f32-onepass": ("flash_bwd_f32", f32_onepass)}
